@@ -1,0 +1,194 @@
+"""Attention plan, centroid store and backends (counterpart of
+``repro.backends.base``).
+
+- :class:`AttentionPlan`: the per-layer ragged layouts for one
+  ``(model_cfg, context_len)``; sparse attention is active only when
+  ``context_len >= 2 * budget``.
+- :class:`CentroidStore`: the flattened ragged rank-key store (INT4
+  split-half packed codes, per-(sequence, head, channel) or per-row affine
+  params), shared by both backends.
+- :class:`AttentionBackend`: store build / maintenance, sparse prefill and
+  decode.  ``"reference"`` runs the kernels' plain versions; ``"cuda"``
+  launches the hand-written kernels (their plain versions on CPU tensors).
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig, SparseConfig
+from repro_torch.core.centroids import padded_rank_key_width, rank_query
+from repro_torch.core.quantization import store_bits, store_symmetric
+from repro_torch.core.ragged import RaggedLayout, layout_for
+from repro_torch.core.stacked import LayoutArrays, stack_layouts
+
+
+@dataclass
+class CentroidStore:
+    """``codes``: ``[B, rows, Dp]`` f32 (bits 0), ``[B, rows, Dp]`` uint8
+    (INT8) or ``[B, rows, Dp // 2]`` uint8 (INT4).  ``scale``/``zero``:
+    ``[B, n_kv, Dp]`` for the decode store, ``[B, rows, 1]`` for the
+    prefill score segment."""
+
+    codes: torch.Tensor
+    scale: Optional[torch.Tensor]
+    zero: Optional[torch.Tensor]
+    bits: int
+    symmetric: bool = False
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    backend: str
+    sparse: SparseConfig
+    n_layers: int
+    n_kv_heads: int
+    head_dim: int
+    context_len: int
+    active: bool
+    layouts: Tuple[RaggedLayout, ...] = ()
+
+    @property
+    def rank_key_width(self) -> int:
+        return padded_rank_key_width(self.head_dim, self.sparse.centroid_method)
+
+    def stacked(self, device) -> LayoutArrays:
+        """All layer layouts as one ``[L, ...]`` tensor stack on ``device``."""
+        return stack_layouts(list(self.layouts), device)
+
+
+@functools.lru_cache(maxsize=128)
+def build_plan(model_cfg: ModelConfig, context_len: int) -> AttentionPlan:
+    sp = model_cfg.sparse
+    active = context_len >= 2 * sp.budget_for(context_len)
+    layouts: Tuple[RaggedLayout, ...] = ()
+    if active:
+        budget = sp.budget_for(context_len)
+        layouts = tuple(
+            layout_for(
+                sp.layer_block_sizes(l, model_cfg.n_kv_heads),
+                context_len, sp.page_size, budget,
+            )
+            for l in range(model_cfg.n_layers)
+        )
+    return AttentionPlan(
+        backend=sp.backend, sparse=sp, n_layers=model_cfg.n_layers,
+        n_kv_heads=model_cfg.n_kv_heads,
+        head_dim=model_cfg.resolved_head_dim, context_len=context_len,
+        active=active, layouts=layouts,
+    )
+
+
+class AttentionBackend:
+    """Store build / maintenance is shared (byte-identical stores whatever
+    runs attention); prefill and decode run the kernels, or the plain
+    versions when ``plain`` is set."""
+
+    name: str = "?"
+    plain: bool = True
+
+    # -- stores ---------------------------------------------------------------
+
+    def prefill_store(self, k_cache, la, sparse) -> CentroidStore:
+        from repro_torch.backends.store import build_store_codes
+
+        return build_store_codes(k_cache, la, sparse)
+
+    def prefill_score_rows(self, k_cache, la, sparse, sel_nb=None) -> CentroidStore:
+        from repro_torch.backends.store import build_score_rows
+
+        q = sparse.quant
+        codes, scale, zero = build_score_rows(k_cache, la, sparse, q, sel_nb)
+        return CentroidStore(codes, scale, zero, store_bits(q), store_symmetric(q))
+
+    def prefill_stores(self, k_cache, la, sparse):
+        """(decode store, prefill score segment) from one page-stats pass."""
+        from repro_torch.backends.store import _selected_rank_keys, build_store_codes
+
+        sel_nb = _selected_rank_keys(k_cache, la, sparse)
+        store = build_store_codes(k_cache, la, sparse, sel_nb=sel_nb)
+        score = self.prefill_score_rows(k_cache, la, sparse, sel_nb=sel_nb)
+        return store, score
+
+    def refresh_score_rows(self, score_store: CentroidStore, k_cache, la,
+                           chunk_start: int, chunk_end: int, sparse,
+                           window: int) -> CentroidStore:
+        """Re-encode, in place, the score rows completed by a chunk."""
+        from repro_torch.backends.store import refresh_score_rows
+
+        refresh_score_rows(
+            score_store.codes, score_store.scale, score_store.zero, k_cache,
+            la, chunk_start, chunk_end, sparse, window,
+            score_store.bits, score_store.symmetric,
+        )
+        return score_store
+
+    def append(self, store: CentroidStore, k_cache, la, seq_len, sparse):
+        """Refresh, in place, the row of the block holding the newest token."""
+        from repro_torch.backends.store import refresh_tail_codes
+
+        refresh_tail_codes(store, k_cache, la, seq_len, sparse)
+        return store
+
+    # -- attention ----------------------------------------------------------
+
+    def prefill_attention(self, q, k, v, score_store, la, sparse,
+                          n_valid=None, chunk_offset: int = 0):
+        """Query-block sparse prefill -> (out [B, Hq, Sq, D],
+        n_attended [B, n_kv, nQB])."""
+        from repro_torch.kernels import ops
+
+        rq = rank_query(q, sparse.centroid_method, q.shape[-1])
+        fn = ops.sparse_prefill_reference if self.plain else ops.sparse_prefill
+        return fn(
+            q, rq, k, v, score_store, la,
+            sink_pages=sparse.sink_pages, local_pages=sparse.local_pages,
+            block_q=sparse.prefill_block_q,
+            topk_scale=sparse.prefill_topk_scale,
+            n_valid=n_valid, chunk_offset=chunk_offset,
+        )
+
+    def decode(self, q, k, v, store, la, sparse, seq_len):
+        """Score -> top-K_h -> attend -> (out [B, n_q, D],
+        page_table [B, H, P_sel], page_valid [B, H, P_sel])."""
+        from repro_torch.kernels import ops
+
+        rq = rank_query(q, sparse.centroid_method, q.shape[-1])
+        fn = ops.fused_decode_reference if self.plain else ops.fused_decode
+        return fn(q, rq, k, v, store, la, sparse.sink_pages, sparse.local_pages,
+                  seq_len)
+
+
+class ReferenceBackend(AttentionBackend):
+    name = "reference"
+    plain = True
+
+
+class CudaBackend(AttentionBackend):
+    name = "cuda"
+    plain = False
+
+
+_REGISTRY: Dict[str, AttentionBackend] = {}
+
+
+def register_backend(backend: AttentionBackend) -> AttentionBackend:
+    _REGISTRY[backend.name] = backend
+    return backend
+
+
+def get_backend(name: str) -> AttentionBackend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown attention backend {name!r}; available: "
+            f"{tuple(sorted(_REGISTRY))}"
+        ) from None
+
+
+register_backend(ReferenceBackend())
+register_backend(CudaBackend())

@@ -1,0 +1,115 @@
+"""Configuration schema of the PyTorch port (counterpart of ``repro.config``).
+
+Only what the serving path of a dense decoder reads: the AB-Sparse knobs
+(:class:`SparseConfig`), the architecture (:class:`ModelConfig`) and the
+serving engine's knobs (:class:`ServeConfig`).  Field names and defaults
+match the JAX package so one set of values configures both.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+CANDIDATE_BLOCK_SIZES: Tuple[int, ...] = (16, 32, 64)
+PAGE_SIZE: int = 16  # finest granularity == B_min; physical page size.
+
+
+@dataclass(frozen=True)
+class SparseConfig:
+    """AB-Sparse configuration (paper §3)."""
+
+    #: attention backend: "reference" (plain PyTorch) | "cuda" (hand-written
+    #: Hopper kernels; their plain versions on CPU tensors).  Decode is
+    #: always the single-launch score -> select -> attend path.
+    backend: str = "reference"
+    #: query-block sparse prefill (the port's prefill requires it on).
+    sparse_prefill: bool = False
+    prefill_topk_scale: float = 1.0
+    prefill_block_q: int = 64
+    page_size: int = PAGE_SIZE
+    candidate_block_sizes: Tuple[int, ...] = CANDIDATE_BLOCK_SIZES
+    #: token budget T shared by all heads.
+    token_budget: int = 4096
+    #: "mean" | "quest" | "arkvale"
+    centroid_method: str = "quest"
+    #: "none" | "int8_asym" | "int8_sym" | "int4_asym" | "int4_sym"
+    quant: str = "int4_asym"
+    #: initial (sink) and trailing (local) pages always kept.
+    sink_pages: int = 1
+    local_pages: int = 4
+    #: per-(layer, kv head) block sizes; None -> uniform_block_size.
+    block_sizes: Optional[Tuple[Tuple[int, ...], ...]] = None
+    uniform_block_size: int = 32
+
+    def layer_block_sizes(self, layer: int, n_kv_heads: int) -> Tuple[int, ...]:
+        if self.block_sizes is None:
+            return (self.uniform_block_size,) * n_kv_heads
+        row = self.block_sizes[layer]
+        assert len(row) == n_kv_heads
+        return tuple(row)
+
+    @property
+    def max_block_size(self) -> int:
+        sizes = set(self.candidate_block_sizes) | {self.uniform_block_size}
+        if self.block_sizes is not None:
+            for row in self.block_sizes:
+                sizes |= set(row)
+        return max(sizes)
+
+    def budget_for(self, context_len: int) -> int:
+        b = min(self.token_budget, context_len)
+        return (b // self.page_size) * self.page_size
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Dense decoder architecture (the port serves the ``("attn",)``
+    pattern with a SwiGLU MLP)."""
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    activation: str = "swiglu"
+    qkv_bias: bool = False
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    layer_pattern: Tuple[str, ...] = ("attn",)
+    sparse: SparseConfig = field(default_factory=SparseConfig)
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_batch: int = 128
+    max_context: int = 524288
+    page_size: int = PAGE_SIZE
+    temperature: float = 0.6
+    top_k: int = 20
+    top_p: float = 0.95
+    pool_pages: Optional[int] = None
+    #: tiered KV memory is not ported; the engine raises when it is set.
+    hbm_pages: Optional[int] = None
+    prefill_tokens_per_tick: int = 8192
+    prefill_chunk: int = 256
+    enable_prefix_cache: bool = True
+    interactive_ttft_slo: float = 1.0
+    batch_ttft_slo: float = 60.0
+    prefix_wait_ticks: int = 8
+
+    def slo_target(self, slo_class: str) -> float:
+        if slo_class == "interactive":
+            return self.interactive_ttft_slo
+        if slo_class == "batch":
+            return self.batch_ttft_slo
+        raise ValueError(f"unknown SLO class {slo_class!r}")

@@ -1,0 +1,80 @@
+"""Adaptive Top-K block selection + page-table expansion (counterpart of
+``repro.core.selection``); the plain version of the fused decode kernel's
+selection stage.
+
+Head h selects ``K_h = T / B_h`` blocks; block ``b`` of a head with
+``s = B_h / page`` pages per block covers pages ``[b*s, b*s + s)``, so the
+page table is a dense ``[B, H, selected_pages]`` tensor.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.stacked import LayoutArrays
+
+NEG_INF = -1e30
+POS_INF = 1e30
+
+
+def mask_and_pin_scores(
+    scores: torch.Tensor,          # [B, H, M]
+    la: LayoutArrays,
+    seq_len: torch.Tensor,         # [B] int32 live tokens
+    sink_pages: int = 1,
+    local_pages: int = 4,
+) -> torch.Tensor:
+    """Blocks at or past ``seq_len`` -> -inf; the first ``sink_pages`` and
+    last ``local_pages`` pages of the live context -> +inf (always kept)."""
+    starts = la.block_starts                                    # [H, M]
+    bsz = la.block_sizes[:, None]
+    sl = seq_len.to(torch.int32)[:, None, None]                 # [B, 1, 1]
+    valid = (starts < sl) & la.pad_mask
+    scores = torch.where(valid, scores, NEG_INF)
+    if sink_pages > 0:
+        sink_tok = sink_pages * la.page_size
+        pin = (starts < torch.clamp_max(sl, sink_tok)) & la.pad_mask
+        scores = torch.where(pin, POS_INF, scores)
+    if local_pages > 0:
+        lo = torch.clamp_min(sl - local_pages * la.page_size, 0)
+        pin = (starts + bsz > lo) & valid
+        scores = torch.where(pin, POS_INF, scores)
+    return scores
+
+
+def rank_blocks(
+    scores: torch.Tensor,
+    la: LayoutArrays,
+    seq_len: torch.Tensor,
+    sink_pages: int = 1,
+    local_pages: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask/pin and rank -> ``(vals, idx)`` of the ``max_top_k`` best blocks,
+    each ``[B, H, kmax]``.  A stable descending sort keeps the lower index
+    first on ties, as ``lax.top_k`` does (``torch.topk`` promises no order)."""
+    masked = mask_and_pin_scores(scores, la, seq_len, sink_pages, local_pages)
+    vals, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
+    return vals[..., : la.max_top_k], idx[..., : la.max_top_k].to(torch.int32)
+
+
+def select_page_table(
+    scores: torch.Tensor,
+    la: LayoutArrays,
+    seq_len: torch.Tensor,
+    sink_pages: int = 1,
+    local_pages: int = 4,
+    ranked: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scores ``[B, H, M]`` -> (page_table ``[B, H, P_sel]`` int32,
+    page_valid ``[B, H, P_sel]`` bool), slots in rank order."""
+    B = scores.shape[0]
+    if ranked is None:
+        ranked = rank_blocks(scores, la, seq_len, sink_pages, local_pages)
+    vals, idx = ranked
+    slot = la.slot_map.long().expand(B, -1, -1)
+    sel_blocks = torch.gather(idx, 2, slot)
+    sel_vals = torch.gather(vals, 2, slot)
+    table = sel_blocks * la.pages_per_block[None, :, None] + la.within_map[None]
+    table = torch.clamp(table, 0, la.n_pages - 1)
+    return table.to(torch.int32), sel_vals > NEG_INF / 2

@@ -1,0 +1,125 @@
+// Shared device helpers of the AB-Sparse Hopper kernels: the sortable-u32
+// encoding of f32 scores, the INT4/INT8 store dequant, block reductions and
+// the exact top-k threshold search (lax.top_k's lowest-index tie order).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define ABS_NEG_INF (-1e30f)
+#define ABS_POS_INF (1e30f)
+
+namespace absparse {
+
+constexpr int NT = 256;               // threads per block of both kernels
+constexpr int NWARPS = NT / 32;
+
+// f32 -> u32 whose unsigned order is the float order (sign bit flipped for
+// non-negatives, all bits flipped for negatives).
+__device__ __forceinline__ uint32_t to_sortable(float x) {
+  int32_t i = __float_as_int(x);
+  int32_t mask = (i >> 31) | (int32_t)0x80000000;
+  return (uint32_t)(i ^ mask);
+}
+
+// Channel c of one packed store row, dequantized: INT4 split-half (byte j
+// holds channels j and j + Dp/2 as low/high nibbles), INT8, or raw f32.
+// Multiply and add are rounded separately, as the plain version computes
+// them (no fused multiply-add).
+__device__ __forceinline__ float dequant(const uint8_t* row, int c, int Dp,
+                                         int bits, bool sym, float scale,
+                                         float zero) {
+  if (bits == 0) return reinterpret_cast<const float*>(row)[c];
+  float q;
+  if (bits == 4) {
+    const int half = Dp >> 1;
+    q = (c < half) ? (float)(row[c] & 0xF) : (float)(row[c - half] >> 4);
+  } else {
+    q = (float)row[c];
+  }
+  if (sym) {
+    const float qhi = (float)((1 << (bits - 1)) - 1);
+    return __fmul_rn(__fsub_rn(q, qhi), scale);
+  }
+  return __fadd_rn(__fmul_rn(q, scale), zero);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum of one int per thread over the block; every thread gets the total.
+// red: shared scratch of NWARPS ints.  Must be reached by all threads.
+__device__ __forceinline__ int block_sum_int(int v, int* red) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  v = warp_sum_int(v);
+  __syncthreads();
+  if (lane == 0) red[wid] = v;
+  __syncthreads();
+  int tot = 0;
+#pragma unroll
+  for (int w = 0; w < NWARPS; ++w) tot += red[w];
+  return tot;
+}
+
+// Exclusive rank of this thread's flag among the block's set flags (thread
+// order == index order); *total gets the number of set flags.
+__device__ __forceinline__ int block_excl_scan(bool f, int* red, int* total) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const unsigned m = __ballot_sync(0xffffffffu, f);
+  const int in_warp = __popc(m & ((1u << lane) - 1u));
+  __syncthreads();
+  if (lane == 0) red[wid] = __popc(m);
+  __syncthreads();
+  int off = 0, tot = 0;
+#pragma unroll
+  for (int w = 0; w < NWARPS; ++w) {
+    const int c = red[w];
+    if (w < wid) off += c;
+    tot += c;
+  }
+  *total = tot;
+  return off + in_warp;
+}
+
+// Exact k-th largest of s[0..n) as a sortable u32 (32-step binary search on
+// the count of entries >= candidate), plus the count strictly above it.
+// Selecting every entry above the threshold and the first (k - n_gt) ties
+// in index order reproduces lax.top_k's selected set.
+__device__ __forceinline__ uint32_t topk_threshold(const float* s, int n, int k,
+                                                   int* red, int* n_gt) {
+  uint32_t t = 0;
+  for (int i = 0; i < 32; ++i) {
+    const uint32_t cand = t | (1u << (31 - i));
+    int cnt = 0;
+    for (int j = threadIdx.x; j < n; j += NT) cnt += to_sortable(s[j]) >= cand;
+    cnt = block_sum_int(cnt, red);
+    if (cnt >= k) t = cand;
+  }
+  int gt = 0;
+  for (int j = threadIdx.x; j < n; j += NT) gt += to_sortable(s[j]) > t;
+  *n_gt = block_sum_int(gt, red);
+  return t;
+}
+
+__device__ __forceinline__ float bf2f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+}  // namespace absparse

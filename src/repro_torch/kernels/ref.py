@@ -1,0 +1,173 @@
+"""Plain PyTorch versions of the kernels' arithmetic (counterpart of
+``repro.kernels.ref``).
+
+Block scores are computed as a broadcast multiply and a sum over the
+channel axis (:func:`row_scores`), never as a matmul: the reduction order
+then does not depend on a row's position, so identical centroid rows (common
+under INT4) score identically and ties keep their lowest-index-first order.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.quantization import decode_affine, unpack_split_half
+from repro_torch.core.stacked import LayoutArrays
+
+NEG_INF = -1e30
+
+#: elements of one broadcast product chunk in :func:`row_scores`.
+_CHUNK_ELEMS = 1 << 25
+
+
+def row_scores(rk: torch.Tensor, rq: torch.Tensor) -> torch.Tensor:
+    """rk ``[..., M, Dp]``, rq ``[..., R, Dp]`` -> ``[..., R, M]`` with
+    ``out[..., r, m] = sum_c rk[..., m, c] * rq[..., r, c]`` (f32)."""
+    rk = rk.to(torch.float32)
+    rq = rq.to(torch.float32)
+    M, Dp = rk.shape[-2:]
+    R = rq.shape[-2]
+    lead = torch.broadcast_shapes(rk.shape[:-2], rq.shape[:-2])
+    per_row = max(1, math.prod(lead) * R * Dp)
+    step = max(1, _CHUNK_ELEMS // per_row)
+    outs = []
+    for m0 in range(0, M, step):
+        blk = rk[..., m0:m0 + step, :]
+        outs.append((blk.unsqueeze(-3) * rq.unsqueeze(-2)).sum(-1))
+    return torch.cat(outs, dim=-1)
+
+
+def dequant_store_rows(
+    codes: torch.Tensor,           # [B, rows, Cw]
+    scale: torch.Tensor,           # [B, n_kv, Dp] per-(sequence, head, channel)
+    zero: torch.Tensor,
+    la: LayoutArrays,
+    bits: int,
+    symmetric: bool,
+) -> torch.Tensor:
+    """Decode store -> f32 rank keys ``[B, rows, Dp]`` (the bytes the fused
+    decode kernel dequantizes in registers)."""
+    if bits == 0:
+        return codes.to(torch.float32)
+    unpacked = unpack_split_half(codes) if bits == 4 else codes
+    row_head = torch.repeat_interleave(la.tile_head.long(), la.tile_rows)
+    row_head = row_head[: codes.shape[1]]
+    return decode_affine(
+        unpacked, scale[:, row_head], zero[:, row_head], bits, symmetric
+    )
+
+
+def dequant_score_rows(
+    codes: torch.Tensor,           # [B, rows, Cw]
+    scale: torch.Tensor,           # [B, rows, 1] per-row
+    zero: torch.Tensor,
+    bits: int,
+    symmetric: bool,
+) -> torch.Tensor:
+    """Per-ROW affine prefill score rows -> f32 rank keys ``[B, rows, Dp]``."""
+    if bits == 0:
+        return codes.to(torch.float32)
+    unpacked = unpack_split_half(codes) if bits == 4 else codes
+    return decode_affine(unpacked, scale, zero, bits, symmetric)
+
+
+def sparse_prefill_ref(
+    q: torch.Tensor,               # [B, n_kv, nQB, g, BQ, D]
+    rq: torch.Tensor,              # [B, n_kv, nQB, g, BQ, Dp]
+    k_pages: torch.Tensor,         # [B, n_kv, n_pages, page, D]
+    v_pages: torch.Tensor,
+    rank_rows: torch.Tensor,       # [B, total_rows, Dp] f32 (dequantized)
+    la: LayoutArrays,              # one layer
+    k_sel: torch.Tensor,           # [H] int32 prefill-scaled top-K
+    n_valid: torch.Tensor,         # [B] int32
+    qb0: int,
+    block_q: int,
+    sink_pages: int,
+    local_pages: int,
+    extras: bool = False,
+):
+    """Forced (sink + local/diagonal) union top-K scored blocks per (b, head,
+    query block), then dense masked softmax over the selected blocks' keys.
+    -> (out [B, n_kv, nQB, g, BQ, D], n_attended [B, n_kv, nQB] int32), plus
+    with ``extras`` a dict of the selection (``selected``, ``cand``,
+    ``cand_scores`` ``[B, n_kv, nQB, M]``), the live query rows per cell
+    (``live_rows`` ``[B, nQB]``) and the causal (live row, selected key)
+    pairs per cell (``pairs`` ``[B, n_kv, nQB]``)."""
+    B, n_kv, nQB, g, BQ, D = q.shape
+    dev = q.device
+    M = la.max_blocks
+    ps = la.page_size
+    S = k_pages.shape[2] * ps
+    bsz = la.block_sizes.to(torch.int32)
+    nv = n_valid.to(torch.int32)
+
+    rk = rank_rows[:, la.scatter_rows.long()]                 # [B, H, M, Dp]
+    qb_idx = qb0 + torch.arange(nQB, device=dev, dtype=torch.int32)
+    qpos = qb_idx[:, None] * block_q + torch.arange(
+        BQ, device=dev, dtype=torch.int32
+    )[None, :]                                                # [nQB, BQ]
+    Dp = rq.shape[-1]
+    s = row_scores(rk, rq.reshape(B, n_kv, nQB * g * BQ, Dp))
+    s = s.reshape(B, n_kv, nQB, g, BQ, M)
+    live_q = qpos[None, None, :, None, :, None] < nv[:, None, None, None, None, None]
+    s = torch.where(live_q, s, NEG_INF).amax(dim=(3, 4))      # [B, H, nQB, M]
+
+    starts = la.block_starts[None, :, None, :]                # [1, H, 1, M]
+    q_start = qb_idx * block_q
+    q_end = torch.minimum(q_start[None, :] + block_q, nv[:, None]) - 1
+    causal = (
+        la.pad_mask[None, :, None, :]
+        & (starts <= q_end[:, None, :, None])
+        & (starts < nv[:, None, None, None])
+    )
+    forced = causal & (starts < sink_pages * ps)
+    lo = (q_start - local_pages * ps)[None, None, :, None]
+    forced = forced | (causal & (starts + bsz[None, :, None, None] > lo))
+    cand = causal & ~forced
+
+    masked = torch.where(cand, s, NEG_INF)
+    vals, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
+    slot_ok = (
+        torch.arange(M, device=dev)[None, None, None, :]
+        < k_sel[None, :, None, None]
+    ) & (vals > NEG_INF / 2)
+    scored = torch.zeros_like(cand).scatter(-1, idx, slot_ok)
+    qb_live = q_start[None, None, :, None] < nv[:, None, None, None]
+    selected = (forced | scored) & qb_live                    # [B, H, nQB, M]
+    n_att = selected.sum(-1).to(torch.int32)
+
+    key_block = torch.clamp_max(
+        torch.arange(S, device=dev, dtype=torch.int32)[None, :] // bsz[:, None],
+        M - 1,
+    ).long()                                                  # [H, S]
+    kd = k_pages.reshape(B, n_kv, S, D).to(torch.float32)
+    vd = v_pages.reshape(B, n_kv, S, D).to(torch.float32)
+    pos = torch.arange(S, device=dev, dtype=torch.int32)
+    outs, pairs = [], []
+    for qb in range(nQB):
+        sel_k = torch.gather(
+            selected[:, :, qb], 2, key_block[None].expand(B, -1, -1)
+        )                                                     # [B, H, S]
+        qf = q[:, :, qb].to(torch.float32)                    # [B, H, g, BQ, D]
+        logits = torch.einsum("bhgqd,bhsd->bhgqs", qf, kd) / math.sqrt(D)
+        ok = (
+            sel_k[:, :, None, None, :]
+            & (pos[None, None, None, None, :] <= qpos[qb][None, None, None, :, None])
+            & (pos[None, None, None, None, :] < nv[:, None, None, None, None])
+        )
+        logits = torch.where(ok, logits, NEG_INF)
+        any_ok = ok.any(dim=-1, keepdim=True)
+        probs = torch.where(any_ok, torch.softmax(logits, dim=-1), 0.0)
+        outs.append(torch.einsum("bhgqs,bhsd->bhgqd", probs, vd))
+        if extras:
+            live = (qpos[qb][None, :] < nv[:, None])[:, None, None, :, None]
+            pairs.append(g * (ok & live).sum(dim=(2, 3, 4)))
+    out = torch.stack(outs, dim=2).to(q.dtype)
+    if not extras:
+        return out, n_att
+    return out, n_att, {
+        "selected": selected, "cand": cand, "cand_scores": masked,
+        "live_rows": g * (qpos[None] < nv[:, None, None]).sum(-1),
+        "pairs": torch.stack(pairs, dim=2),
+    }

@@ -1,0 +1,310 @@
+"""Dense decoder with AB-Sparse attention (counterpart of
+``repro.models.transformer`` for the ``("attn",)`` pattern).
+
+Entry points:
+  prefill          prompt -> KV cache + decode store + prefill score segment
+  prefill_chunk    one prompt chunk of one batch slot (query-block sparse)
+  decode_step      one token for every slot: score -> top-K_h -> attend
+
+The JAX model scans over stacked layer parameters and donates its cache;
+here the layers are a Python loop over per-layer cache tensors, and every
+cache tensor (KV pages, stores, ``seq_len``) is updated in place.  Only the
+sparse path is ported: the plan must be active at ``max_context`` and
+``SparseConfig.sparse_prefill`` must be on.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.backends import AttentionPlan, CentroidStore, build_plan, get_backend
+from repro_torch.config import ModelConfig
+from repro_torch.core.quantization import store_bits, store_symmetric
+from repro_torch.models import layers
+from repro_torch.models.layers import DecoderLayer
+
+Cache = Dict[str, Any]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; CUDA must be present when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run the plain "
+            "versions of the kernels on the CPU"
+        )
+    return dev
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        if cfg.layer_pattern != ("attn",):
+            raise NotImplementedError(
+                f"layer pattern {cfg.layer_pattern} is not ported (dense "
+                "('attn',) stacks only)"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        d = cfg.d_model
+        mk = lambda shape: nn.Parameter(
+            torch.empty(shape, dtype=self.dtype, device=self.device),
+            requires_grad=False,
+        )
+        self.embed = mk((cfg.vocab_size, d))
+        self.final_norm = mk((d,))
+        self.lm_head = None if cfg.tie_embeddings else mk((d, cfg.vocab_size))
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, self.dtype, self.device) for _ in range(cfg.n_layers)
+        )
+        self.backend = get_backend(cfg.sparse.backend)
+
+    # ------------------------------------------------------------------ init
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "Transformer":
+        """Random weights from ``generator``: truncated normals (+-2 std) with
+        std 0.02 for the embedding and ``d_in ** -0.5`` for projections, ones
+        for the norms (the distribution of ``repro``'s init; the numbers
+        differ)."""
+
+        def trunc(p, std):
+            tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            nn.init.trunc_normal_(tmp, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            p.copy_(tmp)
+
+        trunc(self.embed, 0.02)
+        self.final_norm.fill_(1.0)
+        if self.lm_head is not None:
+            trunc(self.lm_head, self.cfg.d_model ** -0.5)
+        for layer in self.layers:
+            for name, p in layer.named_parameters():
+                if name.startswith("norm"):
+                    p.fill_(1.0)
+                elif name.startswith("b"):
+                    p.zero_()
+                else:
+                    trunc(p, p.shape[0] ** -0.5)
+        return self
+
+    # -------------------------------------------------------------- layouts
+
+    def attention_plan(self, context_len: int) -> AttentionPlan:
+        return build_plan(self.cfg, context_len)
+
+    def use_sparse(self, context_len: int) -> bool:
+        return self.attention_plan(context_len).active
+
+    def _require_sparse(self, max_context: int):
+        if not self.use_sparse(max_context):
+            raise NotImplementedError(
+                f"the dense fallback is not ported: sparse attention is off "
+                f"at max_context={max_context} (needs >= 2 x token budget)"
+            )
+        if not self.cfg.sparse.sparse_prefill:
+            raise NotImplementedError(
+                "only the query-block sparse prefill is ported: set "
+                "SparseConfig.sparse_prefill=True"
+            )
+
+    def unembed(self, h: torch.Tensor) -> torch.Tensor:
+        w = self.embed.T if self.lm_head is None else self.lm_head
+        return torch.matmul(h, w)
+
+    # ----------------------------------------------------------------- cache
+
+    def init_cache(self, batch: int, max_context: int) -> Cache:
+        """Per-layer paged KV pools, decode stores and prefill score segments
+        for ``batch`` sequences of up to ``max_context`` tokens."""
+        self._require_sparse(max_context)
+        cfg = self.cfg
+        quant = cfg.sparse.quant
+        hd, ps = cfg.resolved_head_dim, cfg.sparse.page_size
+        plan = self.attention_plan(max_context)
+        stk = plan.stacked(self.device)
+        Dp = plan.rank_key_width
+        bits = store_bits(quant)
+        cw = Dp // 2 if bits == 4 else Dp
+        cdt = torch.uint8 if bits else torch.float32
+        dev = self.device
+        rows = stk.total_rows
+        entries = []
+        for _ in range(cfg.n_layers):
+            kv_shape = (batch, cfg.n_kv_heads, max_context // ps, ps, hd)
+            entries.append({
+                "k": torch.zeros(kv_shape, dtype=self.dtype, device=dev),
+                "v": torch.zeros(kv_shape, dtype=self.dtype, device=dev),
+                "codes": torch.zeros((batch, rows, cw), dtype=cdt, device=dev),
+                "scale": torch.ones((batch, cfg.n_kv_heads, Dp),
+                                    dtype=torch.float32, device=dev),
+                "zero": torch.zeros((batch, cfg.n_kv_heads, Dp),
+                                    dtype=torch.float32, device=dev),
+                "pcodes": torch.zeros((batch, rows, cw), dtype=cdt, device=dev),
+                "pscale": torch.ones((batch, rows, 1), dtype=torch.float32,
+                                     device=dev),
+                "pzero": torch.zeros((batch, rows, 1), dtype=torch.float32,
+                                     device=dev),
+            })
+        return {
+            "seq_len": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "layers": entries,
+            "la": [stk.layer(l) for l in range(cfg.n_layers)],
+        }
+
+    def _store(self, e) -> CentroidStore:
+        quant = self.cfg.sparse.quant
+        return CentroidStore(e["codes"], e["scale"], e["zero"],
+                             store_bits(quant), store_symmetric(quant))
+
+    # --------------------------------------------------------------- prefill
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor,
+                max_context: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+        """tokens ``[B, S]`` -> (last-token logits [B, vocab], cache)."""
+        cfg, sp = self.cfg, self.cfg.sparse
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        B, S = tokens.shape
+        max_context = S if max_context is None else max_context
+        cache = self.init_cache(B, max_context)
+        hd = cfg.resolved_head_dim
+        positions = torch.arange(S, device=self.device)[None]
+        n_valid = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        x = self.embed[tokens]
+        for layer, e, la in zip(self.layers, cache["layers"], cache["la"]):
+            h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
+            q, k, v = layers.qkv_project(layer, h, cfg, positions)
+            kd = e["k"].view(B, cfg.n_kv_heads, max_context, hd)
+            vd = e["v"].view(B, cfg.n_kv_heads, max_context, hd)
+            kd[:, :, :S] = k.transpose(1, 2)
+            vd[:, :, :S] = v.transpose(1, 2)
+            store, score = self.backend.prefill_stores(e["k"], la, sp)
+            for name, t in (("codes", store.codes), ("scale", store.scale),
+                            ("zero", store.zero), ("pcodes", score.codes),
+                            ("pscale", score.scale), ("pzero", score.zero)):
+                e[name].copy_(t)
+            attn, _ = self.backend.prefill_attention(
+                q.transpose(1, 2), e["k"], e["v"], score, la, sp,
+                n_valid=n_valid,
+            )
+            x = x + layers.out_project(layer, attn.transpose(1, 2))
+            h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
+            x = x + layers.mlp(layer, h, cfg.activation)
+        x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
+        cache["seq_len"].fill_(S)
+        return self.unembed(x[:, -1]), cache
+
+    @torch.no_grad()
+    def prefill_chunk(self, cache: Cache, slot: int, tokens, offset: int,
+                      n_valid: int) -> Tuple[torch.Tensor, Cache]:
+        """Process one prompt chunk of batch slot ``slot`` in place.
+
+        ``tokens`` is the chunk buffer (its length sizes the score-refresh
+        window, as the JAX model's compiled chunk shape does); only its first
+        ``n_valid`` tokens are processed and written at rows
+        ``[offset, offset + n_valid)``.  ``offset`` must be a multiple of
+        ``SparseConfig.prefill_block_q``.  The slot's running score segment
+        is refreshed with the blocks the chunk completes, then each query
+        block attends its forced + top-scored blocks.  The decode store is
+        not maintained: call :meth:`refresh_slot_store` after the last chunk.
+        -> (logits [vocab] at the last valid position, cache)."""
+        cfg, sp = self.cfg, self.cfg.sparse
+        C = len(tokens)
+        tok = torch.as_tensor(tokens, device=self.device).long()[:n_valid]
+        n_kv, hd, ps = cfg.n_kv_heads, cfg.resolved_head_dim, sp.page_size
+        S_max = cache["layers"][0]["k"].shape[2] * ps
+        if offset % sp.prefill_block_q or offset + n_valid > S_max:
+            raise ValueError(f"chunk [{offset}, {offset + n_valid}) is not "
+                             f"query-block aligned or exceeds {S_max}")
+        bits, sym = store_bits(sp.quant), store_symmetric(sp.quant)
+        bmax = sp.max_block_size
+        window = min(-(-(C + 2 * bmax) // bmax) * bmax, S_max)
+        positions = (offset + torch.arange(n_valid, device=self.device))[None]
+        x = self.embed[tok][None]                           # [1, n, d]
+        for layer, e, la in zip(self.layers, cache["layers"], cache["la"]):
+            h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
+            q, k, v = layers.qkv_project(layer, h, cfg, positions)
+            kslot, vslot = e["k"][slot], e["v"][slot]       # [n_kv, nP, ps, hd]
+            kslot.view(n_kv, S_max, hd)[:, offset:offset + n_valid] = k[0].transpose(0, 1)
+            vslot.view(n_kv, S_max, hd)[:, offset:offset + n_valid] = v[0].transpose(0, 1)
+            sstore = CentroidStore(e["pcodes"][slot][None], e["pscale"][slot][None],
+                                   e["pzero"][slot][None], bits, sym)
+            self.backend.refresh_score_rows(
+                sstore, kslot[None], la, offset, offset + n_valid, sp, window
+            )
+            attn, _ = self.backend.prefill_attention(
+                q.transpose(1, 2), kslot[None], vslot[None], sstore, la, sp,
+                n_valid=offset + n_valid, chunk_offset=offset,
+            )
+            x = x + layers.out_project(layer, attn.transpose(1, 2))
+            h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
+            x = x + layers.mlp(layer, h, cfg.activation)
+        x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self.unembed(x[0, n_valid - 1]), cache
+
+    @torch.no_grad()
+    def refresh_slot_store(self, cache: Cache, slot: int) -> Cache:
+        """Rebuild one slot's decode-store rows from its K cache, in place
+        (same builder as :meth:`prefill`, so the bytes are identical)."""
+        for e, la in zip(cache["layers"], cache["la"]):
+            st = self.backend.prefill_store(e["k"][slot][None], la,
+                                            self.cfg.sparse)
+            e["codes"][slot] = st.codes[0]
+            e["scale"][slot] = st.scale[0]
+            e["zero"][slot] = st.zero[0]
+        return cache
+
+    @torch.no_grad()
+    def refresh_slot_score_rows(self, cache: Cache, slot: int) -> Cache:
+        """Rebuild one slot's prefill score segment from its K cache, in
+        place (after a prefix-cache install, whose KV never ran a chunk)."""
+        for e, la in zip(cache["layers"], cache["la"]):
+            st = self.backend.prefill_score_rows(e["k"][slot][None], la,
+                                                 self.cfg.sparse)
+            e["pcodes"][slot] = st.codes[0]
+            e["pscale"][slot] = st.scale[0]
+            e["pzero"][slot] = st.zero[0]
+        return cache
+
+    # ------------------------------------------------------------ decode step
+
+    @torch.no_grad()
+    def decode_step(self, cache: Cache, tokens) -> Tuple[torch.Tensor, Cache]:
+        """One token for every slot at position ``cache["seq_len"]``.
+        -> (logits [B, vocab], cache); ``seq_len`` is advanced in place."""
+        cfg, sp = self.cfg, self.cfg.sparse
+        tok = torch.as_tensor(tokens, device=self.device).long()
+        B = tok.shape[0]
+        seq_len = cache["seq_len"]
+        positions = seq_len[:, None].long()
+        ps = sp.page_size
+        bidx = torch.arange(B, device=self.device)
+        n_pages = cache["layers"][0]["k"].shape[2]
+        # JAX drops a write at position S_max; keep the old row there instead.
+        in_range = (seq_len < n_pages * ps)[:, None, None]
+        pos = torch.clamp(seq_len.long(), max=n_pages * ps - 1)
+        page, within = pos // ps, pos % ps
+        x = self.embed[tok][:, None]                        # [B, 1, d]
+        for layer, e, la in zip(self.layers, cache["layers"], cache["la"]):
+            h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
+            q, k_new, v_new = layers.qkv_project(layer, h, cfg, positions)
+            for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0])):
+                old = e[name][bidx, :, page, within]         # [B, n_kv, hd]
+                e[name][bidx, :, page, within] = torch.where(in_range, new, old)
+            store = self._store(e)
+            self.backend.append(store, e["k"], la, seq_len, sp)
+            out, _, _ = self.backend.decode(
+                q[:, 0], e["k"], e["v"], store, la, sp, seq_len + 1
+            )
+            x = x + layers.out_project(layer, out[:, None])
+            h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
+            x = x + layers.mlp(layer, h, cfg.activation)
+        x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
+        seq_len += 1
+        return self.unembed(x[:, 0]), cache
+
