@@ -13,7 +13,10 @@
 //  2. selects forced blocks (sink, and every causal block overlapping the
 //     local window / diagonal) plus the top ceil(K_h * scale) candidates by
 //     the exact sortable-u32 threshold with lowest-index ties, compacted in
-//     ascending order; a dead query block (q_start >= n_valid) selects none;
+//     ascending order; a dead query block (q_start >= n_valid) selects none.
+//     With a non-null `sel_out` the selection is also written out as a
+//     [max_blocks] 0/1 byte map per cell, for checking against the plain
+//     version;
 //  3. runs a causal flash loop over the selected blocks for all g * BQ query
 //     rows: Q, K and V tiles in shared memory (bf16), S = Q K^T and P V as
 //     register-tiled FMA in f32, online softmax with masked lanes zeroed.
@@ -49,6 +52,7 @@ __global__ void __launch_bounds__(NT) sparse_prefill_kernel(
     const int* __restrict__ n_valid,
     __nv_bfloat16* __restrict__ out,          // like q
     int* __restrict__ n_att,                  // [B, n_kv, nQB]
+    uint8_t* __restrict__ sel_out,            // [B, n_kv, nQB, max_blocks] or null
     int n_kv, int nQB, int g, int BQ, int Dp, int n_pages, int page_size,
     int total_rows, int row_bytes, int bits, int sym, int sink_pages,
     int local_pages, int max_blocks, int qb0, float scale_qk) {
@@ -172,8 +176,11 @@ __global__ void __launch_bounds__(NT) sparse_prefill_kernel(
     const bool sel = q_live && in && (forced(j) || scored);
     const int sr = block_excl_scan(sel, red, &tot) + n_live;
     if (sel) slot_blk[sr] = j;
+    if (sel_out != nullptr && in) sel_out[cell * max_blocks + j] = sel;
     n_live += tot;
   }
+  if (sel_out != nullptr)
+    for (int j = nblk + tid; j < max_blocks; j += NT) sel_out[cell * max_blocks + j] = 0;
   if (tid == 0) n_att[cell] = n_live;
   __syncthreads();
 
@@ -307,9 +314,9 @@ template <int RPT, int DPT>
 int launch(const void* q, const float* rq, const void* kp, const void* vp,
            const uint8_t* codes, const float* pscale, const float* pzero,
            const int* row_off, const int* n_blocks, const int* k_sel,
-           const int* bsz, const int* n_valid, void* out, int* n_att, int B,
-           int n_kv, int nQB, int g, int BQ, int Dp, int n_pages,
-           int page_size, int total_rows, int row_bytes, int bits, int sym,
+           const int* bsz, const int* n_valid, void* out, int* n_att,
+           uint8_t* sel_out, int B, int n_kv, int nQB, int g, int BQ, int Dp,
+           int n_pages, int page_size, int total_rows, int row_bytes, int bits, int sym,
            int sink_pages, int local_pages, int max_blocks, int qb0,
            float scale_qk, size_t smem, cudaStream_t stream) {
   auto kern = sparse_prefill_kernel<RPT, DPT>;
@@ -322,8 +329,8 @@ int launch(const void* q, const float* rq, const void* kp, const void* vp,
   kern<<<grid, NT, smem, stream>>>(
       (const __nv_bfloat16*)q, rq, (const __nv_bfloat16*)kp,
       (const __nv_bfloat16*)vp, codes, pscale, pzero, row_off, n_blocks, k_sel,
-      bsz, n_valid, (__nv_bfloat16*)out, n_att, n_kv, nQB, g, BQ, Dp, n_pages,
-      page_size, total_rows, row_bytes, bits, sym, sink_pages, local_pages,
+      bsz, n_valid, (__nv_bfloat16*)out, n_att, sel_out, n_kv, nQB, g, BQ, Dp,
+      n_pages, page_size, total_rows, row_bytes, bits, sym, sink_pages, local_pages,
       max_blocks, qb0, scale_qk);
   return (int)cudaGetLastError();
 }
@@ -340,18 +347,18 @@ extern "C" int sparse_prefill_launch(
     const void* q, const float* rq, const void* kp, const void* vp,
     const uint8_t* codes, const float* pscale, const float* pzero,
     const int* row_off, const int* n_blocks, const int* k_sel, const int* bsz,
-    const int* n_valid, void* out, int* n_att, int B, int n_kv, int nQB,
-    int g, int BQ, int D, int Dp, int n_pages, int page_size, int total_rows,
-    int row_bytes, int bits, int sym, int sink_pages, int local_pages,
-    int max_blocks, int qb0, float scale_qk, void* stream) {
+    const int* n_valid, void* out, int* n_att, uint8_t* sel_out, int B,
+    int n_kv, int nQB, int g, int BQ, int D, int Dp, int n_pages,
+    int page_size, int total_rows, int row_bytes, int bits, int sym,
+    int sink_pages, int local_pages, int max_blocks, int qb0, float scale_qk, void* stream) {
   const int R = g * BQ;
   const size_t smem = smem_bytes(R, D, Dp, max_blocks);
   cudaStream_t st = (cudaStream_t)stream;
 #define ARGS                                                                  \
   q, rq, kp, vp, codes, pscale, pzero, row_off, n_blocks, k_sel, bsz,         \
-      n_valid, out, n_att, B, n_kv, nQB, g, BQ, Dp, n_pages, page_size,       \
-      total_rows, row_bytes, bits, sym, sink_pages, local_pages, max_blocks,  \
-      qb0, scale_qk, smem, st
+      n_valid, out, n_att, sel_out, B, n_kv, nQB, g, BQ, Dp, n_pages,         \
+      page_size, total_rows, row_bytes, bits, sym, sink_pages, local_pages,   \
+      max_blocks, qb0, scale_qk, smem, st
 #define DISPATCH(RPT)                                                         \
   if (R <= 16 * RPT) {                                                        \
     if (D == 64) return launch<RPT, 4>(ARGS);                                 \

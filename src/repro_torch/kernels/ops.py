@@ -101,36 +101,42 @@ def sparse_prefill(
     topk_scale: float = 1.0,
     n_valid: Optional[torch.Tensor] = None,
     chunk_offset: int = 0,         # absolute pos of q[..., 0, :]; block_q-aligned
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    return_selected: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Query-block sparse prefill in one kernel launch -> (out [B, Hq, Sq, D],
-    n_attended [B, n_kv, nQB]).  ``n_valid`` defaults to
-    ``chunk_offset + Sq``, the live length after this chunk."""
+    n_attended [B, n_kv, nQB]), plus the selected blocks
+    ``[B, n_kv, nQB, max_blocks]`` bool with ``return_selected``.
+    ``n_valid`` defaults to ``chunk_offset + Sq``, the live length after
+    this chunk."""
     return _sparse_prefill(sp.sparse_prefill, q, rq, k, v, score_store, la,
                            sink_pages, local_pages, block_q, topk_scale,
-                           n_valid, chunk_offset)
+                           n_valid, chunk_offset, return_selected)
 
 
 def sparse_prefill_reference(q, rq, k, v, score_store, la, sink_pages=1,
                              local_pages=4, block_q=64, topk_scale=1.0,
-                             n_valid=None, chunk_offset=0):
+                             n_valid=None, chunk_offset=0,
+                             return_selected=False):
     """:func:`sparse_prefill` through the plain version."""
     return _sparse_prefill(sp.sparse_prefill_plain, q, rq, k, v, score_store,
                            la, sink_pages, local_pages, block_q, topk_scale,
-                           n_valid, chunk_offset)
+                           n_valid, chunk_offset, return_selected)
 
 
 def _sparse_prefill(fn, q, rq, k, v, score_store, la, sink_pages, local_pages,
-                    block_q, topk_scale, n_valid, chunk_offset):
+                    block_q, topk_scale, n_valid, chunk_offset,
+                    return_selected):
     kp, vp = as_paged(k, la.page_size), as_paged(v, la.page_size)
     Sq = q.shape[2]
     q6, rq6, k_sel, n_valid, qb0 = _prefill_query_blocks(
         q, rq, la, block_q, topk_scale, n_valid, chunk_offset
     )
-    out6, n_att = fn(
+    out6, *rest = fn(
         q6, rq6, kp, vp, score_store.codes, score_store.scale,
         score_store.zero, la, k_sel, n_valid, qb0,
         bits=score_store.bits, symmetric=score_store.symmetric,
         block_q=block_q, sink_pages=sink_pages, local_pages=local_pages,
+        return_selected=return_selected,
     )
-    return _from_blocks(out6, Sq), n_att
+    return (_from_blocks(out6, Sq), *rest)
 

@@ -25,7 +25,7 @@ launches = 0
 plain_calls = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 14 + [_I] * 17 + [_F, _P]
+_ARGTYPES = [_P] * 15 + [_I] * 17 + [_F, _P]
 
 
 def reset_counts():
@@ -51,13 +51,17 @@ def sparse_prefill(
     block_q: int,
     sink_pages: int,
     local_pages: int,
+    return_selected: bool = False,
 ):
-    """-> (out like q, n_attended [B, n_kv, nQB] int32)."""
+    """-> (out like q, n_attended [B, n_kv, nQB] int32), and with
+    ``return_selected`` the selected blocks ``[B, n_kv, nQB, max_blocks]``
+    bool as a third element."""
     if q.device.type == "cpu":
         return sparse_prefill_plain(
             q, rq, k_pages, v_pages, codes, scale, zero, la, k_sel, n_valid,
             qb0, bits=bits, symmetric=symmetric, block_q=block_q,
             sink_pages=sink_pages, local_pages=local_pages,
+            return_selected=return_selected,
         )
     global launches
     B, n_kv, nQB, g, BQ, D = q.shape
@@ -89,6 +93,8 @@ def sparse_prefill(
         raise ValueError("sparse_prefill: inconsistent page / row shapes")
     out = torch.empty_like(q)
     n_att = torch.empty((B, n_kv, nQB), dtype=torch.int32, device=dev)
+    sel = (torch.empty((B, n_kv, nQB, la.max_blocks), dtype=torch.bool, device=dev)
+           if return_selected else None)
     lib = _build.load("sparse_prefill")
     fn = _launcher(lib)
     _build.check_smem(lib.sparse_prefill_smem_bytes(g, BQ, D, Dp, la.max_blocks),
@@ -98,7 +104,7 @@ def sparse_prefill(
         codes.data_ptr(), scale.data_ptr(), zero.data_ptr(),
         la.row_offsets.data_ptr(), la.n_blocks.data_ptr(), k_sel.data_ptr(),
         la.block_sizes.data_ptr(), n_valid.data_ptr(),
-        out.data_ptr(), n_att.data_ptr(),
+        out.data_ptr(), n_att.data_ptr(), None if sel is None else sel.data_ptr(),
         B, n_kv, nQB, g, BQ, D, Dp, n_pages, ps, rows,
         codes.shape[2] * codes.element_size(), bits, int(symmetric),
         sink_pages, local_pages, la.max_blocks, int(qb0),
@@ -106,21 +112,22 @@ def sparse_prefill(
     )
     _build.check(rc, "sparse_prefill")
     launches += 1
-    return out, n_att
+    return (out, n_att, sel) if return_selected else (out, n_att)
 
 
 def sparse_prefill_plain(
     q, rq, k_pages, v_pages, codes, scale, zero, la, k_sel, n_valid, qb0, *,
-    bits, symmetric, block_q, sink_pages, local_pages,
+    bits, symmetric, block_q, sink_pages, local_pages, return_selected=False,
 ):
     """Plain PyTorch version of :func:`sparse_prefill` (same outputs)."""
     global plain_calls
     plain_calls += 1
     rank_rows = ref.dequant_score_rows(codes, scale, zero, bits, symmetric)
-    return ref.sparse_prefill_ref(
+    res = ref.sparse_prefill_ref(
         q, rq, k_pages, v_pages, rank_rows, la, k_sel, n_valid, int(qb0),
-        block_q, sink_pages, local_pages,
+        block_q, sink_pages, local_pages, extras=return_selected,
     )
+    return res[:2] + (res[2]["selected"],) if return_selected else res
 
 
 def _launcher(lib):

@@ -11,9 +11,11 @@ with the card need not have.)
 Grids: quant {none, int8, int4} x {asym, sym}, non-uniform and uniform
 block-size layouts, sink/local settings, ragged live lengths, head_dim 64
 and 128, GQA groups 2 to 8; sparse prefill over chunk offsets with dead
-trailing query blocks and prefill top-K scales.  Selection is exact up to
-the near-tie rule of :mod:`repro_torch.kernels.parity`; bf16 outputs agree
-within 2e-2.
+trailing query blocks and prefill top-K scales.  Queries are scaled so
+that attention logits have standard deviation 1.5.  Selection (decode page
+tables, prefill block sets) is exact up to the near-tie rule of
+:mod:`repro_torch.kernels.parity`; bf16 outputs agree within one bf16
+rounding step per element and a relative L2 error of 1e-2 per row.
 """
 import pytest
 import torch
@@ -29,7 +31,6 @@ from repro_torch.kernels import fused_decode, parity, sparse_prefill
 
 pytestmark = pytest.mark.gpu
 
-ATOL = 2e-2
 S, PS, BUDGET = 2048, 16, 512
 LAYOUTS = {"nonuniform": (16, 32, 64, 32), "uniform": (32, 32, 32, 32)}
 QUANTS = ["none", "int8_asym", "int4_asym", "int8_sym", "int4_sym"]
@@ -57,12 +58,12 @@ def _decode(dev, blocks, quant, seq, sink, local, D=128, g=3, seed=0):
     sparse, la, gen, k, v = _inputs(dev, blocks, B, D, seed, quant=quant,
                                     sink_pages=sink, local_pages=local)
     q = torch.randn((B, len(blocks) * g, D), generator=gen, device=dev)
-    q = q.to(torch.bfloat16)
+    q = (q * parity.QSCALE).to(torch.bfloat16)
     store = build_store_codes(k, la, sparse)
     rq = rank_query(q, sparse.centroid_method, D)
     sl = torch.tensor(seq, dtype=torch.int32, device=dev)
     launches = fused_decode.launches
-    res = parity.compare_fused_decode(q, rq, k, v, store, la, sparse, sl, ATOL)
+    res = parity.compare_fused_decode(q, rq, k, v, store, la, sparse, sl)
     assert fused_decode.launches == launches + 1
     return res
 
@@ -87,13 +88,13 @@ def _prefill(dev, blocks, quant, off, sq, n_valid, D=128, g=3, scale=1.0,
     sparse, la, gen, k, v = _inputs(dev, blocks, B, D, seed, quant=quant,
                                     prefill_topk_scale=scale)
     q = torch.randn((B, len(blocks) * g, sq, D), generator=gen, device=dev)
-    q = q.to(torch.bfloat16)
+    q = (q * parity.QSCALE).to(torch.bfloat16)
     codes, sc, ze = build_score_rows(k, la, sparse)
     ss = CentroidStore(codes, sc, ze, store_bits(quant), store_symmetric(quant))
     rq = rank_query(q, sparse.centroid_method, D)
     nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
     launches = sparse_prefill.launches
-    res = parity.compare_sparse_prefill(q, rq, k, v, ss, la, sparse, nv, off, ATOL)
+    res = parity.compare_sparse_prefill(q, rq, k, v, ss, la, sparse, nv, off)
     assert sparse_prefill.launches == launches + 1
     return res
 
