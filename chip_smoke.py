@@ -11,28 +11,39 @@ Phases (each failure is fatal, exit code != 0):
 2. hold each kernel against its plain PyTorch version on the card at
    llama3.2-3b layer shapes (n_kv 8, GQA group 3, head_dim 128, Dp 256,
    max_context 16384, budget 4096, block sizes 16/32/64, batch 4) with the
-   rule of ``repro_torch.kernels.parity``: decode page tables and prefill
-   block maps exact up to near ties, every output element within one bf16
-   rounding step and every output row within 1e-2 relative L2; and show
-   that leaving one page out per head breaks that rule;
+   rules of ``repro_torch.kernels.parity``: decode page tables and prefill
+   block maps exact up to near ties, staged block scores (INT4 and f32
+   stores) within 1e-5 of the head's largest, the staged page sets equal
+   to the fused kernel's, every output element within one bf16 rounding
+   step and every output row within 1e-2 relative L2; and show that a page
+   left out per head, or a score moved by 10x its tolerance, breaks them;
 3. serve full-width llama3.2-3b (28 layers, bf16, random weights from a
    seeded generator) through ``Engine``: 6 requests of 4-12k prompt tokens,
-   two sharing a 2048-token prefix, 32 new tokens each; the kernels' launch
-   counters are zeroed just before and read just after, and the plain
-   versions must not be called; then three of those requests (one a
-   prefix-cache hit) are served again through ``Engine`` with the kernels
-   and with their plain versions, the plain run fed the kernel run's
-   tokens: every step's logits must be finite, and the two runs' logits
-   must have a cosine similarity of at least 0.9995;
-4. time each kernel (CUDA events) and its plain version at the serving
-   shapes and compute its bound from this run's inputs.
+   two sharing a 2048-token prefix, 32 new tokens each, with the fused
+   decode kernel, and three of them (one a prefix-cache hit) with the
+   staged kernels and telemetry; each run's
+   kernel launch counts are zeroed just before and read just after, the
+   run must have launched its path's kernels and no other, and called no
+   plain version.  Then those three requests are served again with the
+   fused kernel and telemetry (which launches
+   the scoring kernel too), with the staged kernels and with the plain
+   versions, the later two fed the first run's tokens: every step's logits
+   must be finite, every pair of runs must reach a logit cosine of at least
+   0.9995, and the sparsity counters must be identical.  One request is
+   served on an f32 store (staged kernels, then plain);
+4. time each kernel (CUDA events), its plain version and, where one
+   PyTorch call computes the same function, that call, at the serving
+   shapes, and compute its bound from this run's inputs.
 
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
 result.  Long output goes to ``chiprun_out/chip_smoke.log``.  With
-``--profile`` the serving phase runs under ``torch.profiler`` (device
-activity) and the device time by kernel is printed.
+``--profile`` the fused and the staged serving runs go under
+``torch.profiler`` (device activity) and the device time by kernel is
+printed; then ``decode_step`` is timed fused / staged, with and without
+telemetry, over 15 rounds, and each variant's device busy time per step is
+printed beside its step time.
 """
 from __future__ import annotations
 
@@ -63,8 +74,12 @@ ARCH = "llama3.2-3b"
 #: requests of the serving traffic (1 shares 0's prefix), their new tokens,
 #: and the least cosine similarity of the two paths' logits at each step.
 AGREE_REQS, AGREE_NEW, LOGIT_COS = (0, 1, 3), 8, 0.9995
+#: requests of the staged serving run: those of the agreement check, since
+#: with all six the script took 1.68x the first slice's time on the card
+STAGED_REQS = AGREE_REQS
 
 LOG = []
+T_START = time.perf_counter()
 
 
 def log(*a):
@@ -157,6 +172,7 @@ def check_fused_decode(torch, dev):
         fail("the fused_decode comparison cannot see a page left out")
     _, table, valid = res["kernel"]
     return {"err": res["max_abs_err"], "table": table, "valid": valid,
+            "sparse": sparse,
             "args": (q, rq, k, v, store, la, sparse.sink_pages,
                      sparse.local_pages, seq_len)}
 
@@ -187,6 +203,78 @@ def check_sparse_prefill(torch, dev):
         f"{res['max_rel_l2']:.3e} (limit {parity.REL_L2}), {res['tol_use']:.2f} "
         f"of the elementwise limit")
     return {"err": res["max_abs_err"]}
+
+
+def check_centroid_scores(torch, dec, quant):
+    """The staged scoring kernel on the fused check's inputs (same keys,
+    queries and ragged lengths) with a ``quant`` store: scores against the
+    plain version, the page tables selected from the two, and the staged
+    page sets against the fused kernel's on the same store, which must be
+    equal with no near tie (both score through one device function)."""
+    from repro_torch.backends.store import build_store_codes
+    from repro_torch.kernels import ops, parity
+
+    q, rq, k, v, store, la, sink, local, seq_len = dec["args"]
+    sparse = dataclasses.replace(dec["sparse"], quant=quant)
+    if quant != store_quant(store):
+        store = build_store_codes(k, la, sparse)
+    res = parity.compare_centroid_scores(rq, store, la, sparse, seq_len)
+    _, f_tbl, f_vld = ops.fused_decode(q, rq, k, v, store, la, sink, local, seq_len)
+    torch.cuda.synchronize()
+    same = parity.page_sets_equal(res["table"], res["valid"], f_tbl, f_vld)
+    log(f"centroid_scores check ({quant}): max_abs_err {res['max_abs_err']:.3e}, "
+        f"max error {res['max_rel_err']:.3e} of the head's largest |score| "
+        f"(limit {parity.SCORE_RTOL}); page tables from kernel and plain scores: "
+        f"valid exact, {res['near_ties']} near-tie blocks; staged page sets equal "
+        f"to the fused kernel's: {same}")
+    if not same:
+        fail(f"staged page sets ({quant}) differ from the fused kernel's")
+    # power: one score moved by 10x the tolerance must fail the comparison
+    bad = res["kernel"].clone()
+    top = float(res["plain"][0, 0, : la.host.n_blocks[0]].abs().max())
+    bad[0, 0, 1] += 10 * parity.SCORE_RTOL * top
+    try:
+        parity.check_scores(bad, res["plain"], la, "power check")
+    except AssertionError:
+        log(f"centroid_scores check power ({quant}): one score moved by 10x the "
+            "tolerance fails the comparison")
+    else:
+        fail("the centroid_scores comparison cannot see a moved score")
+    return {"err": res["max_abs_err"], "store": store, "plain": res["plain"]}
+
+
+def store_quant(store):
+    if store.bits == 0:
+        return "none"
+    return f"int{store.bits}_{'sym' if store.symmetric else 'asym'}"
+
+
+def check_paged_attention(torch, dec, scored):
+    """The paged-attention kernel on the page table selected from the plain
+    scores, slots in rank order as the staged decode passes them."""
+    from repro_torch.core.selection import select_page_table
+    from repro_torch.kernels import ops, parity
+
+    q, rq, k, v, store, la, sink, local, seq_len = dec["args"]
+    tbl, vld = select_page_table(scored["plain"], la, seq_len, sink, local)
+    res = parity.compare_paged_attention(q, k, v, tbl, vld, PS, seq_len)
+    log(f"paged_attention check: max_abs_err {res['max_abs_err']:.3e}, max rel L2 "
+        f"{res['max_rel_l2']:.3e} (limit {parity.REL_L2}), {res['tol_use']:.2f} of "
+        f"the elementwise limit {parity.OUT_ATOL} + 2^-7 |plain|")
+    # power: leave out one selected page per (b, head)
+    mid = (vld.cumsum(-1) == vld.sum(-1, keepdim=True) // 2 + 1) & vld
+    dropped = ops.paged_attention_reference(q, k, v, tbl, vld & ~mid, PS, seq_len)
+    out_p = res["plain"].float()
+    moved = ((dropped.float() - out_p).norm(dim=-1) / out_p.norm(dim=-1)).flatten()
+    keep = torch.ones(out_p.shape[:-1], dtype=torch.bool, device=out_p.device)
+    try:
+        parity.check_outputs(dropped, res["plain"], keep, "power check")
+    except AssertionError:
+        log(f"paged_attention check power: one page left out per head moves a row "
+            f"by median rel L2 {float(moved.median()):.3e} and fails the comparison")
+    else:
+        fail("the paged_attention comparison cannot see a page left out")
+    return {"err": res["max_abs_err"], "table": tbl, "valid": vld}
 
 
 # ---------------------------------------------------------------------------
@@ -270,15 +358,81 @@ def time_sparse_prefill(torch, dev):
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
 
 
+def time_centroid_scores(torch, dec, scored):
+    """One B = 4 scoring launch over the whole store (every row is scored).
+    Library yardstick for the f32 store: one ``torch.matmul`` of the rows by
+    all n_q rank queries, every head's queries against every row (a superset
+    of the work); none dequantizes split-half INT4."""
+    from repro_torch.kernels import centroid_score as cs
+
+    q, rq, k, v, _, la, sink, local, seq_len = dec["args"]
+    st = scored["store"]
+    B, n_q, Dp = rq.shape
+    rows = st.codes.shape[1]
+    if st.bits:
+        args = (rq, st.codes, st.scale, st.zero, la.tile_head, la.tile_rows)
+        kw = dict(bits=st.bits, symmetric=st.symmetric)
+        fn = lambda: cs.centroid_scores_quantized(*args, **kw)
+        library_ms = None
+    else:
+        args = (rq, st.codes, None, None, la.tile_head, la.tile_rows)
+        kw = dict(bits=0, symmetric=False, n_kv=N_KV)
+        fn = lambda: cs.centroid_scores_f32(rq, st.codes, N_KV, la.tile_head,
+                                            la.tile_rows)
+        rq_t = rq.transpose(1, 2).contiguous()
+        library_ms = cuda_time_ms(torch, lambda: torch.matmul(st.codes, rq_t), 5, 50)
+    ms = cuda_time_ms(torch, fn, 5, 50)
+    plain_ms = cuda_time_ms(torch, lambda: cs.centroid_scores_plain(*args, **kw), 1, 5)
+    bytes_ = (rq.numel() * 4 + st.codes.numel() * st.codes.element_size()
+              + (2 * st.scale.numel() * 4 if st.bits else 0)
+              + la.tile_head.numel() * 4 + B * rows * 4)
+    f32_ops = 2 * B * rows * G * Dp
+    b_ms, by = bound(bytes_, f32_ops, 0)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def time_paged_attention(torch, dec, att):
+    """One B = 4 launch on the staged page table of the check (rank order).
+    Library yardstick: ``scaled_dot_product_attention`` over the selected
+    K/V gathered beforehand (the gather is not timed), each head's group as
+    its query rows, the token mask as ``attn_mask``."""
+    from repro_torch.kernels import paged_attention as pa
+
+    q, rq, k, v, _, la, sink, local, seq_len = dec["args"]
+    tbl, vld = att["table"], att["valid"]
+    B, n_q, _ = q.shape
+    args = (q, k, v, tbl, vld, seq_len, PS)
+    ms = cuda_time_ms(torch, lambda: pa.paged_attention(*args), 5, 50)
+    plain_ms = cuda_time_ms(torch, lambda: pa.paged_attention_plain(*args), 1, 5)
+    P = tbl.shape[-1]
+    pos = tbl.long()[..., None] * PS + torch.arange(PS, device=q.device)
+    live = ((pos < seq_len.long()[:, None, None, None]) & vld[..., None])
+    live = live.reshape(B, N_KV, P * PS)
+    idx = tbl.long()[..., None, None].expand(-1, -1, -1, PS, D)
+    sel_k = torch.gather(k, 2, idx).reshape(B, N_KV, P * PS, D)
+    sel_v = torch.gather(v, 2, idx).reshape(B, N_KV, P * PS, D)
+    q4 = q.reshape(B, N_KV, G, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_time_ms(
+        torch, lambda: sdpa(q4, sel_k, sel_v, attn_mask=live[:, :, None, :]), 5, 50)
+    tokens = int(live.sum())
+    bytes_ = (2 * q.numel() * 2 + 2 * tokens * D * 2 + tbl.numel() * 4
+              + vld.numel() + seq_len.numel() * 4)
+    f32_ops = 4 * tokens * G * D
+    b_ms, by = bound(bytes_, f32_ops, 0)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving at full width
 # ---------------------------------------------------------------------------
 
 
-def profile_summary(torch, prof, wall_s: float):
-    """Device time by kernel from a torch.profiler run of device activity
-    only: the top kernels and the device busy share of the profiled wall
-    time (one stream, so kernel times do not overlap)."""
+def device_time_rows(torch, prof):
+    """(device ms, launches, kernel name) per kernel of a torch.profiler run
+    of device activity only, largest first."""
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -288,15 +442,22 @@ def profile_summary(torch, prof, wall_s: float):
             t = getattr(ev, "self_cuda_time_total", 0)
         if t > 0:
             rows.append((t / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    if not rows:
+        fail("the profiler recorded no device time")
+    return sorted(rows, reverse=True)
+
+
+def profile_summary(torch, prof, wall_s: float):
+    """Device time by kernel from a torch.profiler run: the top kernels and
+    the device busy share of the profiled wall time (one stream, so kernel
+    times do not overlap)."""
+    rows = device_time_rows(torch, prof)
     busy_ms = sum(r[0] for r in rows)
     log(f"profile: device busy {busy_ms:.0f} ms of {wall_s * 1e3:.0f} ms wall "
         f"({100 * busy_ms / max(wall_s * 1e3, 1e-9):.1f}%)")
     for ms, n, key in rows[:12]:
         log(f"profile: {ms:10.1f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% "
             f"of device  x{n:6d}  {key[:90]}")
-    if not rows:
-        fail("the profiler recorded no device time")
 
 
 def traffic(vocab: int):
@@ -315,20 +476,30 @@ def traffic(vocab: int):
     return prompts
 
 
-def make_engine(cfg, model, dev, req_ids, new_tokens):
+def use_config(model, cfg):
+    """Point ``model`` (same weights) at ``cfg``'s sparse settings: the
+    backend, fused or staged decode, the store's quantization."""
+    from repro_torch.backends import get_backend
+
+    model.cfg = cfg
+    model.backend = get_backend(cfg.sparse.backend)
+
+
+def make_engine(cfg, model, dev, req_ids, new_tokens, telemetry=False):
     from repro_torch.config import ServeConfig
     from repro_torch.serving import Engine, Request
 
+    use_config(model, cfg)
     serve_cfg = ServeConfig(max_batch=MAX_BATCH, max_context=CTX,
                             prefill_chunk=CHUNK, temperature=0.0)
-    eng = Engine(cfg, model, serve_cfg, device=dev)
+    eng = Engine(cfg, model, serve_cfg, device=dev, telemetry=telemetry)
     prompts = traffic(cfg.vocab_size)
     for i in req_ids:
         eng.submit(Request(req_id=i, prompt=prompts[i], max_new_tokens=new_tokens))
     return eng
 
 
-def check_served(eng, done, n_requests, new_tokens, vocab):
+def check_served(eng, done, n_requests, new_tokens, vocab, prefix_hit=True):
     if len(done) != n_requests:
         fail(f"served {len(done)} of {n_requests} requests")
     for r in done:
@@ -336,15 +507,19 @@ def check_served(eng, done, n_requests, new_tokens, vocab):
             fail(f"request {r.req_id}: bad output {r.output[:8]}...")
     if eng.pool.assert_consistent(known_pins=eng.prefix_cache.pages()):
         fail("page pool leaked pages")
-    if eng.metrics.snapshot()["prefix_hit_tokens"] <= 0:
+    if prefix_hit and eng.metrics.snapshot()["prefix_hit_tokens"] <= 0:
         fail("the shared prefix was not served from the prefix cache")
 
 
-def serve_recorded(eng, forced=None):
-    """Run ``eng`` to the end, recording every sampled row's logits by
-    (request, position) -> (finished requests, logits, tokens).  With
-    ``forced`` ({(request, position): token}) the engine is fed those tokens
-    in place of its own samples."""
+def run_engine(torch, model, eng, forced=None, record=False, profile=False):
+    """Run ``eng`` to the end with every kernel's counts set to 0 just before
+    and read just after -> dict with the finished requests, the counts, the
+    model steps taken, the wall time and, with ``record``, every sampled
+    row's logits and token by (request, position).  With ``forced``
+    ({(request, position): token}) the engine is fed those tokens in place
+    of its own samples."""
+    from repro_torch import kernels
+
     logits, tokens = {}, {}
     sample = eng._sample
 
@@ -357,87 +532,15 @@ def serve_recorded(eng, forced=None):
             tokens[key] = int(toks[r])
         return toks, fin
 
-    eng._sample = recording
-    done = eng.run_until_done(max_ticks=2000)
-    return done, logits, tokens
-
-
-def agree_with_plain(torch, model, cfg, dev):
-    """End-to-end check of the served path at the serving shapes: requests
-    ``AGREE_REQS`` (the second shares the first's prefix, a prefix-cache
-    hit) go through ``Engine`` (chunked prefill, store refresh, batched
-    decode over ragged lengths) once with the kernels and once with their
-    plain versions.  The plain run is fed the kernel run's tokens, so each
-    step's logits compare at the same inputs: they must be finite, of the
-    vocabulary's size, and their cosine similarity at least ``LOGIT_COS``
-    (bf16 rounding and near-tie selections differ between the two)."""
-    from repro_torch import kernels
-    from repro_torch.backends import get_backend
-
-    runs = {}
-    for name in ("cuda", "reference"):
-        model.backend = get_backend(name)
-        eng = make_engine(cfg, model, dev, AGREE_REQS, AGREE_NEW)
-        kernels.reset_counts()
-        forced = runs["cuda"][1] if runs else None
-        done, logits, tokens = serve_recorded(eng, forced)
-        check_served(eng, done, len(AGREE_REQS), AGREE_NEW, cfg.vocab_size)
-        c = kernels.counts()
-        launched = sum(v["launches"] for v in c.values())
-        plain = sum(v["plain_calls"] for v in c.values())
-        if (name == "cuda") != (launched > 0 and plain == 0):
-            fail(f"agreement run '{name}': {launched} kernel launches, "
-                 f"{plain} plain calls")
-        runs[name] = (logits, tokens)
-        del eng
-        torch.cuda.empty_cache()
-    model.backend = get_backend("cuda")
-    lk_all, lp_all = runs["cuda"][0], runs["reference"][0]
-    if lk_all.keys() != lp_all.keys():
-        fail("the kernel and plain runs sampled at different steps")
-    worst, same = 1.0, 0
-    for key, lk in lk_all.items():
-        lp = lp_all[key]
-        if lk.shape != (cfg.vocab_size,) or not bool(torch.isfinite(lk).all()):
-            fail(f"kernel-path logits at {key} of shape {tuple(lk.shape)} are not finite")
-        worst = min(worst, float(torch.nn.functional.cosine_similarity(lk, lp, dim=0)))
-        same += int(lk.argmax() == lp.argmax())
-    log(f"end to end vs plain: Engine, requests {AGREE_REQS} x {AGREE_NEW} new "
-        f"tokens, plain run fed the kernel run's tokens: min logit cosine "
-        f"{worst:.6f} (>= {LOGIT_COS}) over {len(lk_all)} steps, greedy tokens "
-        f"equal at {same} of {len(lk_all)}")
-    if not worst >= LOGIT_COS:
-        fail(f"kernel-path logits drift from the plain path: cosine {worst}")
-
-
-def serve(torch, dev, profile: bool = False):
-    from repro_torch import kernels
-    from repro_torch.configs import get_config
-    from repro_torch.models import Transformer
-
-    base = get_config(ARCH)
-    pattern = tuple(
-        tuple((16, 32, 64)[(l + h) % 3] for h in range(base.n_kv_heads))
-        for l in range(base.n_layers)
-    )
-    cfg = dataclasses.replace(base, sparse=dataclasses.replace(
-        base.sparse, backend="cuda", sparse_prefill=True,
-        quant="int4_asym", block_sizes=pattern, token_budget=BUDGET,
-    ))
-    t0 = time.perf_counter()
-    model = Transformer(cfg, device=dev).init(
-        torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    log(f"weights: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params "
-        f"bf16, init {time.perf_counter() - t0:.1f}s")
-    eng = make_engine(cfg, model, dev, range(len(PROMPT_LENS)), NEW_TOKENS)
-
+    if record:
+        eng._sample = recording
     steps = {"decode_step": 0, "prefill_chunk": 0}
     for name in steps:
         def counted(*a, _fn=getattr(model, name), _name=name, **k):
             steps[_name] += 1
             return _fn(*a, **k)
         setattr(model, name, counted)
+    prof = None
     kernels.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -450,33 +553,268 @@ def serve(torch, dev, profile: bool = False):
         done = eng.run_until_done(max_ticks=2000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    counts = kernels.counts()
     for name in steps:
         delattr(model, name)
-    if profile:
-        profile_summary(torch, prof, wall)
-    counts = kernels.counts()
-    snap = eng.metrics.snapshot()
-    check_served(eng, done, len(PROMPT_LENS), NEW_TOKENS, cfg.vocab_size)
+    return {"done": done, "counts": counts, "steps": steps, "wall": wall,
+            "logits": logits, "tokens": tokens, "prof": prof}
+
+
+def expect_path(what, counts, launched):
+    """The run went through exactly the kernels in ``launched`` (each
+    launched at least once, every other kernel never) and called no plain
+    version; with ``launched`` empty, through the plain versions only."""
     for name, c in counts.items():
-        if c["launches"] <= 0:
-            fail(f"{name} was not launched while serving")
-        if c["plain_calls"]:
-            fail(f"{name}'s plain version ran {c['plain_calls']} times while serving")
-    dec_tok = snap["decode_tokens"]
-    log(f"serving: {len(done)} requests finished, {dec_tok} tokens "
+        if launched and c["plain_calls"]:
+            fail(f"{what}: {name}'s plain version ran {c['plain_calls']} times")
+        if (c["launches"] > 0) != (name in launched):
+            fail(f"{what}: {name} launched {c['launches']} times")
+    if not launched and not any(c["plain_calls"] for c in counts.values()):
+        fail(f"{what}: no plain version ran")
+
+
+def log_serving(what, run, snap):
+    dec_tok, wall = snap["decode_tokens"], run["wall"]
+    log(f"{what}: {len(run['done'])} requests finished, {dec_tok} tokens "
         f"(+{snap['prefill_tokens_computed']} prefill), prefix-hit tokens "
         f"{snap['prefix_hit_tokens']}, ticks {snap['ticks']}, wall {wall:.1f}s")
-    log(f"serving: TTFT p50 {snap['ttft_p50']:.3f}s, TPOT p50 "
+    log(f"{what}: TTFT p50 {snap['ttft_p50']:.3f}s, TPOT p50 "
         f"{snap['tpot_p50'] * 1e3:.1f}ms, decode tok/s "
         f"{dec_tok / max(wall, 1e-9):.1f} (over the whole run)")
-    log(f"serving: launches {json.dumps(counts)}; decode steps "
-        f"{steps['decode_step']}, prefill chunks {steps['prefill_chunk']}")
+    launched = {n: c["launches"] for n, c in run["counts"].items() if c["launches"]}
+    log(f"{what}: launches {json.dumps(launched)}; decode steps "
+        f"{run['steps']['decode_step']}, prefill chunks {run['steps']['prefill_chunk']}")
+
+
+#: the sparsity counters of ``Engine(telemetry=True)`` that must agree
+#: between runs fed the same tokens (they depend on lengths and layout only)
+SPARSITY_KEYS = ("sparsity_steps", "blocks_per_step", "pages_per_step",
+                 "budget_utilization", "forced_frac", "prefill_chunks",
+                 "prefill_blocks_attended", "prefill_blocks_frac")
+
+
+def agree_with_plain(torch, model, cfgs, dev):
+    """End-to-end check of the served paths at the serving shapes: requests
+    ``AGREE_REQS`` (the second shares the first's prefix, a prefix-cache
+    hit) go through ``Engine`` with telemetry (chunked prefill, store
+    refresh, batched decode over ragged lengths) with the fused kernel
+    (whose telemetry launches the scoring kernel too), with the staged
+    kernels and with the plain versions.  The later two runs are fed the
+    first run's tokens, so each step's logits compare at the same inputs:
+    they must be finite, of the vocabulary's size, and every pair of runs
+    must reach a cosine similarity of at least ``LOGIT_COS`` (bf16 rounding
+    and near-tie selections differ); the sparsity counters must be equal."""
+    plain_cfg = dataclasses.replace(cfgs["staged"], sparse=dataclasses.replace(
+        cfgs["staged"].sparse, backend="reference"))
+    runs = {}
+    for name, cfg, launched in (
+        ("fused", cfgs["fused"],
+         {"fused_decode", "sparse_prefill", "centroid_scores_quantized"}),
+        ("staged", cfgs["staged"],
+         {"centroid_scores_quantized", "paged_attention", "sparse_prefill"}),
+        ("plain", plain_cfg, set()),
+    ):
+        eng = make_engine(cfg, model, dev, AGREE_REQS, AGREE_NEW, telemetry=True)
+        forced = runs["fused"]["tokens"] if runs else None
+        run = run_engine(torch, model, eng, forced=forced, record=True)
+        check_served(eng, run["done"], len(AGREE_REQS), AGREE_NEW, cfg.vocab_size)
+        expect_path(f"agreement run '{name}'", run["counts"], launched)
+        run["snap"] = eng.metrics.snapshot()
+        runs[name] = run
+        del eng
+        torch.cuda.empty_cache()
+    ref_keys = runs["fused"]["logits"].keys()
+    for name, run in runs.items():
+        if run["logits"].keys() != ref_keys:
+            fail(f"the {name} run sampled at other steps than the fused run")
+        for key, lg in run["logits"].items():
+            if lg.shape != (cfgs["fused"].vocab_size,) or not bool(torch.isfinite(lg).all()):
+                fail(f"{name} logits at {key} of shape {tuple(lg.shape)} are not finite")
+    for a, b in (("fused", "staged"), ("fused", "plain"), ("staged", "plain")):
+        worst, same = 1.0, 0
+        for key, la in runs[a]["logits"].items():
+            lb = runs[b]["logits"][key]
+            worst = min(worst, float(torch.nn.functional.cosine_similarity(la, lb, dim=0)))
+            same += int(la.argmax() == lb.argmax())
+        log(f"end to end {a} vs {b}: Engine, requests {AGREE_REQS} x {AGREE_NEW} new "
+            f"tokens, fed the fused run's tokens: min logit cosine {worst:.6f} "
+            f"(>= {LOGIT_COS}) over {len(ref_keys)} steps, greedy tokens equal at "
+            f"{same} of {len(ref_keys)}")
+        if not worst >= LOGIT_COS:
+            fail(f"{a} and {b} logits drift apart: cosine {worst}")
+    tel = {n: {k: r["snap"][k] for k in SPARSITY_KEYS} for n, r in runs.items()}
+    log(f"telemetry, fused run: {json.dumps(tel['fused'])}")
+    for name in ("staged", "plain"):
+        if tel[name] != tel["fused"]:
+            fail(f"the {name} run's sparsity counters differ from the fused run's: "
+                 f"{tel[name]}")
+    log("telemetry: fused, staged and plain counters identical")
+
+
+def serve_f32_store(torch, model, cfg, dev):
+    """Request 3 (no prefix hit) through the staged kernels on an
+    unquantized f32 store (``quant="none"``), so ``centroid_scores_f32``
+    runs on a serving path, then through the plain versions fed the same
+    tokens; logit cosine at least ``LOGIT_COS``."""
+    f32_cfg = dataclasses.replace(cfg, sparse=dataclasses.replace(cfg.sparse, quant="none"))
+    plain_cfg = dataclasses.replace(f32_cfg, sparse=dataclasses.replace(
+        f32_cfg.sparse, backend="reference"))
+    runs = {}
+    for name, c, launched in (
+        ("staged f32", f32_cfg,
+         {"centroid_scores_f32", "paged_attention", "sparse_prefill"}),
+        ("plain f32", plain_cfg, set()),
+    ):
+        eng = make_engine(c, model, dev, (3,), AGREE_NEW)
+        forced = runs["staged f32"]["tokens"] if runs else None
+        run = run_engine(torch, model, eng, forced=forced, record=True)
+        check_served(eng, run["done"], 1, AGREE_NEW, c.vocab_size, prefix_hit=False)
+        expect_path(f"{name} run", run["counts"], launched)
+        runs[name] = run
+        del eng
+        torch.cuda.empty_cache()
+    lk, lp = runs["staged f32"]["logits"], runs["plain f32"]["logits"]
+    if lk.keys() != lp.keys():
+        fail("the f32-store runs sampled at different steps")
+    worst = min(float(torch.nn.functional.cosine_similarity(lk[k], lp[k], dim=0))
+                for k in lk)
+    log(f"f32 store (quant none), request 3 x {AGREE_NEW} new tokens: staged kernels "
+        f"vs plain min logit cosine {worst:.6f} over {len(lk)} steps; launches "
+        f"{json.dumps({n: c['launches'] for n, c in runs['staged f32']['counts'].items() if c['launches']})}")
+    if not worst >= LOGIT_COS:
+        fail(f"f32-store staged logits drift from the plain path: cosine {worst}")
+    return runs["staged f32"]["counts"]
+
+
+def time_decode_steps(torch, model, cfgs, dev, rounds=15):
+    """``decode_step`` of the full model at B = MAX_BATCH on a cache filled
+    with random K/V (stores rebuilt from it) at ragged lengths near the
+    context's end, through the fused and the staged decode, each with and
+    without telemetry -> median ms per step over ``rounds`` rounds that take
+    the four variants in turn (CUDA events over 5 steps after 2 warm-up
+    steps; seq_len reset before every step, so every step sees the same
+    lengths).  Each variant then runs 5 more steps under torch.profiler,
+    and the device's busy time per step is set beside the step's time: the
+    difference is time the device waited for the host."""
+    import statistics
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    use_config(model, cfgs["fused"])
+    cache = model.init_cache(MAX_BATCH, CTX)
+    for e in cache["layers"]:
+        for name in ("k", "v"):
+            e[name].copy_(torch.randn(e[name].shape, generator=gen, device=dev))
+    for slot in range(MAX_BATCH):
+        model.refresh_slot_store(cache, slot)
+    lens = torch.tensor([CTX - 1 - i * (CTX // 16) for i in range(MAX_BATCH)],
+                        dtype=torch.int32, device=dev)
+    tokens = torch.arange(MAX_BATCH, device=dev)
+    tel = torch.zeros((model.cfg.n_layers, MAX_BATCH, 4), dtype=torch.int32, device=dev)
+
+    def variant(path, with_tel):
+        use_config(model, cfgs[path])
+        if with_tel:
+            cache["_telemetry"] = tel
+        else:
+            cache.pop("_telemetry", None)
+
+        def step():
+            cache["seq_len"].copy_(lens)
+            model.decode_step(cache, tokens)
+        return step
+
+    variants = {f"{p}{'+telemetry' if t else ''}": (p, t)
+                for p in ("fused", "staged") for t in (False, True)}
+    times = {k: [] for k in variants}
+    for _ in range(rounds):
+        for key, (path, with_tel) in variants.items():
+            times[key].append(cuda_time_ms(torch, variant(path, with_tel), 2, 5))
+    out = {k: statistics.median(v) for k, v in times.items()}
+    log("decode_step at B = %d, lengths %s, ms per step over %d rounds "
+        "(CUDA events): %s" % (MAX_BATCH, lens.tolist(), rounds, json.dumps(
+            {k: [round(x, 3) for x in v] for k, v in times.items()})))
+    log("decode_step ms per step, min / median / max over the rounds: %s" % json.dumps(
+        {k: [round(min(v), 3), round(out[k], 3), round(max(v), 3)]
+         for k, v in times.items()}))
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for key, (path, with_tel) in variants.items():
+        step = variant(path, with_tel)
+        step()
+        step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+        rows = device_time_rows(torch, prof)
+        busy = sum(r[0] for r in rows) / 5
+        log(f"decode_step {key}: device busy {busy:.3f} ms per step (profiled), "
+            f"step {out[key]:.3f} ms (median, unprofiled), so the device waits "
+            f"{out[key] - busy:.3f} ms; {sum(r[1] for r in rows) / 5:.0f} "
+            f"kernel launches per step")
+        for ms, n, name in rows[:8]:
+            log(f"decode_step {key}: {ms / 5:8.3f} ms/step x{n // 5:5d}  {name[:80]}")
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve(torch, dev, profile: bool = False):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    base = get_config(ARCH)
+    pattern = tuple(
+        tuple((16, 32, 64)[(l + h) % 3] for h in range(base.n_kv_heads))
+        for l in range(base.n_layers)
+    )
+    fused_cfg = dataclasses.replace(base, sparse=dataclasses.replace(
+        base.sparse, backend="cuda", fused_decode=True, sparse_prefill=True,
+        quant="int4_asym", block_sizes=pattern, token_budget=BUDGET,
+    ))
+    cfgs = {"fused": fused_cfg, "staged": dataclasses.replace(
+        fused_cfg, sparse=dataclasses.replace(fused_cfg.sparse, fused_decode=False))}
+    t0 = time.perf_counter()
+    model = Transformer(fused_cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"weights: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params "
+        f"bf16, init {time.perf_counter() - t0:.1f}s")
+
+    paths = {}
+    eng = make_engine(fused_cfg, model, dev, range(len(PROMPT_LENS)), NEW_TOKENS)
+    run = run_engine(torch, model, eng, profile=profile)
+    if profile:
+        profile_summary(torch, run["prof"], run["wall"])
+    check_served(eng, run["done"], len(PROMPT_LENS), NEW_TOKENS, fused_cfg.vocab_size)
+    expect_path("fused serving", run["counts"], {"fused_decode", "sparse_prefill"})
+    log_serving("serving (fused)", run, eng.metrics.snapshot())
+    paths["fused"] = run
     del eng
     torch.cuda.empty_cache()
-    agree_with_plain(torch, model, cfg, dev)
+
+    eng = make_engine(cfgs["staged"], model, dev, STAGED_REQS, NEW_TOKENS,
+                      telemetry=True)
+    run = run_engine(torch, model, eng, profile=profile)
+    if profile:
+        profile_summary(torch, run["prof"], run["wall"])
+    check_served(eng, run["done"], len(STAGED_REQS), NEW_TOKENS, fused_cfg.vocab_size)
+    expect_path("staged serving", run["counts"],
+                {"centroid_scores_quantized", "paged_attention", "sparse_prefill"})
+    snap = eng.metrics.snapshot()
+    log_serving("serving (staged, telemetry)", run, snap)
+    log(f"serving (staged, telemetry): {json.dumps({k: snap[k] for k in SPARSITY_KEYS})}")
+    paths["staged"] = run
+    del eng
+    torch.cuda.empty_cache()
+
+    agree_with_plain(torch, model, cfgs, dev)
+    paths["f32"] = {"counts": serve_f32_store(torch, model, cfgs["staged"], dev)}
+    if profile:
+        log(f"decode_step ms: {json.dumps(time_decode_steps(torch, model, cfgs, dev))}")
     del model
     torch.cuda.empty_cache()
-    return counts, steps
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -485,9 +823,10 @@ def serve(torch, dev, profile: bool = False):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="run the serving phase under torch.profiler and print "
-                         "device time by kernel (serving numbers then include "
-                         "the profiler's overhead)")
+                    help="run the fused and staged serving runs under torch.profiler "
+                         "and print device time by kernel (serving numbers then "
+                         "include the profiler's overhead); time decode_step "
+                         "over 15 rounds and profile its device busy time")
     args = ap.parse_args()
 
     import torch
@@ -516,32 +855,64 @@ def main() -> int:
 
     dec = check_fused_decode(torch, dev)
     pre = check_sparse_prefill(torch, dev)
+    scored = {q: check_centroid_scores(torch, dec, q) for q in ("int4_asym", "none")}
+    att = check_paged_attention(torch, dec, scored["int4_asym"])
+    log(f"phase 2 done at {time.perf_counter() - T_START:.1f}s")
 
-    counts, steps = serve(torch, dev, profile=args.profile)
+    paths = serve(torch, dev, profile=args.profile)
+    log(f"phase 3 done at {time.perf_counter() - T_START:.1f}s")
 
+    fused, staged = paths["fused"], paths["staged"]
     t_dec = time_fused_decode(torch, dec)
     t_pre = time_sparse_prefill(torch, dev)
+    t_csq = time_centroid_scores(torch, dec, scored["int4_asym"])
+    t_csf = time_centroid_scores(torch, dec, scored["none"])
+    t_pa = time_paged_attention(torch, dec, att)
     kernels_line = [
         {"name": "fused_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_decode.cu",
          "replaces": "src/repro/kernels/fused_decode.py:333",
-         "launches": counts["fused_decode"]["launches"],
+         "launches": fused["counts"]["fused_decode"]["launches"],
          "max_abs_err": dec["err"], **t_dec, "library_ms": None},
         {"name": "sparse_prefill", "route": "cuda",
          "source": "src/repro_torch/csrc/sparse_prefill.cu",
          "replaces": "src/repro/kernels/sparse_prefill.py:355",
-         "launches": counts["sparse_prefill"]["launches"],
+         "launches": fused["counts"]["sparse_prefill"]["launches"],
          "max_abs_err": pre["err"], **t_pre, "library_ms": None},
+        {"name": "centroid_scores_quantized", "route": "cuda",
+         "source": "src/repro_torch/csrc/centroid_score.cu",
+         "replaces": "src/repro/kernels/centroid_score.py:147",
+         "launches": staged["counts"]["centroid_scores_quantized"]["launches"],
+         "max_abs_err": scored["int4_asym"]["err"], **t_csq},
+        {"name": "centroid_scores_f32", "route": "cuda",
+         "source": "src/repro_torch/csrc/centroid_score.cu",
+         "replaces": "src/repro/kernels/centroid_score.py:181",
+         "launches": paths["f32"]["counts"]["centroid_scores_f32"]["launches"],
+         "max_abs_err": scored["none"]["err"], **t_csf},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:143",
+         "launches": staged["counts"]["paged_attention"]["launches"],
+         "max_abs_err": att["err"], **t_pa},
     ]
     for k in kernels_line:
+        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "
-            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library {lib}, "
             f"launches while serving {k['launches']}")
-    log(f"launches per decode step "
-        f"{counts['fused_decode']['launches'] / steps['decode_step']:.1f}, "
-        f"per prefill chunk "
-        f"{counts['sparse_prefill']['launches'] / steps['prefill_chunk']:.1f}; "
-        f"library_ms null: no single PyTorch call scores, selects and attends")
+    f_steps, s_steps = fused["steps"], staged["steps"]
+    log(f"launches per decode step: fused path "
+        f"{fused['counts']['fused_decode']['launches'] / f_steps['decode_step']:.1f} "
+        f"fused_decode; staged path "
+        f"{staged['counts']['centroid_scores_quantized']['launches'] / s_steps['decode_step']:.1f} "
+        f"centroid_scores_quantized, "
+        f"{staged['counts']['paged_attention']['launches'] / s_steps['decode_step']:.1f} "
+        f"paged_attention; per prefill chunk "
+        f"{fused['counts']['sparse_prefill']['launches'] / f_steps['prefill_chunk']:.1f}; "
+        f"library_ms null for fused_decode / sparse_prefill (no single PyTorch call "
+        f"scores, selects and attends) and centroid_scores_quantized (none "
+        f"dequantizes split-half INT4)")
+    log(f"total {time.perf_counter() - T_START:.1f}s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.log").write_text("\n".join(LOG) + "\n")

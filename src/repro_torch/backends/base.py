@@ -8,8 +8,11 @@
   split-half packed codes, per-(sequence, head, channel) or per-row affine
   params), shared by both backends.
 - :class:`AttentionBackend`: store build / maintenance, sparse prefill and
-  decode.  ``"reference"`` runs the kernels' plain versions; ``"cuda"``
-  launches the hand-written kernels (their plain versions on CPU tensors).
+  decode.  ``"reference"`` runs the kernels' plain versions and always
+  decodes staged; ``"cuda"`` launches the hand-written kernels (their plain
+  versions on CPU tensors) and decodes with the fused kernel when
+  ``SparseConfig.fused_decode`` is set, else staged: the scoring kernel,
+  the stable-sort selection, the paged-attention kernel.
 """
 from __future__ import annotations
 
@@ -23,6 +26,11 @@ from repro_torch.config import ModelConfig, SparseConfig
 from repro_torch.core.centroids import padded_rank_key_width, rank_query
 from repro_torch.core.quantization import store_bits, store_symmetric
 from repro_torch.core.ragged import RaggedLayout, layout_for
+from repro_torch.core.selection import (
+    rank_blocks,
+    select_page_table,
+    selection_telemetry,
+)
 from repro_torch.core.stacked import LayoutArrays, stack_layouts
 
 
@@ -151,15 +159,55 @@ class AttentionBackend:
             n_valid=n_valid, chunk_offset=chunk_offset,
         )
 
-    def decode(self, q, k, v, store, la, sparse, seq_len):
+    def scores(self, rq, store: CentroidStore, la, n_kv: int) -> torch.Tensor:
+        """Estimation: rank queries ``[B, n_q, Dp]`` + store -> block
+        scores ``[B, n_kv, max_blocks]`` (``NEG_INF`` pads)."""
+        from repro_torch.kernels import ops
+
+        fn = ops.centroid_scores_reference if self.plain else ops.centroid_scores
+        return fn(rq, store, la, n_kv)
+
+    def attend(self, q, k, v, page_table, page_valid, page_size: int,
+               seq_len) -> torch.Tensor:
+        """Attention over the selected pages -> ``[B, n_q, D]``."""
+        from repro_torch.kernels import ops
+
+        fn = ops.paged_attention_reference if self.plain else ops.paged_attention
+        return fn(q, k, v, page_table, page_valid, page_size, seq_len)
+
+    def decode(self, q, k, v, store, la, sparse, seq_len, collect_tel=False):
         """Score -> top-K_h -> attend -> (out [B, n_q, D],
-        page_table [B, H, P_sel], page_valid [B, H, P_sel])."""
+        page_table [B, H, P_sel], page_valid [B, H, P_sel]); with
+        ``collect_tel`` also the ``[B, 4]`` sparsity counters
+        (:func:`selection_telemetry`) of the selection just made.
+
+        The kernel backend with ``sparse.fused_decode`` runs the fused
+        kernel (slots in ascending block order); otherwise, and always on
+        the reference backend, the staged pipeline runs (slots in rank
+        order).  The fused kernel keeps its scores on chip, so its counters
+        come from one more :meth:`scores` call and :func:`rank_blocks`."""
         from repro_torch.kernels import ops
 
         rq = rank_query(q, sparse.centroid_method, q.shape[-1])
-        fn = ops.fused_decode_reference if self.plain else ops.fused_decode
-        return fn(q, rq, k, v, store, la, sparse.sink_pages, sparse.local_pages,
-                  seq_len)
+        n_kv = k.shape[1]
+        sink, local = sparse.sink_pages, sparse.local_pages
+        if sparse.fused_decode and not self.plain:
+            out, table, valid = ops.fused_decode(q, rq, k, v, store, la, sink,
+                                                 local, seq_len)
+            if not collect_tel:
+                return out, table, valid
+            scores = self.scores(rq, store, la, n_kv)
+            return out, table, valid, selection_telemetry(
+                scores, la, seq_len, sink, local)
+        scores = self.scores(rq, store, la, n_kv)
+        ranked = rank_blocks(scores, la, seq_len, sink, local)
+        table, valid = select_page_table(scores, la, seq_len, sink, local,
+                                         ranked=ranked)
+        out = self.attend(q, k, v, table, valid, la.page_size, seq_len)
+        if not collect_tel:
+            return out, table, valid
+        return out, table, valid, selection_telemetry(
+            scores, la, seq_len, sink, local, ranked=ranked)
 
 
 class ReferenceBackend(AttentionBackend):

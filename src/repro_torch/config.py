@@ -19,9 +19,13 @@ class SparseConfig:
     """AB-Sparse configuration (paper §3)."""
 
     #: attention backend: "reference" (plain PyTorch) | "cuda" (hand-written
-    #: Hopper kernels; their plain versions on CPU tensors).  Decode is
-    #: always the single-launch score -> select -> attend path.
+    #: Hopper kernels; their plain versions on CPU tensors).
     backend: str = "reference"
+    #: decode on the "cuda" backend: True runs the single-launch fused
+    #: score -> select -> attend kernel; False the staged path (scoring
+    #: kernel, stable-sort top-K_h, paged-attention kernel).  The
+    #: "reference" backend always decodes staged.
+    fused_decode: bool = False
     #: query-block sparse prefill (the port's prefill requires it on).
     sparse_prefill: bool = False
     prefill_topk_scale: float = 1.0

@@ -78,3 +78,38 @@ def select_page_table(
     table = sel_blocks * la.pages_per_block[None, :, None] + la.within_map[None]
     table = torch.clamp(table, 0, la.n_pages - 1)
     return table.to(torch.int32), sel_vals > NEG_INF / 2
+
+
+def selection_telemetry(
+    scores: torch.Tensor,
+    la: LayoutArrays,
+    seq_len: Optional[torch.Tensor] = None,
+    sink_pages: int = 1,
+    local_pages: int = 4,
+    ranked: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """scores ``[B, H, max_blocks]`` -> per-slot sparsity counters ``[B, 4]``
+    int32: ``[blocks selected, KV pages gathered (summed per head), forced
+    (pinned) blocks, total top-K block budget]``, in the column order of
+    :mod:`repro_torch.obs.telemetry`.  Pass the decode's own
+    :func:`rank_blocks` result as ``ranked`` so the counts are those of the
+    page table the attention stage reads; they depend only on the live
+    lengths and the layout, not on the scores."""
+    B = scores.shape[0]
+    if seq_len is None:
+        seq_len = torch.full((B,), la.context_len, dtype=torch.int32,
+                             device=scores.device)
+    if ranked is None:
+        ranked = rank_blocks(scores, la, seq_len, sink_pages, local_pages)
+    vals, _ = ranked                                            # [B, H, kmax]
+    within_k = (
+        torch.arange(la.max_top_k, device=scores.device)[None, None, :]
+        < la.top_k[None, :, None]
+    )
+    valid = within_k & (vals > NEG_INF / 2)
+    forced = within_k & (vals > POS_INF / 2)
+    n_blocks = valid.sum(dim=(1, 2))
+    n_pages = (valid * la.pages_per_block[None, :, None]).sum(dim=(1, 2))
+    n_forced = forced.sum(dim=(1, 2))
+    budget = la.top_k.sum().expand(B)
+    return torch.stack([n_blocks, n_pages, n_forced, budget], dim=-1).to(torch.int32)

@@ -1,5 +1,6 @@
 // Shared device helpers of the AB-Sparse Hopper kernels: the sortable-u32
-// encoding of f32 scores, the INT4/INT8 store dequant, block reductions and
+// encoding of f32 scores, the INT4/INT8 store dequant, the one-warp row
+// scoring shared by the fused and the staged decode, block reductions and
 // the exact top-k threshold search (lax.top_k's lowest-index tie order).
 #pragma once
 
@@ -12,8 +13,9 @@
 
 namespace absparse {
 
-constexpr int NT = 256;               // threads per block of both kernels
+constexpr int NT = 256;               // threads per block of every kernel
 constexpr int NWARPS = NT / 32;
+constexpr int GMAX = 8;               // largest GQA group handled
 
 // f32 -> u32 whose unsigned order is the float order (sign bit flipped for
 // non-negatives, all bits flipped for negatives).
@@ -62,6 +64,42 @@ __device__ __forceinline__ int warp_sum_int(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Block score of one packed store row against its head's GQA group of rank
+// queries, computed by one warp: lane l takes channels l, l + 32, ...
+// (dequant, then one fused multiply-add per group row), a butterfly
+// warp_sum per group row, then the max over the group.  Every lane returns
+// the score.  The summation order does not depend on the row's position,
+// so identical rows score identically.  The staged scoring kernel and the
+// fused decode kernel both score through this one function, so their
+// scores are bitwise equal.  rq: [g, Dp] (row stride Dp); scale / zero:
+// the head's [Dp] affine parameters (not read for an f32 store, bits 0).
+__device__ __forceinline__ float score_row(const uint8_t* row, const float* rq,
+                                           int g, int Dp, int bits, bool sym,
+                                           const float* scale,
+                                           const float* zero) {
+  const int lane = threadIdx.x & 31;
+  float acc[GMAX];
+#pragma unroll
+  for (int gi = 0; gi < GMAX; ++gi) acc[gi] = 0.f;
+  for (int c = lane; c < Dp; c += 32) {
+    const float x = bits == 0
+        ? reinterpret_cast<const float*>(row)[c]
+        : dequant(row, c, Dp, bits, sym, scale[c], zero[c]);
+#pragma unroll
+    for (int gi = 0; gi < GMAX; ++gi)
+      if (gi < g) acc[gi] = fmaf(x, rq[gi * Dp + c], acc[gi]);
+  }
+  float best = ABS_NEG_INF;
+#pragma unroll
+  for (int gi = 0; gi < GMAX; ++gi) {
+    if (gi < g) {
+      const float v = warp_sum(acc[gi]);
+      best = gi == 0 ? v : fmaxf(best, v);
+    }
+  }
+  return best;
 }
 
 // Sum of one int per thread over the block; every thread gets the total.

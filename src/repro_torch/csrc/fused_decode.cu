@@ -5,10 +5,12 @@
 // pallas_call at line 333).  One thread block per (kv head, sequence):
 //
 //  1. scores the head's packed centroid segment (rows [row_off, row_off +
-//     n_blocks) of the flattened store), one warp per row: INT4/INT8 dequant
-//     in registers, dot with each GQA rank query, max over the group; the
-//     lane-partial + butterfly sum order is the same for every row, so
-//     identical rows score identically;
+//     n_blocks) of the flattened store), one warp per row through
+//     score_row (common.cuh), the device function the staged scoring
+//     kernel centroid_score.cu uses too: INT4/INT8 dequant in registers,
+//     dot with each GQA rank query, max over the group; the lane-partial +
+//     butterfly sum order is the same for every row, so identical rows
+//     score identically;
 //  2. masks blocks past seq_len to -1e30 and pins sink / local blocks to
 //     +1e30, then selects exactly K_h blocks by a 32-step binary search over
 //     the sortable-u32 encoding with the lowest index winning ties, and
@@ -27,8 +29,6 @@
 using namespace absparse;
 
 namespace {
-
-constexpr int GMAX = 8;  // largest GQA group handled
 
 template <int DPL>  // head_dim = 32 * DPL channels, DPL per lane
 __global__ void __launch_bounds__(NT) fused_decode_kernel(
@@ -82,23 +82,7 @@ __global__ void __launch_bounds__(NT) fused_decode_kernel(
   for (int j = wid; j < nblk; j += NWARPS) {
     const uint8_t* row =
         codes + ((size_t)b * total_rows + roff + j) * (size_t)row_bytes;
-    float acc[GMAX];
-#pragma unroll
-    for (int gi = 0; gi < GMAX; ++gi) acc[gi] = 0.f;
-    for (int c = lane; c < Dp; c += 32) {
-      const float x = dequant(row, c, Dp, bits, symm, sc_h[c], ze_h[c]);
-#pragma unroll
-      for (int gi = 0; gi < GMAX; ++gi)
-        if (gi < g) acc[gi] = fmaf(x, rq_s[gi * Dp + c], acc[gi]);
-    }
-    float best = ABS_NEG_INF;
-#pragma unroll
-    for (int gi = 0; gi < GMAX; ++gi) {
-      if (gi < g) {
-        const float v = warp_sum(acc[gi]);
-        best = gi == 0 ? v : fmaxf(best, v);
-      }
-    }
+    const float best = score_row(row, rq_s, g, Dp, bits, symm, sc_h, ze_h);
     if (lane == 0) {
       const int st = j * bs;
       const bool ok = st < sl;

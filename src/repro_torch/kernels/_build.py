@@ -23,6 +23,8 @@ CSRC = PKG / "csrc"
 SOURCES = {
     "fused_decode": "fused_decode.cu",
     "sparse_prefill": "sparse_prefill.cu",
+    "centroid_score": "centroid_score.cu",
+    "paged_attention": "paged_attention.cu",
 }
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

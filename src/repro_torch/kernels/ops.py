@@ -1,7 +1,8 @@
-"""Store/layout-level entry points of the two kernels (counterpart of
-``repro.kernels.ops``): the shared sparse-prefill preamble, the
-``fused_decode`` / ``sparse_prefill`` wrappers the ``"cuda"`` backend calls,
-and their ``*_reference`` twins that run the kernel modules' plain versions
+"""Store/layout-level entry points of the kernels (counterpart of
+``repro.kernels.ops``): the staged decode's ``centroid_scores`` (with the
+plain ``flat_to_padded``) and ``paged_attention``, the ``fused_decode`` and
+``sparse_prefill`` wrappers with the shared sparse-prefill preamble, and
+each one's ``*_reference`` twin that runs the kernel modules' plain versions
 (the ``"reference"`` backend, and the oracle the kernels are held against).
 """
 from __future__ import annotations
@@ -11,10 +12,81 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.selection import NEG_INF
 from repro_torch.core.sparse_attention import as_paged
 from repro_torch.core.stacked import LayoutArrays
+from repro_torch.kernels import centroid_score as cs
 from repro_torch.kernels import fused_decode as fd
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sparse_prefill as sp
+
+
+def centroid_scores(
+    rq: torch.Tensor,              # [B, n_q, Dp] rank queries
+    store,                         # backends.CentroidStore (duck-typed)
+    la: LayoutArrays,              # one layer
+    n_kv: int,
+) -> torch.Tensor:
+    """Estimation stage of the staged decode, one kernel launch -> block
+    scores ``[B, n_kv, max_blocks]`` (``NEG_INF`` pads)."""
+    rq = rq.to(torch.float32).contiguous()
+    if store.bits == 0:
+        flat = cs.centroid_scores_f32(rq, store.codes, n_kv, la.tile_head,
+                                      la.tile_rows)
+    else:
+        flat = cs.centroid_scores_quantized(
+            rq, store.codes, store.scale, store.zero, la.tile_head,
+            la.tile_rows, bits=store.bits, symmetric=store.symmetric,
+        )
+    return flat_to_padded(flat, la)
+
+
+def centroid_scores_reference(rq, store, la, n_kv):
+    """:func:`centroid_scores` through the plain version."""
+    flat = cs.centroid_scores_plain(
+        rq.to(torch.float32), store.codes, store.scale, store.zero,
+        la.tile_head, la.tile_rows, bits=store.bits,
+        symmetric=store.symmetric, n_kv=n_kv,
+    )
+    return flat_to_padded(flat, la)
+
+
+def flat_to_padded(flat: torch.Tensor, la: LayoutArrays) -> torch.Tensor:
+    """Flat scores ``[B, total_rows]`` -> ``[B, n_heads, max_blocks]``, each
+    head's rows gathered by ``scatter_rows``, pads set to ``NEG_INF``."""
+    picked = flat[:, la.scatter_rows.long()]
+    return torch.where(la.pad_mask[None], picked, NEG_INF)
+
+
+def paged_attention(
+    q: torch.Tensor,               # [B, n_q, D]
+    k: torch.Tensor,               # paged [B, n_kv, nP, page, D] or dense 4-D
+    v: torch.Tensor,
+    page_table: torch.Tensor,      # [B, n_kv, P_sel]
+    page_valid: torch.Tensor,      # [B, n_kv, P_sel] bool
+    page_size: int,
+    seq_len: torch.Tensor,         # [B] live tokens
+) -> torch.Tensor:
+    """Attention stage of the staged decode, one kernel launch ->
+    ``[B, n_q, D]`` over the selected pages only."""
+    return _paged_attention(pa.paged_attention, q, k, v, page_table,
+                            page_valid, page_size, seq_len)
+
+
+def paged_attention_reference(q, k, v, page_table, page_valid, page_size,
+                              seq_len):
+    """:func:`paged_attention` through the plain version."""
+    return _paged_attention(pa.paged_attention_plain, q, k, v, page_table,
+                            page_valid, page_size, seq_len)
+
+
+def _paged_attention(fn, q, k, v, page_table, page_valid, page_size, seq_len):
+    kp, vp = as_paged(k, page_size), as_paged(v, page_size)
+    return fn(
+        q.contiguous(), kp, vp, page_table.to(torch.int32).contiguous(),
+        page_valid.to(torch.bool).contiguous(),
+        seq_len.to(torch.int32).reshape(q.shape[0]).contiguous(), page_size,
+    )
 
 
 def fused_decode(

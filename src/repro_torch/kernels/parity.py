@@ -15,6 +15,10 @@ most ``REL_L2``.  That catches a dropped page: leaving out 16 of 4096
 attended tokens moves a row by about sqrt(16 / 4096) = 6% (relative L2),
 and a flash rescale error by far more.
 
+Block scores of the staged scoring kernel must lie within ``SCORE_RTOL``
+of the plain version's, relative to the largest |score| of their (sequence,
+head): both accumulate in f32, in different orders.
+
 Raises ``AssertionError`` on a violation; returns the errors and the number
 of near ties.
 """
@@ -22,10 +26,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.selection import mask_and_pin_scores
+from repro_torch.core.selection import mask_and_pin_scores, select_page_table
 from repro_torch.kernels import ops, ref
 
 TIE_RTOL = 1e-5
+#: staged scores: |kernel - plain| <= SCORE_RTOL * max |plain| of the
+#: (sequence, head); a sum of Dp = 256 f32 products in two orders differs by
+#: a few ulps of its largest partial sums, far below this
+SCORE_RTOL = 1e-5
 #: one bf16 rounding step (relative), and the floor for outputs near zero
 OUT_RTOL = 2.0 ** -7
 OUT_ATOL = 1e-4
@@ -74,26 +82,98 @@ def compare_fused_decode(q, rq, k, v, store, la, sparse, seq_len):
                                   store.bits, store.symmetric)
     s = ref.row_scores(rows[:, la.scatter_rows.long()],
                        rq.float().reshape(B, n_kv, g, -1)).amax(dim=2)
-    s = mask_and_pin_scores(s, la, seq_len, sparse.sink_pages, sparse.local_pages)
-    thr = torch.sort(s, dim=-1, descending=True).values
-    thr = thr.gather(-1, (la.top_k.long() - 1)[None, :, None].expand(B, -1, 1))
-    ppb = la.pages_per_block.long()[None, :, None]
-    M = s.shape[-1]
-
-    def chosen(tbl):        # [B, H, M] selected live blocks
-        sel = torch.zeros((B, n_kv, M), dtype=torch.bool, device=q.device)
-        blk = torch.where(vld_k, tbl.long() // ppb, M)
-        return sel.scatter(-1, blk.clamp(max=M - 1), vld_k & (blk < M))
-
-    diff = chosen(tbl_k) ^ chosen(tbl_p)
-    ok = _near(s, thr.expand_as(s)) | ~diff
-    assert bool(ok.all()), "fused_decode: a block selected by one version only is not a near tie"
+    diff = _selection_diff(s, la, sparse, seq_len, tbl_k, tbl_p, vld_k,
+                           "fused_decode")
     tie_heads = diff.any(-1)                                   # [B, H]
     keep = (~tie_heads).repeat_interleave(g, dim=1)            # [B, n_q]
     err, rel, use = check_outputs(out_k, out_p, keep, "fused_decode")
     return {"max_abs_err": err, "max_rel_l2": rel, "tol_use": use,
             "near_ties": int(diff.sum()), "tie_heads": int(tie_heads.sum()),
             "kernel": (out_k, tbl_k, vld_k), "plain": (out_p, tbl_p, vld_p)}
+
+
+def _selection_diff(scores, la, sparse, seq_len, tbl_k, tbl_p, valid, what):
+    """Blocks ``[B, H, M]`` that only one of two page tables (same
+    ``valid``) selects; each must be a near tie of its head's K-th score
+    under ``scores`` (the plain version's, before masking)."""
+    B, n_kv, M = scores.shape
+    s = mask_and_pin_scores(scores, la, seq_len, sparse.sink_pages,
+                            sparse.local_pages)
+    thr = torch.sort(s, dim=-1, descending=True).values
+    thr = thr.gather(-1, (la.top_k.long() - 1)[None, :, None].expand(B, -1, 1))
+    ppb = la.pages_per_block.long()[None, :, None]
+
+    def chosen(tbl):        # [B, H, M] selected live blocks
+        sel = torch.zeros((B, n_kv, M), dtype=torch.bool, device=s.device)
+        blk = torch.where(valid, tbl.long() // ppb, M)
+        return sel.scatter(-1, blk.clamp(max=M - 1), valid & (blk < M))
+
+    diff = chosen(tbl_k) ^ chosen(tbl_p)
+    ok = _near(s, thr.expand_as(s)) | ~diff
+    assert bool(ok.all()), f"{what}: a block selected by one version only is not a near tie"
+    return diff
+
+
+def page_sets_equal(tbl_a, vld_a, tbl_b, vld_b) -> bool:
+    """Whether two page tables ``[B, H, P]`` select the same valid pages per
+    (sequence, head), in any slot order."""
+    big = torch.iinfo(torch.int32).max
+
+    def key(tbl, vld):
+        return torch.sort(torch.where(vld, tbl.to(torch.int32), big), dim=-1).values
+
+    return torch.equal(vld_a.sum(-1), vld_b.sum(-1)) and torch.equal(
+        key(tbl_a, vld_a), key(tbl_b, vld_b))
+
+
+def check_scores(s_k, s_p, la, what):
+    """Compare kernel and plain block scores ``[B, H, M]`` on the real
+    (unpadded) blocks -> (max abs error, max error relative to its (sequence,
+    head)'s largest |plain score|)."""
+    real = la.pad_mask[None].expand_as(s_p)
+    scale = torch.where(real, s_p.abs(), 0.0).amax(-1, keepdim=True)
+    d = torch.where(real, (s_k - s_p).abs(), 0.0)
+    rel = float((d / scale.clamp(min=1e-30)).max())
+    assert rel <= SCORE_RTOL, (f"{what}: score error {rel:.3e} of the head's "
+                               f"largest |score| exceeds {SCORE_RTOL}")
+    assert torch.equal(s_k[~real], s_p[~real]), f"{what}: padding scores differ"
+    return float(d.max()), rel
+
+
+def compare_centroid_scores(rq, store, la, sparse, seq_len):
+    """Staged scoring kernel against its plain version -> {"max_abs_err",
+    "max_rel_err", "near_ties", "kernel": scores, "plain": scores,
+    "table", "valid"} (the page table selected from the kernel's scores).
+    Scores within ``SCORE_RTOL``; the page tables selected from the two
+    equal up to near ties, ``page_valid`` exactly."""
+    n_kv = la.n_heads
+    s_k = ops.centroid_scores(rq, store, la, n_kv)
+    s_p = ops.centroid_scores_reference(rq, store, la, n_kv)
+    torch.cuda.synchronize()
+    err, rel = check_scores(s_k, s_p, la, "centroid_scores")
+    sel = dict(seq_len=seq_len, sink_pages=sparse.sink_pages,
+               local_pages=sparse.local_pages)
+    tbl_k, vld_k = select_page_table(s_k, la, **sel)
+    tbl_p, vld_p = select_page_table(s_p, la, **sel)
+    assert torch.equal(vld_k, vld_p), "centroid_scores: page_valid differs"
+    diff = _selection_diff(s_p, la, sparse, seq_len, tbl_k, tbl_p, vld_k,
+                           "centroid_scores")
+    return {"max_abs_err": err, "max_rel_err": rel, "near_ties": int(diff.sum()),
+            "kernel": s_k, "plain": s_p, "table": tbl_k, "valid": vld_k}
+
+
+def compare_paged_attention(q, k, v, page_table, page_valid, page_size, seq_len):
+    """Paged-attention kernel against its plain version on one page table
+    -> {"max_abs_err", "max_rel_l2", "tol_use", "kernel", "plain"}; every
+    output row is compared."""
+    args = (q, k, v, page_table, page_valid, page_size, seq_len)
+    out_k = ops.paged_attention(*args)
+    out_p = ops.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    keep = torch.ones(out_p.shape[:-1], dtype=torch.bool, device=out_p.device)
+    err, rel, use = check_outputs(out_k, out_p, keep, "paged_attention")
+    return {"max_abs_err": err, "max_rel_l2": rel, "tol_use": use,
+            "kernel": out_k, "plain": out_p}
 
 
 def prefill_selection(q, rq, k, v, score_store, la, sparse, n_valid, chunk_offset):

@@ -9,10 +9,12 @@ under INT4) score identically and ties keep their lowest-index-first order.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.core.quantization import decode_affine, unpack_split_half
+from repro_torch.core.sparse_attention import paged_attention_reference
 from repro_torch.core.stacked import LayoutArrays
 
 NEG_INF = -1e30
@@ -51,11 +53,51 @@ def dequant_store_rows(
     if bits == 0:
         return codes.to(torch.float32)
     unpacked = unpack_split_half(codes) if bits == 4 else codes
-    row_head = torch.repeat_interleave(la.tile_head.long(), la.tile_rows)
-    row_head = row_head[: codes.shape[1]]
+    row_head = store_row_head(la.tile_head, la.tile_rows, codes.shape[1])
     return decode_affine(
         unpacked, scale[:, row_head], zero[:, row_head], bits, symmetric
     )
+
+
+def store_row_head(tile_head: torch.Tensor, tile_rows: int, rows: int) -> torch.Tensor:
+    """The kv head owning each of the store's ``rows`` rows (int64)."""
+    return torch.repeat_interleave(tile_head.long(), tile_rows)[:rows]
+
+
+def centroid_scores_ref(
+    rq: torch.Tensor,              # [B, n_kv * g, Dp] f32 rank queries
+    codes: torch.Tensor,           # [B, rows, Cw] store codes (f32 when bits 0)
+    scale,                         # [B, n_kv, Dp] f32 (None when bits 0)
+    zero,
+    tile_head: torch.Tensor,       # [n_tiles] int32 tile -> head
+    tile_rows: int,
+    bits: int,
+    symmetric: bool,
+    n_kv: Optional[int] = None,    # needed when bits == 0 (no scale)
+) -> torch.Tensor:
+    """Flat block scores ``[B, rows]``: each store row dequantized, dotted
+    with every rank query of its head's GQA group (:func:`row_scores`'s
+    broadcast-sum order), max over the group."""
+    B, n_q, Dp = rq.shape
+    n_kv = scale.shape[1] if bits else n_kv
+    head = store_row_head(tile_head, tile_rows, codes.shape[1])
+    if bits == 0:
+        rows = codes.to(torch.float32)
+    else:
+        unpacked = unpack_split_half(codes) if bits == 4 else codes
+        rows = decode_affine(unpacked, scale[:, head], zero[:, head], bits,
+                             symmetric)
+    rq4 = rq.to(torch.float32).reshape(B, n_kv, n_q // n_kv, Dp)
+    s = row_scores(rows[:, :, None, :], rq4[:, head])         # [B, R, g, 1]
+    return s.squeeze(-1).amax(dim=-1)
+
+
+def paged_attention_ref(q, k_pages, v_pages, page_table, page_valid, seq_len,
+                        page_size):
+    """Paged decode attention over the selected pages (argument order of
+    ``repro.kernels.ref.paged_attention_ref``)."""
+    return paged_attention_reference(q, k_pages, v_pages, page_table,
+                                     page_valid, page_size, seq_len)
 
 
 def dequant_score_rows(

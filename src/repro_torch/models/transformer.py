@@ -5,6 +5,7 @@ Entry points:
   prefill          prompt -> KV cache + decode store + prefill score segment
   prefill_chunk    one prompt chunk of one batch slot (query-block sparse)
   decode_step      one token for every slot: score -> top-K_h -> attend
+                   (fused kernel or staged, ``SparseConfig.fused_decode``)
 
 The JAX model scans over stacked layer parameters and donates its cache;
 here the layers are a Python loop over per-layer cache tensors, and every
@@ -212,6 +213,9 @@ class Transformer(nn.Module):
         is refreshed with the blocks the chunk completes, then each query
         block attends its forced + top-scored blocks.  The decode store is
         not maintained: call :meth:`refresh_slot_store` after the last chunk.
+        When the cache carries ``"_ptel"`` (``[n_layers]`` int32), each
+        layer's entry is set to the number of (query block, key block) pairs
+        it attended.
         -> (logits [vocab] at the last valid position, cache)."""
         cfg, sp = self.cfg, self.cfg.sparse
         C = len(tokens)
@@ -226,7 +230,9 @@ class Transformer(nn.Module):
         window = min(-(-(C + 2 * bmax) // bmax) * bmax, S_max)
         positions = (offset + torch.arange(n_valid, device=self.device))[None]
         x = self.embed[tok][None]                           # [1, n, d]
-        for layer, e, la in zip(self.layers, cache["layers"], cache["la"]):
+        ptel = cache.get("_ptel")
+        for l, (layer, e, la) in enumerate(
+                zip(self.layers, cache["layers"], cache["la"])):
             h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
             q, k, v = layers.qkv_project(layer, h, cfg, positions)
             kslot, vslot = e["k"][slot], e["v"][slot]       # [n_kv, nP, ps, hd]
@@ -237,10 +243,12 @@ class Transformer(nn.Module):
             self.backend.refresh_score_rows(
                 sstore, kslot[None], la, offset, offset + n_valid, sp, window
             )
-            attn, _ = self.backend.prefill_attention(
+            attn, n_att = self.backend.prefill_attention(
                 q.transpose(1, 2), kslot[None], vslot[None], sstore, la, sp,
                 n_valid=offset + n_valid, chunk_offset=offset,
             )
+            if ptel is not None:
+                ptel[l] = n_att.sum()
             x = x + layers.out_project(layer, attn.transpose(1, 2))
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
             x = x + layers.mlp(layer, h, cfg.activation)
@@ -276,7 +284,10 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache: Cache, tokens) -> Tuple[torch.Tensor, Cache]:
         """One token for every slot at position ``cache["seq_len"]``.
-        -> (logits [B, vocab], cache); ``seq_len`` is advanced in place."""
+        -> (logits [B, vocab], cache); ``seq_len`` is advanced in place.
+        When the cache carries ``"_telemetry"`` (``[n_layers, B, 4]``
+        int32), each layer's slice is set to the decode's sparsity counters
+        (:func:`~repro_torch.core.selection.selection_telemetry`)."""
         cfg, sp = self.cfg, self.cfg.sparse
         tok = torch.as_tensor(tokens, device=self.device).long()
         B = tok.shape[0]
@@ -290,7 +301,9 @@ class Transformer(nn.Module):
         pos = torch.clamp(seq_len.long(), max=n_pages * ps - 1)
         page, within = pos // ps, pos % ps
         x = self.embed[tok][:, None]                        # [B, 1, d]
-        for layer, e, la in zip(self.layers, cache["layers"], cache["la"]):
+        tel = cache.get("_telemetry")
+        for l, (layer, e, la) in enumerate(
+                zip(self.layers, cache["layers"], cache["la"])):
             h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
             q, k_new, v_new = layers.qkv_project(layer, h, cfg, positions)
             for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0])):
@@ -298,9 +311,13 @@ class Transformer(nn.Module):
                 e[name][bidx, :, page, within] = torch.where(in_range, new, old)
             store = self._store(e)
             self.backend.append(store, e["k"], la, seq_len, sp)
-            out, _, _ = self.backend.decode(
-                q[:, 0], e["k"], e["v"], store, la, sp, seq_len + 1
+            res = self.backend.decode(
+                q[:, 0], e["k"], e["v"], store, la, sp, seq_len + 1,
+                collect_tel=tel is not None,
             )
+            out = res[0]
+            if tel is not None:
+                tel[l] = res[3]
             x = x + layers.out_project(layer, out[:, None])
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
             x = x + layers.mlp(layer, h, cfg.activation)

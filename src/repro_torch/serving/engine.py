@@ -14,9 +14,15 @@ Per tick the engine executes what the
    consume the sampled tokens (host-side lengths are authoritative);
 4. **retire / preempt** finished or evicted sequences.
 
+With ``telemetry=True`` the decode step and each prefill chunk also fill
+the sparsity counters of :mod:`repro_torch.obs.telemetry`, which the engine
+copies to the host once per decode tick and once per chunk and folds into
+``metrics.snapshot()``.
+
 Not ported (each raises ``NotImplementedError`` when asked for): tiered KV
 memory (``ServeConfig.hbm_pages``), a device mesh, tracing and fault
-injection.  There is no degradation ladder: a kernel fault raises.
+injection.  There is no degradation ladder (fused -> staged -> reference):
+a kernel fault raises.
 """
 from __future__ import annotations
 
@@ -30,6 +36,11 @@ from repro_torch.cache.paged_kv import PagePool
 from repro_torch.cache.prefix_cache import PrefixCache
 from repro_torch.config import ModelConfig, ServeConfig
 from repro_torch.models import Transformer, resolve_device
+from repro_torch.obs.telemetry import (
+    N_COUNTERS,
+    SparsityAggregate,
+    prefill_block_candidates,
+)
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.sampler import SamplerAnomaly, finite_mask, sample
 from repro_torch.serving.scheduler import (
@@ -59,10 +70,11 @@ class Engine:
         mesh=None,
         trace=None,
         fault_injector=None,
+        telemetry: bool = False,
     ):
         """``model`` holds the weights (a :class:`Transformer` on
         ``device``); batch capacity and context length come from
-        ``serve_cfg``."""
+        ``serve_cfg``.  ``telemetry`` turns on the sparsity counters."""
         for name, val in (("mesh", mesh), ("trace", trace),
                           ("fault_injector", fault_injector),
                           ("ServeConfig.hbm_pages", serve_cfg.hbm_pages)):
@@ -98,6 +110,16 @@ class Engine:
         self._tokens_buf = np.zeros((self.max_batch,), np.int64)
         #: authoritative per-slot sequence lengths (tokens with KV in cache).
         self._seq_len = np.zeros((self.max_batch,), np.int32)
+        self._telemetry_on = telemetry
+        if self._telemetry_on:
+            L = model_cfg.n_layers
+            self.cache["_telemetry"] = torch.zeros(
+                (L, self.max_batch, N_COUNTERS), dtype=torch.int32,
+                device=self.device)
+            self.cache["_ptel"] = torch.zeros((L,), dtype=torch.int32,
+                                              device=self.device)
+            self.metrics.sparsity = SparsityAggregate(L)
+            self._plan_layouts = model.attention_plan(self.max_context).layouts
 
     @property
     def max_batch(self) -> int:
@@ -156,6 +178,14 @@ class Engine:
         logits, self.cache = self.model.prefill_chunk(
             self.cache, seq.slot, buf, ch.offset, n
         )
+        if self._telemetry_on:
+            self.metrics.on_prefill_sparsity(
+                self.cache["_ptel"].cpu().numpy(),
+                prefill_block_candidates(
+                    self._plan_layouts, ch.offset, n,
+                    self.cfg.sparse.prefill_block_q,
+                ),
+            )
         self._seq_len[seq.slot] = ch.offset + n
         self.metrics.on_prefill(n)
         if ch.is_last:
@@ -238,6 +268,10 @@ class Engine:
         bad = [s.seq_id for s, ok in zip(active, fin) if not ok]
         if bad:
             raise SamplerAnomaly(bad)
+        if self._telemetry_on:
+            # one fresh host copy per tick, after the token transfer
+            tel = self.cache["_telemetry"].to("cpu", copy=True).numpy()
+            self.metrics.on_sparsity(tel, rows)
         for seq, tok in zip(active, toks):
             slot = seq.slot
             if seq.replay:

@@ -1,6 +1,7 @@
 """Request-lifecycle metrics (``repro.serving.metrics`` trimmed to what the
 port's scheduler and engine call: no trace spans, tiering or failure
-counters).
+counters), plus the sparsity telemetry the engine folds in when it runs
+with ``telemetry=True``.
 
 - TTFT  = first-token time - submit time (includes queueing),
 - TPOT  = (finish - first token) / (output tokens - 1),
@@ -73,6 +74,11 @@ class ServingMetrics:
         self.decode_tokens = 0
         self.preemptions = 0
         self.prefix_deferrals = 0
+        #: optional :class:`~repro_torch.obs.telemetry.SparsityAggregate`;
+        #: decode and prefill sparsity counters fold in via
+        #: :meth:`on_sparsity` / :meth:`on_prefill_sparsity` and surface in
+        #: :meth:`snapshot`.
+        self.sparsity = None
 
     def _req(self, req_id: int) -> RequestMetrics:
         return self.requests.setdefault(req_id, RequestMetrics(req_id))
@@ -117,6 +123,17 @@ class ServingMetrics:
         if r.t_finish is None:
             r.t_finish = self.clock()
 
+    def on_sparsity(self, tel, slots):
+        """Fold one decode tick's ``[n_layers, B, 4]`` counter array (a
+        fresh host copy, kept until the next snapshot)."""
+        if self.sparsity is not None:
+            self.sparsity.update_decode(tel, slots)
+
+    def on_prefill_sparsity(self, attended, candidates=None):
+        """Fold one prefill chunk's per-layer attended-block counts."""
+        if self.sparsity is not None:
+            self.sparsity.update_prefill(attended, candidates)
+
     def snapshot(self) -> Dict[str, Any]:
         """Aggregate view over finished requests (plus fleet counters)."""
         done = [r for r in self.requests.values() if r.t_finish is not None]
@@ -124,7 +141,7 @@ class ServingMetrics:
         tpots = [r.tpot for r in done if r.tpot is not None]
         queues = [r.queue_time for r in done if r.queue_time is not None]
         processed = self.prefix_hit_tokens + self.prefill_tokens_computed
-        return {
+        snap = {
             "requests_finished": len(done),
             "ticks": self.ticks,
             "prefill_tokens_computed": self.prefill_tokens_computed,
@@ -142,3 +159,6 @@ class ServingMetrics:
             "tpot_p50": _pct(tpots, 0.50),
             "queue_time_mean": _mean(queues),
         }
+        if self.sparsity is not None:
+            snap.update(self.sparsity.snapshot())
+        return snap

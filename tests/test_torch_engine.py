@@ -5,8 +5,10 @@ Both engines serve the smoke variant of llama3.2-3b (float32, fixed
 non-uniform block sizes, max_context 512, sparse prefill on) at
 temperature 0 with chunked prefill; two requests share a page-aligned
 prefix, so the second is served from the prefix cache, and a tight page
-pool forces preemption and replay.  The token streams must be identical and
-the port's page pool must audit clean at drain.
+pool forces preemption and replay.  The port decodes with the fused decode
+kernel and with the staged path (``SparseConfig.fused_decode``).  The token
+streams must be identical and the port's page pool must audit clean at
+drain.
 """
 import dataclasses
 import os
@@ -52,10 +54,11 @@ def _prompts():
     ]
 
 
+@pytest.mark.parametrize("fused_decode", [True, False], ids=["fused", "staged"])
 @pytest.mark.parametrize(
     "new_tokens,pool_pages", [(5, None), (24, 28)], ids=["roomy", "preempting"]
 )
-def test_engine_token_streams_match_jax(new_tokens, pool_pages):
+def test_engine_token_streams_match_jax(new_tokens, pool_pages, fused_decode):
     """The "preempting" pool is too small for every sequence's decode
     growth: sequences are preempted, re-admitted (prefix-cache hits) and
     replay their committed tokens through the decode path."""
@@ -63,7 +66,8 @@ def test_engine_token_streams_match_jax(new_tokens, pool_pages):
     jcfg = dataclasses.replace(
         jb, sparse=dataclasses.replace(jb.sparse, backend="reference", **SPARSE))
     tcfg = dataclasses.replace(
-        tb, sparse=dataclasses.replace(tb.sparse, backend="cuda", **SPARSE))
+        tb, sparse=dataclasses.replace(tb.sparse, backend="cuda",
+                                       fused_decode=fused_decode, **SPARSE))
     params = JTransformer(jcfg).init(jax.random.PRNGKey(3))
     model = params_from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
 

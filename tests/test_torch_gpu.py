@@ -10,12 +10,15 @@ with the card need not have.)
 
 Grids: quant {none, int8, int4} x {asym, sym}, non-uniform and uniform
 block-size layouts, sink/local settings, ragged live lengths, head_dim 64
-and 128, GQA groups 2 to 8; sparse prefill over chunk offsets with dead
-trailing query blocks and prefill top-K scales.  Queries are scaled so
-that attention logits have standard deviation 1.5.  Selection (decode page
-tables, prefill block sets) is exact up to the near-tie rule of
-:mod:`repro_torch.kernels.parity`; bf16 outputs agree within one bf16
-rounding step per element and a relative L2 error of 1e-2 per row.
+and 128, GQA groups 1 to 8; sparse prefill over chunk offsets with dead
+trailing query blocks and prefill top-K scales; the staged decode's
+scoring and paged-attention kernels on the same axes.  Queries are scaled
+so that attention logits have standard deviation 1.5.  Selection (decode
+page tables, prefill block sets) is exact up to the near-tie rule of
+:mod:`repro_torch.kernels.parity`; staged scores within its
+``SCORE_RTOL``, and the staged page sets equal to the fused kernel's
+exactly; bf16 outputs agree within one bf16 rounding step per element and
+a relative L2 error of 1e-2 per row.
 """
 import pytest
 import torch
@@ -27,7 +30,9 @@ from repro_torch.core.centroids import rank_query
 from repro_torch.core.quantization import store_bits, store_symmetric
 from repro_torch.core.ragged import layout_for
 from repro_torch.core.stacked import as_arrays
-from repro_torch.kernels import fused_decode, parity, sparse_prefill
+from repro_torch.core.selection import select_page_table
+from repro_torch.kernels import centroid_score, fused_decode, ops, paged_attention
+from repro_torch.kernels import parity, sparse_prefill
 
 pytestmark = pytest.mark.gpu
 
@@ -120,3 +125,40 @@ def test_sparse_prefill_kernel_chunks_and_scales(cuda, off, sq, n_valid, scale):
 def test_sparse_prefill_kernel_shapes(cuda, D, g):
     _prefill(cuda, LAYOUTS["nonuniform"], "int8_asym", 1024, 256, (1280, 1100),
              D=D, g=g, seed=7)
+
+
+def _staged(dev, blocks, quant, seq, sink, local, D=128, g=3, seed=0):
+    """Scoring kernel vs plain, its page sets vs the fused kernel's (exact),
+    then the paged-attention kernel on the plain scores' table."""
+    B = len(seq)
+    sparse, la, gen, k, v = _inputs(dev, blocks, B, D, seed, quant=quant,
+                                    sink_pages=sink, local_pages=local)
+    q = torch.randn((B, len(blocks) * g, D), generator=gen, device=dev)
+    q = (q * parity.QSCALE).to(torch.bfloat16)
+    store = build_store_codes(k, la, sparse)
+    rq = rank_query(q, sparse.centroid_method, D)
+    sl = torch.tensor(seq, dtype=torch.int32, device=dev)
+    name = "centroid_scores_f32" if quant == "none" else "centroid_scores_quantized"
+    launches = centroid_score.launches[name]
+    res = parity.compare_centroid_scores(rq, store, la, sparse, sl)
+    assert centroid_score.launches[name] == launches + 1
+    _, f_tbl, f_vld = ops.fused_decode(q, rq, k, v, store, la, sink, local, sl)
+    assert parity.page_sets_equal(res["table"], res["valid"], f_tbl, f_vld)
+    tbl, vld = select_page_table(res["plain"], la, sl, sink, local)
+    launches = paged_attention.launches
+    parity.compare_paged_attention(q, k, v, tbl, vld, PS, sl)
+    assert paged_attention.launches == launches + 1
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("blocks", list(LAYOUTS.values()), ids=list(LAYOUTS))
+@pytest.mark.parametrize("sink,local", [(0, 0), (1, 4)])
+def test_staged_kernels_match_plain_and_fused(cuda, quant, blocks, sink, local):
+    _staged(cuda, blocks, quant, (S, 1234), sink, local)
+
+
+@pytest.mark.parametrize("seq", [(1, 17), (31, 100), (2047, 513)],
+                         ids=["edge", "tiny", "ragged"])
+@pytest.mark.parametrize("D,g", [(128, 3), (64, 1), (128, 8), (64, 5)])
+def test_staged_kernels_shapes_and_lengths(cuda, seq, D, g):
+    _staged(cuda, LAYOUTS["nonuniform"], "int4_asym", seq, 1, 4, D=D, g=g, seed=5)

@@ -5,7 +5,9 @@ per-(layer, head) block sizes and max_context 512 so the sparse plan is
 active; the port's weights are the JAX init carried across by
 ``params_from_jax``.  JAX runs its ``"reference"`` backend (plain sparse
 prefill, staged decode); the port runs its ``"cuda"`` backend on CPU
-tensors (the kernels' plain versions).
+tensors (the kernels' plain versions), once with ``fused_decode`` (the
+fused decode kernel's plain version) and once without (the staged decode:
+scoring, stable-sort selection, paged attention).
 
 Tolerance: logits within 1e-4 absolute (float32; the two frameworks round
 matmuls, exp and rsqrt differently at the last bit).  Greedy tokens must be
@@ -39,19 +41,20 @@ def stacked_cache(cache, name):
     return torch.stack([e[name] for e in cache["layers"]])
 
 
-def _cfgs(dtype="float32"):
+def _cfgs(dtype="float32", fused_decode=False):
     jb, tb = j_smoke(j_get_config("llama3.2-3b")), t_smoke(t_get_config("llama3.2-3b"))
     jcfg = dataclasses.replace(
         jb, dtype=dtype,
         sparse=dataclasses.replace(jb.sparse, backend="reference", **SPARSE))
     tcfg = dataclasses.replace(
-        tb, dtype=dtype, sparse=dataclasses.replace(tb.sparse, backend="cuda", **SPARSE))
+        tb, dtype=dtype, sparse=dataclasses.replace(
+            tb.sparse, backend="cuda", fused_decode=fused_decode, **SPARSE))
     return jcfg, tcfg
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg, tcfg = _cfgs()
+@pytest.fixture(scope="module", params=[True, False], ids=["fused", "staged"])
+def models(request):
+    jcfg, tcfg = _cfgs(fused_decode=request.param)
     jm = JTransformer(jcfg)
     params = jm.init(jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, params)

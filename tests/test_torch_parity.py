@@ -4,7 +4,8 @@ the CPU.
 Here the wrappers run their plain versions, so the "kernel" and the plain
 side agree exactly and the comparison must pass.  Outputs or selections
 that a faulty kernel would give (a page left out, outputs off by 2%, a
-forced block dropped) are substituted for the kernel's and must fail it.
+forced block dropped, a block score moved past its tolerance) are
+substituted for the kernel's and must fail it.
 """
 import pytest
 import torch
@@ -120,3 +121,66 @@ def test_sparse_prefill_returns_its_selection():
     assert torch.equal(out, out_s) and torch.equal(n_att, n_att_s)
     assert torch.equal(sel.sum(-1).to(torch.int32), n_att)
     assert bool(sel[..., 0][n_att > 0].all())    # the sink block is forced
+
+
+# -- staged decode: scoring and paged attention --------------------------------
+
+
+def _staged_case():
+    q, rq, k, v, store, la, sparse, seq_len = _decode_case()
+    return rq, store, la, sparse, seq_len
+
+
+def test_centroid_scores_comparison_passes_and_matches_fused_pages():
+    res = parity.compare_centroid_scores(*_staged_case())
+    assert res["max_abs_err"] == 0.0 and res["near_ties"] == 0
+    q, rq, k, v, store, la, sparse, seq_len = _decode_case()
+    _, f_tbl, f_vld = ops.fused_decode(q, rq, k, v, store, la, sparse.sink_pages,
+                                       sparse.local_pages, seq_len)
+    assert parity.page_sets_equal(res["table"], res["valid"], f_tbl, f_vld)
+    assert not parity.page_sets_equal(res["table"], res["valid"] & ~_middle(res["valid"]),
+                                      f_tbl, f_vld)
+
+
+def test_centroid_scores_comparison_catches_a_moved_score(monkeypatch):
+    plain = ops.centroid_scores
+
+    def faulty(rq, store, la, n_kv):
+        s = plain(rq, store, la, n_kv).clone()
+        top = s[0, 1].abs().max()
+        s[0, 1, 3] += 10 * parity.SCORE_RTOL * top    # one row, 10x the tolerance
+        return s
+
+    monkeypatch.setattr(ops, "centroid_scores", faulty)
+    with pytest.raises(AssertionError, match="centroid_scores: score error"):
+        parity.compare_centroid_scores(*_staged_case())
+
+
+def _middle(vld):
+    return (vld.cumsum(-1) == vld.sum(-1, keepdim=True) // 2 + 1) & vld
+
+
+def _paged_case():
+    q, rq, k, v, store, la, sparse, seq_len = _decode_case()
+    res = parity.compare_centroid_scores(rq, store, la, sparse, seq_len)
+    return q, k, v, res["table"], res["valid"], PS, seq_len
+
+
+def test_paged_attention_comparison_passes_on_equal_outputs():
+    res = parity.compare_paged_attention(*_paged_case())
+    assert res["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("fault", ["page-left-out", "outputs-off-2pct"])
+def test_paged_attention_comparison_catches_faulty_outputs(monkeypatch, fault):
+    plain = ops.paged_attention
+
+    def faulty(q, k, v, tbl, vld, page_size, seq_len):
+        if fault == "page-left-out":
+            return plain(q, k, v, tbl, vld & ~_middle(vld), page_size, seq_len)
+        out = plain(q, k, v, tbl, vld, page_size, seq_len)
+        return (out.float() * 1.02).to(out.dtype)
+
+    monkeypatch.setattr(ops, "paged_attention", faulty)
+    with pytest.raises(AssertionError, match="paged_attention: .*error"):
+        parity.compare_paged_attention(*_paged_case())
