@@ -31,9 +31,29 @@ Phases (each failure is fatal, exit code != 0):
    must be finite, every pair of runs must reach a logit cosine of at least
    0.9995, and the sparsity counters must be identical.  One request is
    served on an f32 store (staged kernels, then plain);
+   Then the calibrated assignment of phase 2b is installed and requests 0
+   and 3 are served with the fused kernel, then through the plain versions
+   fed the same tokens (logit cosine at least 0.9995);
 4. time each kernel (CUDA events), its plain version and, where one
    PyTorch call computes the same function, that call, at the serving
-   shapes, and compute its bound from this run's inputs.
+   shapes, and compute its bound from this run's inputs; time the dense
+   flash kernel over a 16384-token prompt against the 32 sparse-prefill
+   chunks of 512 tokens of the same prompt (the dense baseline).
+
+Phase 2 also holds the three kernels off the serving path against their
+plain versions: ``pool_rank_keys`` on llama3.2-3b K (bf16, B 4) and on f32
+calibration keys for every method and block size (quest bitwise, mean /
+arkvale within 1e-6 of the row's largest magnitude; the quest INT4 store
+bytes of the ``"cuda"`` and ``"reference"`` backends identical; a moved
+token shows in its block only), ``topk_threshold`` on the padded decode
+scores and a grid of ties and +-inf (bitwise; its set equal to
+``rank_blocks``' selection), ``flash_attention`` at B 1, 24/8 heads,
+S 4096, causal and not.  Phase 2b calibrates llama3.2-3b at full width
+(28 layers x 8 kv heads, context 16384, budget 4096, INT4 quest store,
+tau 0.98, 4 samples) through ``calibrate_for_config`` on the ``"cuda"``
+backend and again on ``"reference"`` from the same seed: the assignments
+must be identical, the recall within 1e-4, and the cuda run must have
+launched the pooling and scoring kernels and called no plain version.
 
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -77,6 +97,13 @@ AGREE_REQS, AGREE_NEW, LOGIT_COS = (0, 1, 3), 8, 0.9995
 #: requests of the staged serving run: those of the agreement check, since
 #: with all six the script took 1.68x the first slice's time on the card
 STAGED_REQS = AGREE_REQS
+#: calibration (paper §3.2, Eq. 2) at full width: generator seed, samples
+#: per layer, and the requests served with the calibrated assignment
+CAL_SEED, CAL_SAMPLES, CAL_REQS = 0, 4, (0, 3)
+CANDIDATES = (16, 32, 64)
+#: dense flash attention: sequence length of the check against the plain
+#: version (its [24, S, S] f32 logits fit in memory) and of the timing
+FLASH_CHECK_S, FLASH_TIME_S = 4096, CTX
 
 LOG = []
 T_START = time.perf_counter()
@@ -240,7 +267,8 @@ def check_centroid_scores(torch, dec, quant):
             "tolerance fails the comparison")
     else:
         fail("the centroid_scores comparison cannot see a moved score")
-    return {"err": res["max_abs_err"], "store": store, "plain": res["plain"]}
+    return {"err": res["max_abs_err"], "store": store, "plain": res["plain"],
+            "kernel": res["kernel"]}
 
 
 def store_quant(store):
@@ -275,6 +303,183 @@ def check_paged_attention(torch, dec, scored):
     else:
         fail("the paged_attention comparison cannot see a page left out")
     return {"err": res["max_abs_err"], "table": tbl, "valid": vld}
+
+
+def check_pool_rank_keys(torch, dev, dec):
+    """The pooling kernel on the fused check's K (bf16, B 4, the serving
+    cache) and on one layer of f32 calibration keys (the 8 kv heads as 8
+    sequences, as ``profile_heads`` batches them), every method and block
+    size; one moved token; the quest INT4 stores of both backends."""
+    from repro_torch.backends import get_backend
+    from repro_torch.core.calibration import make_model_like_batch
+    from repro_torch.core.centroids import METHODS
+    from repro_torch.kernels import block_centroid, parity
+
+    q, rq, k, v, store, la, sink, local, seq_len = dec["args"]
+    k_serve = k.reshape(k.shape[0], N_KV, CTX, D)
+    gen = torch.Generator(device=dev).manual_seed(CAL_SEED)
+    k_cal = make_model_like_batch(gen, N_KV, CTX, D, BUDGET)[1][:, None]
+    err = 0.0
+    for what, keys in (("bf16 serving K", k_serve), ("f32 calibration K", k_cal)):
+        worst = {}
+        for method in METHODS:
+            for bs in CANDIDATES:
+                res = parity.compare_pool_rank_keys(keys, bs, method)
+                err = max(err, res["max_abs_err"])
+                worst[method] = max(worst.get(method, 0.0), res["max_rel_err"])
+        log(f"pool_rank_keys check ({what} {tuple(keys.shape)}): quest bitwise "
+            f"equal, largest error of the row's largest magnitude per method "
+            f"{json.dumps({m: float(f'{e:.3e}') for m, e in worst.items()})} "
+            f"(limit {parity.POOL_RTOL}), block sizes {CANDIDATES}")
+    t = 5 * 16 + 3
+    moved = k_cal.clone()
+    moved[1, 0, t] += 4.0
+    for method in METHODS:
+        a = block_centroid.pool_rank_keys(k_cal, 16, method)
+        b = block_centroid.pool_rank_keys(moved, 16, method)
+        changed = (a != b).any(-1)
+        if not (bool(changed[1, 0, t // 16]) and int(changed.sum()) == 1):
+            fail(f"pool_rank_keys ({method}): a moved token changed rows "
+                 f"{changed.nonzero().tolist()}, not only its block's")
+    log("pool_rank_keys check power: one token's key moved changes its block's "
+        "rank key and no other, every method")
+    stores = {be: get_backend(be).build_store(k_serve, la.host, "quest", "int4_asym")
+              for be in ("cuda", "reference")}
+    a, b = stores["cuda"], stores["reference"]
+    if not (torch.equal(a.codes, b.codes) and torch.equal(a.scale, b.scale)
+            and torch.equal(a.zero, b.zero)):
+        fail("build_store: the cuda backend's quest INT4 store differs from the "
+             "reference backend's")
+    log(f"build_store (quest, int4_asym, block sizes {BLOCKS}): cuda and "
+        f"reference backends' codes, scale and zero identical")
+    return {"err": err, "k_cal": k_cal, "k_serve": k_serve}
+
+
+def check_topk_threshold(torch, dev, dec, scored):
+    """The threshold kernel on the padded decode scores of the staged check
+    (raw, and masked / pinned as the selection sees them) and on a grid of
+    ties and +-inf: bitwise equal to the plain version, its set that of a
+    stable sort, and on the masked scores ``rank_blocks``' selection."""
+    from repro_torch.core.selection import mask_and_pin_scores, rank_blocks
+    from repro_torch.kernels import parity
+
+    q, rq, k, v, store, la, sink, local, seq_len = dec["args"]
+    s = scored["kernel"].contiguous()                         # [4, 8, 1024]
+    parity.compare_topk_threshold(s, la.top_k)
+    masked = mask_and_pin_scores(s, la, seq_len, sink, local).contiguous()
+    res = parity.compare_topk_threshold(masked, la.top_k)
+    _, idx = rank_blocks(s, la, seq_len, sink, local)
+    kmax = idx.shape[-1]
+    first_k = (torch.arange(kmax, device=dev)[None, None, :]
+               < la.top_k[None, :, None]).expand_as(idx)
+    ranked = torch.zeros_like(masked, dtype=torch.bool).scatter(-1, idx.long(), first_k)
+    if not torch.equal(res["selected"], ranked):
+        fail("topk_threshold: the threshold's set differs from rank_blocks' selection")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    grid = torch.round(torch.randn(s.shape, generator=gen, device=dev) * 2)
+    grid[:, :, ::13] = float("-inf")
+    grid[:, :, 3::17] = float("inf")
+    grid[:, 2, 512:] = -1e30
+    M = grid.shape[-1]
+    ks = torch.randint(1, M + 1, (N_KV,), generator=gen, device=dev, dtype=torch.int32)
+    ks[0], ks[1] = 1, M
+    parity.compare_topk_threshold(grid.contiguous(), ks)
+    log(f"topk_threshold check: padded decode scores {tuple(s.shape)} raw and "
+        f"masked, and a grid of ties and +-inf: thresholds and counts bitwise "
+        f"equal to the plain version; the set above the threshold plus the first "
+        f"K - count ties equals rank_blocks' selection")
+    return {"err": 0.0, "scores": masked, "k": la.top_k}
+
+
+def check_flash_attention(torch, dev):
+    """The dense flash kernel at B 1, 24 query / 8 kv heads, D 128,
+    S ``FLASH_CHECK_S``, causal and not, against the plain version."""
+    from repro_torch.kernels import parity
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    S = FLASH_CHECK_S
+    q = (torch.randn((1, N_KV * G, S, D), generator=gen, device=dev)
+         * parity.QSCALE).to(torch.bfloat16)
+    k, v = (torch.randn((1, N_KV, S, D), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    err = 0.0
+    for causal in (True, False):
+        res = parity.compare_flash_attention(q, k, v, causal)
+        err = max(err, res["max_abs_err"])
+        log(f"flash_attention check ({'causal' if causal else 'not causal'}, S {S}): "
+            f"max_abs_err {res['max_abs_err']:.3e}, max rel L2 {res['max_rel_l2']:.3e} "
+            f"(limit {parity.REL_L2}), {res['tol_use']:.2f} of the elementwise limit "
+            f"{parity.OUT_ATOL} + 2^-7 |plain|")
+    return {"err": err}
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: calibration (paper §3.2, Eq. 2) at full width
+# ---------------------------------------------------------------------------
+
+
+def calibrate_phase(torch, dev):
+    """``calibrate_for_config`` on llama3.2-3b at full width, once through
+    the kernels (``"cuda"``) and once through the plain versions
+    (``"reference"``) from the same generator seed; each run's counts zeroed
+    just before and read just after."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibration import calibrate_for_config, head_profile
+
+    import numpy as np
+
+    base = get_config(ARCH)
+    cfg = dataclasses.replace(base, sparse=dataclasses.replace(
+        base.sparse, token_budget=BUDGET, quant="int4_asym", tau=0.98,
+        candidate_block_sizes=CANDIDATES))
+    runs = {}
+    for backend, launched in (("cuda", {"pool_rank_keys", "centroid_scores_quantized"}),
+                              ("reference", set())):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_cfg, res = calibrate_for_config(
+            torch.Generator(device=dev).manual_seed(CAL_SEED), cfg, seq_len=CTX,
+            n_samples=CAL_SAMPLES, backend=backend, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.counts()
+        expect_path(f"calibration ({backend})", counts, launched)
+        runs[backend] = {"cfg": new_cfg, "result": res, "counts": counts}
+        log(f"calibration ({backend}): {cfg.n_layers} layers x {cfg.n_kv_heads} kv heads, "
+            f"head_dim {cfg.resolved_head_dim}, context {CTX}, budget {BUDGET}, "
+            f"{CAL_SAMPLES} samples, wall {wall:.1f}s; launches "
+            f"{json.dumps({n: c['launches'] for n, c in counts.items() if c['launches']})}")
+    rk, rr = runs["cuda"]["result"], runs["reference"]["result"]
+    diff = float(abs(rk.recall - rr.recall).max())
+    same = bool((rk.block_sizes == rr.block_sizes).all())
+    log(f"calibration: cuda vs reference assignments identical: {same}; recall "
+        f"max abs difference {diff:.3e} (limit 1e-4)")
+    if not same:
+        fail("the cuda and reference calibrations assign different block sizes")
+    if not diff <= 1e-4:
+        fail(f"the cuda and reference recall differ by {diff}")
+    log("calibration assignment (layer: kv heads): " + "; ".join(
+        f"{l}: {''.join('SML'[CANDIDATES.index(b)] for b in row)}"
+        for l, row in enumerate(rk.as_tuple())) + "  (S 16, M 32, L 64)")
+    names = [head_profile(h)[0] for h in range(N_KV)]
+    per_profile = {}
+    for name in dict.fromkeys(names):
+        hs = [h for h in range(N_KV) if names[h] == name]
+        per_profile[name] = [round(float(rk.recall[:, hs, i].mean()), 4)
+                             for i in range(len(CANDIDATES))]
+    log(f"calibration mean recall per head profile at block sizes {CANDIDATES}: "
+        f"{json.dumps(per_profile)}")
+    idx = np.searchsorted(CANDIDATES, rk.block_sizes)
+    adaptive = float(np.take_along_axis(rk.recall, idx[..., None], -1).mean())
+    uniform = {b: round(float(rk.recall[..., i].mean()), 4)
+               for i, b in enumerate(CANDIDATES)}
+    log(f"Table 1 proxy (calibration samples): adaptive recall {adaptive:.4f} at "
+        f"average block size {rk.avg_block_size:.2f}; uniform recall "
+        f"{json.dumps(uniform)}")
+    return {"cfg": runs["cuda"]["cfg"], "result": rk,
+            "launches": runs["cuda"]["counts"]["pool_rank_keys"]["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -423,6 +628,101 @@ def time_paged_attention(torch, dec, att):
     b_ms, by = bound(bytes_, f32_ops, 0)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms}
+
+
+def time_pool_rank_keys(torch, pool):
+    """One calibration launch (8 kv heads as sequences x 16384 tokens x 128
+    f32, quest, block size 16: the most rank keys), and the bf16 serving
+    cache (B 4).  Library yardstick: ``torch.aminmax`` over the block axis,
+    the same max and min in one call, not concatenated or padded."""
+    from repro_torch.kernels import block_centroid as bc
+
+    out = {}
+    for what, keys in (("calibration", pool["k_cal"]), ("serving", pool["k_serve"])):
+        fn = lambda: bc.pool_rank_keys(keys, 16, "quest")
+        ms = cuda_time_ms(torch, fn, 5, 50)
+        plain_ms = cuda_time_ms(torch, lambda: bc.pool_rank_keys_plain(keys, 16, "quest"), 1, 5)
+        blocks = keys.reshape(*keys.shape[:2], keys.shape[2] // 16, 16, keys.shape[3])
+        library_ms = cuda_time_ms(torch, lambda: torch.aminmax(blocks, dim=-2), 5, 50)
+        out_bytes = keys.numel() // 16 * 2 * 4
+        b_ms, by = bound(keys.numel() * keys.element_size() + out_bytes,
+                         2 * keys.numel(), 0)
+        out[what] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": library_ms}
+        log(f"pool_rank_keys ({what}, {tuple(keys.shape)} {str(keys.dtype)[6:]}, quest, "
+            f"block 16): {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, torch.aminmax "
+            f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    return out["calibration"]
+
+
+def time_topk_threshold(torch, topk):
+    """One launch on the masked decode scores ``[4, 8, 1024]``, K_h from the
+    layout.  Library yardstick: ``torch.topk`` of the largest K_h (values
+    and indices, in no promised tie order)."""
+    from repro_torch.kernels import topk_threshold as tk
+
+    s, k = topk["scores"], topk["k"]
+    ms = cuda_time_ms(torch, lambda: tk.topk_threshold(s, k), 5, 100)
+    plain_ms = cuda_time_ms(torch, lambda: tk.topk_threshold_plain(s, k), 2, 20)
+    kmax = int(k.max())
+    library_ms = cuda_time_ms(torch, lambda: torch.topk(s, kmax, dim=-1), 5, 100)
+    B, H, M = s.shape
+    # 33 passes of a compare and a count over each score (integer work,
+    # counted at the f32 CUDA-core rate)
+    b_ms, by = bound(s.numel() * 4 + k.numel() * 4 + B * H * 8, 2 * 33 * s.numel(), 0)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def time_flash_attention(torch, dev):
+    """Dense causal flash attention over one 16384-token prompt of one layer
+    (B 1, 24 query / 8 kv heads, D 128) and the 32 sparse-prefill chunks of
+    512 tokens of the same prompt, K and V (the dense baseline).  Library
+    yardstick: ``scaled_dot_product_attention`` with ``is_causal``."""
+    from repro_torch.backends.base import CentroidStore
+    from repro_torch.backends.store import build_score_rows
+    from repro_torch.core.centroids import rank_query
+    from repro_torch.core.quantization import store_bits
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    S = FLASH_TIME_S
+    sparse, la, gen, kp, vp = layer_inputs(torch, dev, 1, seed=3)
+    q = torch.randn((1, N_KV * G, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = kp.reshape(1, N_KV, S, D), vp.reshape(1, N_KV, S, D)
+    ms = cuda_time_ms(torch, lambda: fa.flash_attention(q, k, v, True), 1, 3)
+    plain_ms = cuda_time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True), 1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        library()
+    except TypeError:       # no enable_gqa: K/V expanded beforehand, not timed
+        ke, ve = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+        library = lambda: sdpa(q, ke, ve, is_causal=True)
+    library_ms = cuda_time_ms(torch, library, 3, 10)
+    pairs = N_KV * G * S * (S + 1) // 2
+    b_ms, by = bound((2 * q.numel() + k.numel() + v.numel()) * 2, 0, 4 * D * pairs)
+
+    codes, sc, ze = build_score_rows(kp, la, sparse)
+    ss = CentroidStore(codes, sc, ze, store_bits(sparse.quant), False)
+    rq = rank_query(q, sparse.centroid_method, D)
+    kw = dict(sink_pages=sparse.sink_pages, local_pages=sparse.local_pages,
+              block_q=sparse.prefill_block_q, topk_scale=sparse.prefill_topk_scale)
+    chunks = [(q[:, :, c:c + CHUNK].contiguous(), rq[:, :, c:c + CHUNK].contiguous(),
+               torch.tensor([c + CHUNK], dtype=torch.int32, device=dev), c)
+              for c in range(0, S, CHUNK)]
+
+    def sparse_prompt():
+        for qc, rqc, nv, off in chunks:
+            ops.sparse_prefill(qc, rqc, kp, vp, ss, la, n_valid=nv, chunk_offset=off, **kw)
+
+    sparse_ms = cuda_time_ms(torch, sparse_prompt, 1, 1)
+    log(f"dense baseline: flash_attention over the {S}-token prompt (causal, one "
+        f"layer) {ms:.3f} ms against {sparse_ms:.3f} ms for its {len(chunks)} "
+        f"sparse_prefill chunks of {CHUNK}: dense / sparse = {ms / sparse_ms:.3f}; "
+        f"SDPA {library_ms:.3f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": library_ms, "sparse_ms": sparse_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -686,6 +986,42 @@ def serve_f32_store(torch, model, cfg, dev):
     return runs["staged f32"]["counts"]
 
 
+def serve_calibrated(torch, model, cfg, cal_cfg, dev):
+    """Requests ``CAL_REQS`` with the calibrated assignment installed, through
+    the fused kernel, then through the plain versions fed the same tokens:
+    logit cosine at least ``LOGIT_COS``."""
+    cal = dataclasses.replace(cfg, sparse=dataclasses.replace(
+        cfg.sparse, block_sizes=cal_cfg.sparse.block_sizes))
+    plain = dataclasses.replace(cal, sparse=dataclasses.replace(
+        cal.sparse, backend="reference"))
+    runs = {}
+    for name, c, launched in (("fused", cal, {"fused_decode", "sparse_prefill"}),
+                              ("plain", plain, set())):
+        eng = make_engine(c, model, dev, CAL_REQS, AGREE_NEW)
+        forced = runs["fused"]["tokens"] if runs else None
+        run = run_engine(torch, model, eng, forced=forced, record=True)
+        check_served(eng, run["done"], len(CAL_REQS), AGREE_NEW, c.vocab_size,
+                     prefix_hit=False)
+        expect_path(f"calibrated {name} run", run["counts"], launched)
+        runs[name] = run
+        del eng
+        torch.cuda.empty_cache()
+    lk, lp = runs["fused"]["logits"], runs["plain"]["logits"]
+    if lk.keys() != lp.keys():
+        fail("the calibrated runs sampled at different steps")
+    for key, lg in (*lk.items(), *lp.items()):
+        if lg.shape != (cfg.vocab_size,) or not bool(torch.isfinite(lg).all()):
+            fail(f"calibrated logits at {key} are not finite")
+    worst = min(float(torch.nn.functional.cosine_similarity(lk[k], lp[k], dim=0))
+                for k in lk)
+    log(f"calibrated assignment, requests {CAL_REQS} x {AGREE_NEW} new tokens: fused "
+        f"kernels vs plain (fed the same tokens) min logit cosine {worst:.6f} "
+        f"(>= {LOGIT_COS}) over {len(lk)} steps; launches "
+        f"{json.dumps({n: c['launches'] for n, c in runs['fused']['counts'].items() if c['launches']})}")
+    if not worst >= LOGIT_COS:
+        fail(f"calibrated fused logits drift from the plain path: cosine {worst}")
+
+
 def time_decode_steps(torch, model, cfgs, dev, rounds=15):
     """``decode_step`` of the full model at B = MAX_BATCH on a cache filled
     with random K/V (stores rebuilt from it) at ragged lengths near the
@@ -759,7 +1095,7 @@ def time_decode_steps(torch, model, cfgs, dev, rounds=15):
     return out
 
 
-def serve(torch, dev, profile: bool = False):
+def serve(torch, dev, cal_cfg, profile: bool = False):
     from repro_torch.configs import get_config
     from repro_torch.models import Transformer
 
@@ -810,6 +1146,7 @@ def serve(torch, dev, profile: bool = False):
 
     agree_with_plain(torch, model, cfgs, dev)
     paths["f32"] = {"counts": serve_f32_store(torch, model, cfgs["staged"], dev)}
+    serve_calibrated(torch, model, fused_cfg, cal_cfg, dev)
     if profile:
         log(f"decode_step ms: {json.dumps(time_decode_steps(torch, model, cfgs, dev))}")
     del model
@@ -857,9 +1194,15 @@ def main() -> int:
     pre = check_sparse_prefill(torch, dev)
     scored = {q: check_centroid_scores(torch, dec, q) for q in ("int4_asym", "none")}
     att = check_paged_attention(torch, dec, scored["int4_asym"])
+    pool = check_pool_rank_keys(torch, dev, dec)
+    topk = check_topk_threshold(torch, dev, dec, scored["int4_asym"])
+    flash = check_flash_attention(torch, dev)
     log(f"phase 2 done at {time.perf_counter() - T_START:.1f}s")
 
-    paths = serve(torch, dev, profile=args.profile)
+    cal = calibrate_phase(torch, dev)
+    log(f"phase 2b done at {time.perf_counter() - T_START:.1f}s")
+
+    paths = serve(torch, dev, cal["cfg"], profile=args.profile)
     log(f"phase 3 done at {time.perf_counter() - T_START:.1f}s")
 
     fused, staged = paths["fused"], paths["staged"]
@@ -868,6 +1211,10 @@ def main() -> int:
     t_csq = time_centroid_scores(torch, dec, scored["int4_asym"])
     t_csf = time_centroid_scores(torch, dec, scored["none"])
     t_pa = time_paged_attention(torch, dec, att)
+    t_pool = time_pool_rank_keys(torch, pool)
+    t_topk = time_topk_threshold(torch, topk)
+    t_flash = time_flash_attention(torch, dev)
+    sparse_prompt_ms = t_flash.pop("sparse_ms")
     kernels_line = [
         {"name": "fused_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_decode.cu",
@@ -894,6 +1241,18 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attention.py:143",
          "launches": staged["counts"]["paged_attention"]["launches"],
          "max_abs_err": att["err"], **t_pa},
+        {"name": "pool_rank_keys", "route": "cuda",
+         "source": "src/repro_torch/csrc/pool_rank_keys.cu",
+         "replaces": "src/repro/kernels/block_centroid.py:80",
+         "launches": cal["launches"], "max_abs_err": pool["err"], **t_pool},
+        {"name": "topk_threshold", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_threshold.cu",
+         "replaces": "src/repro/kernels/topk_threshold.py:88",
+         "launches": 0, "max_abs_err": topk["err"], **t_topk},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:117",
+         "launches": 0, "max_abs_err": flash["err"], **t_flash},
     ]
     for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
@@ -912,6 +1271,11 @@ def main() -> int:
         f"library_ms null for fused_decode / sparse_prefill (no single PyTorch call "
         f"scores, selects and attends) and centroid_scores_quantized (none "
         f"dequantizes split-half INT4)")
+    log(f"launches: pool_rank_keys {cal['launches']} in the cuda calibration run "
+        f"(one per layer, sample and candidate block size), 0 while serving; "
+        f"topk_threshold and flash_attention lie on no serving path (0); dense "
+        f"flash over the whole prompt / its sparse_prefill chunks = "
+        f"{t_flash['ms'] / sparse_prompt_ms:.3f}")
     log(f"total {time.perf_counter() - T_START:.1f}s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

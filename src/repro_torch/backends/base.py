@@ -6,25 +6,36 @@
   ``context_len >= 2 * budget``.
 - :class:`CentroidStore`: the flattened ragged rank-key store (INT4
   split-half packed codes, per-(sequence, head, channel) or per-row affine
-  params), shared by both backends.
-- :class:`AttentionBackend`: store build / maintenance, sparse prefill and
-  decode.  ``"reference"`` runs the kernels' plain versions and always
-  decodes staged; ``"cuda"`` launches the hand-written kernels (their plain
-  versions on CPU tensors) and decodes with the fused kernel when
-  ``SparseConfig.fused_decode`` is set, else staged: the scoring kernel,
-  the stable-sort selection, the paged-attention kernel.
+  params), shared by both backends; :meth:`CentroidStore.quantize_heads`
+  is the offline store's one quantization path.
+- :class:`AttentionBackend`: store build / maintenance (``build_store``
+  pools raw keys into rank keys: per head through the plain version on
+  ``"reference"``, one ``pool_rank_keys`` kernel launch per distinct block
+  size on ``"cuda"``), sparse prefill and decode.  ``"reference"`` runs
+  the kernels' plain versions and always decodes staged; ``"cuda"``
+  launches the hand-written kernels (their plain versions on CPU tensors)
+  and decodes with the fused kernel when ``SparseConfig.fused_decode`` is
+  set, else staged: the scoring kernel, the stable-sort selection, the
+  paged-attention kernel.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, SparseConfig
 from repro_torch.core.centroids import padded_rank_key_width, rank_query
-from repro_torch.core.quantization import store_bits, store_symmetric
+from repro_torch.core.quantization import (
+    affine_params_from_minmax,
+    encode_affine,
+    pack_split_half,
+    store_bits,
+    store_symmetric,
+)
 from repro_torch.core.ragged import RaggedLayout, layout_for
 from repro_torch.core.selection import (
     rank_blocks,
@@ -46,6 +57,49 @@ class CentroidStore:
     zero: Optional[torch.Tensor]
     bits: int
     symmetric: bool = False
+
+    def dequantize(self, la: LayoutArrays) -> torch.Tensor:
+        """-> f32 rank keys ``[B, rows, Dp]`` of a decode store (the bytes
+        the kernels dequantize in registers)."""
+        from repro_torch.kernels.ref import dequant_store_rows
+
+        return dequant_store_rows(self.codes, self.scale, self.zero, la,
+                                  self.bits, self.symmetric)
+
+    @classmethod
+    def quantize_heads(
+        cls,
+        per_head_rank_keys: Sequence[torch.Tensor],   # n_kv x [B, nb_h, Dp]
+        layout: RaggedLayout,
+        quant: Optional[str],
+    ) -> "CentroidStore":
+        """Per-head rank keys -> flattened store: per-(sequence, head,
+        channel) affine params over the head's block rows, codes padded to
+        the layout's row tiles, INT4 split-half packed (``scale`` / ``zero``
+        None for an f32 store)."""
+        bits, symmetric = store_bits(quant), store_symmetric(quant)
+        if bits not in (0, 4, 8):
+            raise ValueError(
+                f"centroid store supports none/int8/int4 schemes, got {quant!r}"
+            )
+        segs, scales, zeros = [], [], []
+        for h, rk in enumerate(per_head_rank_keys):
+            rk = rk.to(torch.float32)                         # [B, nb, Dp]
+            if bits:
+                xmin = rk.amin(dim=1, keepdim=True)
+                xmax = rk.amax(dim=1, keepdim=True)
+                scale, zero = affine_params_from_minmax(xmin, xmax, bits, symmetric)
+                rk = encode_affine(rk, scale, zero, bits, symmetric)
+                scales.append(scale[:, 0])                    # [B, Dp]
+                zeros.append(zero[:, 0])
+            segs.append(F.pad(rk, (0, 0, 0, layout.padded_n_blocks[h] - rk.shape[1])))
+        codes = torch.cat(segs, dim=1)                        # [B, rows, Dp]
+        if bits == 0:
+            return cls(codes.contiguous(), None, None, 0, False)
+        if bits == 4:
+            codes = pack_split_half(codes)                    # [B, rows, Dp // 2]
+        return cls(codes.contiguous(), torch.stack(scales, dim=1),
+                   torch.stack(zeros, dim=1), bits, symmetric)
 
 
 @dataclass(frozen=True)
@@ -99,6 +153,20 @@ class AttentionBackend:
     plain: bool = True
 
     # -- stores ---------------------------------------------------------------
+
+    def _pool_rank_keys(self, keys: torch.Tensor, layout: RaggedLayout,
+                        method: str) -> List[torch.Tensor]:
+        """keys ``[B, n_kv, S, D]`` -> per-head rank keys (n_kv x
+        ``[B, S / B_h, Dp]``)."""
+        raise NotImplementedError
+
+    def build_store(self, keys: torch.Tensor, layout: RaggedLayout,
+                    method: str = "quest",
+                    quant: Optional[str] = "int4_asym") -> CentroidStore:
+        """Offline store build from dense keys ``[B, n_kv, S, D]`` (the
+        calibration pass, benchmarks, tests)."""
+        per_head = self._pool_rank_keys(keys, layout, method)
+        return CentroidStore.quantize_heads(per_head, layout, quant)
 
     def prefill_store(self, k_cache, la, sparse) -> CentroidStore:
         from repro_torch.backends.store import build_store_codes
@@ -214,10 +282,31 @@ class ReferenceBackend(AttentionBackend):
     name = "reference"
     plain = True
 
+    def _pool_rank_keys(self, keys, layout, method):
+        from repro_torch.kernels.block_centroid import pool_rank_keys_plain
+
+        return [pool_rank_keys_plain(keys[:, h:h + 1], b, method)[:, 0]
+                for h, b in enumerate(layout.block_sizes)]
+
 
 class CudaBackend(AttentionBackend):
     name = "cuda"
     plain = False
+
+    def _pool_rank_keys(self, keys, layout, method):
+        """Heads grouped by block size: one kernel launch per distinct size."""
+        from repro_torch.kernels.block_centroid import pool_rank_keys
+
+        groups: Dict[int, List[int]] = {}
+        for h, b in enumerate(layout.block_sizes):
+            groups.setdefault(b, []).append(h)
+        per_head: List[Optional[torch.Tensor]] = [None] * layout.n_heads
+        for bsz, heads in sorted(groups.items()):
+            sub = keys if len(heads) == keys.shape[1] else keys[:, heads]
+            pooled = pool_rank_keys(sub.contiguous(), bsz, method)
+            for i, h in enumerate(heads):
+                per_head[h] = pooled[:, i]
+        return per_head
 
 
 _REGISTRY: Dict[str, AttentionBackend] = {}

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import SparseConfig
-from repro_torch.core.centroids import padded_rank_key_width
+from repro_torch.core.centroids import padded_rank_key_width, rank_key_from_stats
 from repro_torch.core.quantization import (
     affine_params_from_minmax,
     encode_affine,
@@ -38,16 +38,12 @@ def _as_paged(k_cache: torch.Tensor, page: int) -> torch.Tensor:
 
 
 def _rank_key(mx, mn, mean, method: str, Dp: int) -> torch.Tensor:
-    if method == "mean":
-        rk = mean
-    elif method == "quest":
-        rk = torch.cat([mx, mn], dim=-1)
-    else:  # arkvale from page stats: center + half-diagonal
-        center = 0.5 * (mx + mn)
+    """Rank key from page statistics; arkvale's radius is the half-diagonal
+    of the block's bounding box."""
+    radius = None
+    if method == "arkvale":
         radius = 0.5 * torch.linalg.vector_norm(mx - mn, dim=-1)
-        rk = torch.cat([center, radius[..., None]], dim=-1)
-    pad = Dp - rk.shape[-1]
-    return F.pad(rk, (0, pad)) if pad else rk
+    return rank_key_from_stats(mx, mn, mean, radius, method, Dp)
 
 
 def _selected_rank_keys(

@@ -38,6 +38,9 @@ class SparseConfig:
     centroid_method: str = "quest"
     #: "none" | "int8_asym" | "int8_sym" | "int4_asym" | "int4_sym"
     quant: str = "int4_asym"
+    #: recall-retention threshold tau of Eq. (2), read by
+    #: :func:`repro_torch.core.calibration.calibrate_for_config`.
+    tau: float = 0.98
     #: initial (sink) and trailing (local) pages always kept.
     sink_pages: int = 1
     local_pages: int = 4

@@ -180,6 +180,20 @@ def prefill_max_slots_arrays(
     return int(min(np.max(ks + n_sink + n_local), np.max(n_blocks)))
 
 
+def uniform_layout(
+    n_heads: int, block_size: int, context_len: int, page_size: int,
+    token_budget: int, tile_rows: int = 128,
+) -> RaggedLayout:
+    """Every head at one block size (the calibration pass's layout)."""
+    return RaggedLayout(
+        block_sizes=(block_size,) * n_heads,
+        context_len=context_len,
+        page_size=page_size,
+        token_budget=token_budget,
+        tile_rows=tile_rows,
+    )
+
+
 def layout_for(
     block_sizes, context_len: int, page_size: int, token_budget: int,
     tile_rows: int = 128,

@@ -113,3 +113,21 @@ def selection_telemetry(
     n_forced = forced.sum(dim=(1, 2))
     budget = la.top_k.sum().expand(B)
     return torch.stack([n_blocks, n_pages, n_forced, budget], dim=-1).to(torch.int32)
+
+
+def pages_to_token_mask(
+    page_table: torch.Tensor,      # [B, H, P_sel]
+    page_valid: torch.Tensor,      # [B, H, P_sel] bool
+    la: LayoutArrays,
+) -> torch.Tensor:
+    """Token coverage of a page table -> ``[B, H, context_len]`` bool (recall
+    instrumentation; never on the serving path).  A slot counts when it is
+    valid and its page lies in range, as JAX's one-hot leaves out-of-range
+    pages out."""
+    n_pages = la.n_pages
+    tbl = page_table.long()
+    ok = page_valid & (tbl >= 0) & (tbl < n_pages)
+    hits = torch.zeros(page_table.shape[:2] + (n_pages,), dtype=torch.int32,
+                       device=page_table.device)
+    hits.scatter_add_(-1, tbl.clamp(0, n_pages - 1), ok.to(torch.int32))
+    return (hits > 0).repeat_interleave(la.page_size, dim=-1)

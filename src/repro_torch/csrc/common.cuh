@@ -25,6 +25,11 @@ __device__ __forceinline__ uint32_t to_sortable(float x) {
   return (uint32_t)(i ^ mask);
 }
 
+// Inverse of to_sortable.
+__device__ __forceinline__ float from_sortable(uint32_t u) {
+  return __uint_as_float(u ^ ((u & 0x80000000u) ? 0x80000000u : 0xffffffffu));
+}
+
 // Channel c of one packed store row, dequantized: INT4 split-half (byte j
 // holds channels j and j + Dp/2 as low/high nibbles), INT8, or raw f32.
 // Multiply and add are rounded separately, as the plain version computes

@@ -25,6 +25,9 @@ SOURCES = {
     "sparse_prefill": "sparse_prefill.cu",
     "centroid_score": "centroid_score.cu",
     "paged_attention": "paged_attention.cu",
+    "pool_rank_keys": "pool_rank_keys.cu",
+    "topk_threshold": "topk_threshold.cu",
+    "flash_attention": "flash_attention.cu",
 }
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

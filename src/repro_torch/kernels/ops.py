@@ -1,9 +1,11 @@
 """Store/layout-level entry points of the kernels (counterpart of
 ``repro.kernels.ops``): the staged decode's ``centroid_scores`` (with the
 plain ``flat_to_padded``) and ``paged_attention``, the ``fused_decode`` and
-``sparse_prefill`` wrappers with the shared sparse-prefill preamble, and
-each one's ``*_reference`` twin that runs the kernel modules' plain versions
-(the ``"reference"`` backend, and the oracle the kernels are held against).
+``sparse_prefill`` wrappers with the shared sparse-prefill preamble,
+``topk_threshold`` (K_h from the layout) and the dense
+``flash_attention``; all but ``topk_threshold`` have a ``*_reference`` twin
+that runs the kernel modules' plain versions (the ``"reference"`` backend,
+and the oracle the kernels are held against).
 """
 from __future__ import annotations
 
@@ -16,9 +18,11 @@ from repro_torch.core.selection import NEG_INF
 from repro_torch.core.sparse_attention import as_paged
 from repro_torch.core.stacked import LayoutArrays
 from repro_torch.kernels import centroid_score as cs
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_decode as fd
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sparse_prefill as sp
+from repro_torch.kernels import topk_threshold as tk
 
 
 def centroid_scores(
@@ -56,6 +60,14 @@ def flat_to_padded(flat: torch.Tensor, la: LayoutArrays) -> torch.Tensor:
     head's rows gathered by ``scatter_rows``, pads set to ``NEG_INF``."""
     picked = flat[:, la.scatter_rows.long()]
     return torch.where(la.pad_mask[None], picked, NEG_INF)
+
+
+def topk_threshold(scores: torch.Tensor, la: LayoutArrays
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Padded block scores ``[B, H, M]`` -> (the K_h-th largest score
+    ``[B, H]``, the count strictly above it ``[B, H]``), with
+    ``K_h = min(T / B_h, context / B_h)`` from the layout."""
+    return tk.topk_threshold(scores.contiguous(), la.top_k)
 
 
 def paged_attention(
@@ -212,3 +224,16 @@ def _sparse_prefill(fn, q, rq, k, v, score_store, la, sink_pages, local_pages,
     )
     return (_from_blocks(out6, Sq), *rest)
 
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Dense GQA attention q ``[B, Hq, S, D]``, k/v ``[B, Hkv, S, D]`` ->
+    ``[B, Hq, S, D]`` (the dense-prefill baseline)."""
+    return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal)
+
+
+def flash_attention_reference(q, k, v, causal=True):
+    """:func:`flash_attention` through the plain version."""
+    return fa.flash_attention_plain(q, k, v, causal)

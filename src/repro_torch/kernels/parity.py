@@ -19,6 +19,13 @@ Block scores of the staged scoring kernel must lie within ``SCORE_RTOL``
 of the plain version's, relative to the largest |score| of their (sequence,
 head): both accumulate in f32, in different orders.
 
+Pooled rank keys: quest (a max and a min) bitwise equal; mean and arkvale
+within ``POOL_RTOL`` of their row's largest magnitude (f32 sums in other
+orders).  Top-K thresholds and counts: bitwise equal, and the set they
+define (every score above the threshold, then the first ``K - count`` ties
+in index order) equal to a stable descending sort's first K.  Dense flash
+attention: every output row under the bf16 output rule above.
+
 Raises ``AssertionError`` on a violation; returns the errors and the number
 of near ties.
 """
@@ -27,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.selection import mask_and_pin_scores, select_page_table
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import block_centroid, ops, ref, topk_threshold
 
 TIE_RTOL = 1e-5
 #: staged scores: |kernel - plain| <= SCORE_RTOL * max |plain| of the
@@ -38,6 +45,10 @@ SCORE_RTOL = 1e-5
 OUT_RTOL = 2.0 ** -7
 OUT_ATOL = 1e-4
 REL_L2 = 1e-2
+#: pooled mean / arkvale rank keys: |kernel - plain| <= POOL_RTOL * max
+#: |plain| of the row; a sum of at most 64 tokens (mean) or 256 squares
+#: (radius) in two orders differs by a few ulps
+POOL_RTOL = 1e-6
 #: callers scale random queries by this so that attention logits have
 #: standard deviation 1.5: outputs peak more than at 1.0 (a flash rescale
 #: error moves them further), while a page left out still moves most rows
@@ -224,3 +235,72 @@ def compare_sparse_prefill(q, rq, k, v, score_store, la, sparse, n_valid,
     err, rel, use = check_outputs(out_k, out_p, keep, "sparse_prefill")
     return {"max_abs_err": err, "max_rel_l2": rel, "tol_use": use,
             "near_ties": int(diff.sum()), "tie_cells": int(tie_cells.sum())}
+
+
+def compare_pool_rank_keys(keys, block_size, method):
+    """Pooling kernel against its plain version -> {"max_abs_err",
+    "max_rel_err", "kernel", "plain"}."""
+    got = block_centroid.pool_rank_keys(keys, block_size, method)
+    want = block_centroid.pool_rank_keys_plain(keys, block_size, method)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype, (got.shape, want.shape)
+    d = (got - want).abs()
+    row = want.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    rel = float((d / row).max())
+    if method == "quest":
+        assert torch.equal(got, want), f"pool_rank_keys ({method}): not bitwise equal"
+    else:
+        assert rel <= POOL_RTOL, (f"pool_rank_keys ({method}): error {rel:.3e} of "
+                                  f"the row's largest magnitude exceeds {POOL_RTOL}")
+    return {"max_abs_err": float(d.max()), "max_rel_err": rel, "kernel": got,
+            "plain": want}
+
+
+def threshold_selection(scores, thr, count_gt, k_per_head):
+    """The set a threshold defines -> ``[B, H, M]`` bool: every score above
+    ``thr``, then the first ``K_h - count_gt`` scores equal to it in index
+    order (in the kernels' order, where -0.0 ranks below +0.0)."""
+    key, t = ref.sortable_key(scores), ref.sortable_key(thr)[..., None]
+    tie = key == t
+    room = (k_per_head.to(count_gt.dtype)[None, :] - count_gt)[..., None]
+    return (key > t) | (tie & (tie.cumsum(-1) <= room))
+
+
+def stable_topk_selection(scores, k_per_head):
+    """The first K_h of a stable descending sort in the kernels' order
+    (``lax.top_k``'s set; :func:`repro_torch.core.selection.rank_blocks`'
+    order when no score is -0.0)."""
+    M = scores.shape[-1]
+    idx = torch.sort(ref.sortable_key(scores), dim=-1, descending=True,
+                     stable=True).indices
+    rank_ok = torch.arange(M, device=scores.device) < k_per_head.to(scores.device)[:, None]
+    return torch.zeros_like(scores, dtype=torch.bool).scatter(
+        -1, idx, rank_ok.expand_as(idx))
+
+
+def compare_topk_threshold(scores, k_per_head):
+    """Threshold kernel against its plain version -> {"kernel": (thr, cnt),
+    "selected": [B, H, M]}; both outputs bitwise equal, and the selected set
+    that of a stable descending sort."""
+    k = torch.as_tensor(k_per_head, dtype=torch.int32, device=scores.device)
+    thr_k, cnt_k = topk_threshold.topk_threshold(scores, k)
+    thr_p, cnt_p = topk_threshold.topk_threshold_plain(scores, k)
+    torch.cuda.synchronize()
+    assert torch.equal(thr_k, thr_p), "topk_threshold: thresholds differ"
+    assert torch.equal(cnt_k, cnt_p), "topk_threshold: counts differ"
+    sel = threshold_selection(scores, thr_k, cnt_k, k)
+    assert torch.equal(sel, stable_topk_selection(scores, k)), \
+        "topk_threshold: the threshold's set is not the stable top-K"
+    return {"kernel": (thr_k, cnt_k), "selected": sel}
+
+
+def compare_flash_attention(q, k, v, causal):
+    """Dense flash kernel against its plain version -> {"max_abs_err",
+    "max_rel_l2", "tol_use", "kernel", "plain"}; every row compared."""
+    out_k = ops.flash_attention(q, k, v, causal)
+    out_p = ops.flash_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    keep = torch.ones(out_p.shape[:-1], dtype=torch.bool, device=out_p.device)
+    err, rel, use = check_outputs(out_k, out_p, keep, "flash_attention")
+    return {"max_abs_err": err, "max_rel_l2": rel, "tol_use": use,
+            "kernel": out_k, "plain": out_p}

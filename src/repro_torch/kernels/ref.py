@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.centroids import build_rank_keys
 from repro_torch.core.quantization import decode_affine, unpack_split_half
 from repro_torch.core.sparse_attention import paged_attention_reference
 from repro_torch.core.stacked import LayoutArrays
@@ -21,6 +22,8 @@ NEG_INF = -1e30
 
 #: elements of one broadcast product chunk in :func:`row_scores`.
 _CHUNK_ELEMS = 1 << 25
+#: f32 logits of one query-head chunk in :func:`flash_attention_ref` (1 GiB)
+_LOGIT_ELEMS = 1 << 28
 
 
 def row_scores(rk: torch.Tensor, rq: torch.Tensor) -> torch.Tensor:
@@ -213,3 +216,56 @@ def sparse_prefill_ref(
         "live_rows": g * (qpos[None] < nv[:, None, None]).sum(-1),
         "pairs": torch.stack(pairs, dim=2),
     }
+
+
+def pool_rank_keys_ref(keys: torch.Tensor, block_size: int, method: str) -> torch.Tensor:
+    """keys ``[B, H, S, D]`` -> lane-padded f32 rank keys ``[B, H, S / bs, Dp]``."""
+    return build_rank_keys(keys, block_size, method, pad=True)
+
+
+def sortable_key(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int64 key in the order of the kernels' sortable-u32 encoding
+    (the float order, with -0.0 just below +0.0)."""
+    i = x.to(torch.float32).view(torch.int32).to(torch.int64)
+    return torch.where(i >= 0, i + (1 << 31), -i - 1)
+
+
+def from_sortable_key(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`sortable_key`."""
+    i = torch.where(key >= (1 << 31), key - (1 << 31), -key - 1)
+    return i.to(torch.int32).view(torch.float32)
+
+
+def topk_threshold_ref(scores: torch.Tensor, k_per_head: torch.Tensor):
+    """scores ``[B, H, M]`` -> (the K_h-th largest score ``[B, H]`` f32, the
+    count of scores strictly above it ``[B, H]`` int32), ranked by
+    :func:`sortable_key` as the kernels' binary search ranks them."""
+    B, H, M = scores.shape
+    key = sortable_key(scores)
+    desc = torch.sort(key, dim=-1, descending=True).values
+    kk = (k_per_head.to(torch.int64) - 1).reshape(1, H, 1).expand(B, H, 1)
+    thr = torch.gather(desc, -1, kk)
+    return from_sortable_key(thr[..., 0]), (key > thr).sum(-1).to(torch.int32)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q ``[B, Hq, S, D]``, k/v ``[B, Hkv, S, D]`` -> ``[B, Hq, S, D]`` in q's
+    dtype: f32 softmax attention, query head h reading kv head ``h // g``,
+    future keys at -1e30 when ``causal``.  Query heads go in chunks so that
+    the f32 logits stay within ``_LOGIT_ELEMS`` elements."""
+    B, Hq, S, D = q.shape
+    g = Hq // k.shape[1]
+    step = max(1, _LOGIT_ELEMS // (B * S * S))
+    keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril_()
+    outs = []
+    for h0 in range(0, Hq, step):
+        hs = torch.arange(h0, min(Hq, h0 + step), device=q.device)
+        qf = q[:, hs].to(torch.float32)
+        kf = k[:, hs // g].to(torch.float32)
+        vf = v[:, hs // g].to(torch.float32)
+        logits = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(D)
+        if causal:
+            logits = torch.where(keep, logits, NEG_INF)
+        outs.append(torch.matmul(torch.softmax(logits, dim=-1), vf).to(q.dtype))
+    return torch.cat(outs, dim=1)

@@ -125,7 +125,9 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     mods = list(_port_modules())
-    assert "repro_torch.kernels.fused_decode" in mods
+    for m in ("kernels.fused_decode", "kernels.block_centroid", "kernels.topk_threshold",
+              "kernels.flash_attention", "core.calibration", "core.recall"):
+        assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"
         f"for m in {mods!r}: __import__(m)\n"

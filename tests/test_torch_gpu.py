@@ -19,6 +19,14 @@ page tables, prefill block sets) is exact up to the near-tie rule of
 ``SCORE_RTOL``, and the staged page sets equal to the fused kernel's
 exactly; bf16 outputs agree within one bf16 rounding step per element and
 a relative L2 error of 1e-2 per row.
+
+The pooling kernel runs over the three centroid methods, block sizes
+16/32/64, f32 and bf16 keys and head_dim 64/128 (quest bitwise equal to the
+plain version, mean / arkvale within ``POOL_RTOL``), and through the
+``"cuda"`` backend's ``build_store`` (one launch per distinct block size,
+store bytes equal to the ``"reference"`` backend's); the threshold kernel
+over row lengths with ties and +-inf (bitwise); the dense flash kernel
+causal and not, head_dim 64/128, GQA groups 1 to 8.
 """
 import pytest
 import torch
@@ -31,8 +39,10 @@ from repro_torch.core.quantization import store_bits, store_symmetric
 from repro_torch.core.ragged import layout_for
 from repro_torch.core.stacked import as_arrays
 from repro_torch.core.selection import select_page_table
-from repro_torch.kernels import centroid_score, fused_decode, ops, paged_attention
-from repro_torch.kernels import parity, sparse_prefill
+from repro_torch.backends import get_backend
+from repro_torch.kernels import block_centroid, centroid_score, flash_attention
+from repro_torch.kernels import fused_decode, ops, paged_attention, parity
+from repro_torch.kernels import sparse_prefill, topk_threshold
 
 pytestmark = pytest.mark.gpu
 
@@ -162,3 +172,66 @@ def test_staged_kernels_match_plain_and_fused(cuda, quant, blocks, sink, local):
 @pytest.mark.parametrize("D,g", [(128, 3), (64, 1), (128, 8), (64, 5)])
 def test_staged_kernels_shapes_and_lengths(cuda, seq, D, g):
     _staged(cuda, LAYOUTS["nonuniform"], "int4_asym", seq, 1, 4, D=D, g=g, seed=5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [16, 32, 64])
+@pytest.mark.parametrize("method", ["mean", "quest", "arkvale"])
+def test_pool_rank_keys_kernel_matches_plain(cuda, method, bs, D, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(bs + D)
+    keys = torch.randn((2, 3, S, D), generator=gen, device=cuda).to(dtype)
+    launches = block_centroid.launches
+    res = parity.compare_pool_rank_keys(keys, bs, method)
+    assert block_centroid.launches == launches + 1
+    # one token's key moved shows up in its block's rank key, and only there
+    moved = keys.clone()
+    moved[1, 2, 5 * bs + 3] += 4.0
+    out = block_centroid.pool_rank_keys(moved, bs, method)
+    changed = (out != res["kernel"]).any(-1)
+    assert changed[1, 2, 5] and int(changed.sum()) == 1
+
+
+@pytest.mark.parametrize("quant", ["none", "int8_asym", "int4_asym"])
+@pytest.mark.parametrize("blocks", list(LAYOUTS.values()), ids=list(LAYOUTS))
+def test_build_store_cuda_backend_matches_reference(cuda, quant, blocks):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    keys = torch.randn((2, len(blocks), S, 128), generator=gen, device=cuda)
+    lay = layout_for(blocks, S, PS, BUDGET)
+    launches = block_centroid.launches
+    got = get_backend("cuda").build_store(keys, lay, "quest", quant=quant)
+    assert block_centroid.launches == launches + len(set(blocks))
+    want = get_backend("reference").build_store(keys, lay, "quest", quant=quant)
+    assert torch.equal(got.codes, want.codes)
+    if quant != "none":
+        assert torch.equal(got.scale, want.scale) and torch.equal(got.zero, want.zero)
+
+
+@pytest.mark.parametrize("M", [64, 1024, 5000])
+@pytest.mark.parametrize("ties", [False, True], ids=["distinct", "ties"])
+def test_topk_threshold_kernel_matches_plain(cuda, M, ties):
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    s = torch.randn((4, 8, M), generator=gen, device=cuda)
+    if ties:
+        s = torch.round(s * 2)
+        s[:, :, ::13] = float("-inf")
+        s[:, :, 3::17] = float("inf")
+        s[:, 2, M // 2:] = -1e30
+    k = torch.randint(1, M + 1, (8,), generator=gen, device=cuda, dtype=torch.int32)
+    k[0], k[1] = 1, M
+    launches = topk_threshold.launches
+    parity.compare_topk_threshold(s, k)
+    assert topk_threshold.launches == launches + 1
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hq,hkv,s,d", [(4, 4, 256, 64), (24, 8, 512, 128),
+                                        (8, 1, 384, 128), (6, 3, 640, 64)])
+def test_flash_attention_kernel_matches_plain(cuda, causal, hq, hkv, s, d):
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (torch.randn((2, h, s, d), generator=gen, device=cuda) for h in (hq, hkv, hkv))
+    q = (q * parity.QSCALE).to(torch.bfloat16)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    launches = flash_attention.launches
+    parity.compare_flash_attention(q, k, v, causal)
+    assert flash_attention.launches == launches + 1

@@ -12,7 +12,12 @@ CPU tensors, which take the plain versions.
   (sequence, head) identical as a set (the port lists the selected blocks
   in ascending order, the staged JAX path in score order), outputs within
   1e-5 (f32);
-- sparse prefill: n_attended identical, outputs within 1e-5 (f32).
+- sparse prefill: n_attended identical, outputs within 1e-5 (f32);
+- topk_threshold (against JAX's kernel in interpret mode and its plain
+  reference): thresholds and counts identical, ties and +-inf included;
+- flash_attention (against JAX's kernel in interpret mode): f32 outputs
+  within 1e-5, bf16 outputs within one bf16 rounding step (2^-7 relative)
+  plus 1e-4.
 """
 import dataclasses
 
@@ -30,6 +35,9 @@ from repro.core.selection import select_page_table as j_select
 from repro.core.sparse_attention import paged_attention_reference as j_paged
 from repro.core.stacked import as_arrays as j_as_arrays
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.topk_threshold import topk_threshold as j_topk
 
 from repro_torch.backends import CentroidStore, store as tstore
 from repro_torch.config import SparseConfig as TSparse
@@ -38,6 +46,7 @@ from repro_torch.core.quantization import store_bits, store_symmetric
 from repro_torch.core.ragged import layout_for as t_layout_for
 from repro_torch.core.stacked import as_arrays as t_as_arrays
 from repro_torch.kernels import fused_decode as tfd
+from repro_torch.kernels import topk_threshold as ttk
 from repro_torch.kernels import ops as tops
 
 B, N_KV, G, S, D, PS = 2, 4, 2, 512, 16, 16
@@ -257,3 +266,102 @@ def test_sparse_prefill_plain_chunked_dead_blocks(chunk_offset, sq, n_valid):
     np.testing.assert_array_equal(np.asarray(n_att), t_att.numpy())
     assert (t_att.numpy() == 0).any()          # a dead query block attends nothing
     np.testing.assert_allclose(np.asarray(out), t_out.numpy(), atol=1e-5)
+
+
+# -- topk threshold ----------------------------------------------------------
+
+
+def _same_threshold(scores, ks):
+    thr, cnt = j_topk(jnp.asarray(scores), tuple(ks), interpret=True)
+    rthr, rcnt = jref.topk_threshold_ref(jnp.asarray(scores), ks)
+    t_thr, t_cnt = ttk.topk_threshold(_t(scores), list(ks))
+    for a in (thr, rthr):
+        _same_bytes(a, t_thr)
+    for a in (cnt, rcnt):
+        _same_bytes(a, t_cnt)
+    assert t_thr.dtype == torch.float32 and t_cnt.dtype == torch.int32
+    return t_thr, t_cnt
+
+
+@pytest.mark.parametrize("M", [128, 512, 2048])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_topk_threshold_plain_matches_jax(M, seed):
+    rng = np.random.default_rng(seed)
+    scores = (rng.standard_normal((2, 4, M)) * 10).astype(np.float32)
+    _same_threshold(scores, [int(x) for x in rng.integers(1, M, 4)])
+
+
+def test_topk_threshold_ties_and_infs():
+    row = [1.0, 2.0, 2.0, 2.0, -1e30, 0.5, -2.0, 2.0,
+           np.inf, -np.inf, 2.0, -np.inf, 0.5, np.inf, 1e30, -3.0]
+    scores = np.asarray([[row, row[::-1]]], np.float32)
+    for k in (1, 2, 3, 5, 8, 12, 15, 16):
+        thr, cnt = _same_threshold(scores, [k, k])
+        # {score > thr} plus the first k - count ties in index order is the
+        # stable descending sort's top k
+        s = _t(scores)
+        order = torch.sort(s, dim=-1, descending=True, stable=True).indices[..., :k]
+        top = torch.zeros_like(s, dtype=torch.bool).scatter(-1, order, True)
+        ties = (s == thr[..., None]).cumsum(-1) <= (k - cnt)[..., None]
+        assert torch.equal(top, (s > thr[..., None]) | ((s == thr[..., None]) & ties))
+
+
+def test_topk_threshold_signed_zeros_rank_as_the_tpu_kernel():
+    """The sortable encoding ranks -0.0 just below +0.0, in JAX's kernel and
+    in the port's plain version alike."""
+    scores = np.asarray([[[0.0, -0.0, 1.0, -0.0, 0.0, -1.0, -0.0, 0.0]]], np.float32)
+    for k in range(1, 9):
+        thr, cnt = j_topk(jnp.asarray(scores), (k,), interpret=True)
+        t_thr, t_cnt = ttk.topk_threshold(_t(scores), [k])
+        _same_bytes(thr, t_thr)
+        _same_bytes(cnt, t_cnt)
+        assert np.signbit(t_thr.numpy()[0, 0]) == (k >= 5)     # -0.0 from k = 5
+        if 5 <= k <= 7:
+            assert int(t_cnt[0, 0]) == 4                       # 1.0 and three +0.0
+
+
+def test_ops_topk_threshold_takes_k_from_the_layout():
+    blocks = LAYOUTS["nonuniform"]
+    jla, tla = _layouts(blocks)
+    scores = np.random.default_rng(3).standard_normal((B, N_KV, jla.max_blocks))
+    scores = scores.astype(np.float32)
+    jt, jc = jops.topk_threshold(jnp.asarray(scores), j_layout_for(blocks, S, PS, BUDGET),
+                                 interpret=True)
+    tt, tc = tops.topk_threshold(_t(scores), tla)
+    _same_bytes(jt, tt)
+    _same_bytes(jc, tc)
+    with pytest.raises(ValueError, match="must hold"):
+        ttk.topk_threshold(_t(scores), [0] * N_KV)
+
+
+# -- flash attention ---------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,d,causal",
+    [(1, 2, 1, 256, 64, True), (2, 4, 2, 384, 32, True), (1, 8, 2, 256, 64, True),
+     (1, 4, 4, 256, 32, False), (2, 6, 2, 128, 64, False)],
+)
+def test_flash_attention_plain_matches_jax(b, hq, hkv, s, d, causal):
+    rng = np.random.default_rng(hq * s + d)
+    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32)
+               for h in (hq, hkv, hkv))
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                   interpret=True)
+    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.flash_attention_ref(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal)), atol=1e-5)
+
+
+def test_flash_attention_plain_bf16():
+    rng = np.random.default_rng(5)
+    q, k, v = (jnp.asarray(rng.standard_normal((1, h, 256, 64)), jnp.bfloat16)
+               for h in (4, 2, 2))
+    want = np.asarray(j_flash(q, k, v, causal=True, interpret=True), np.float32)
+    to_t = lambda x: torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+    got = tops.flash_attention(to_t(q), to_t(k), to_t(v), causal=True)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert (np.abs(got - want) <= 1e-4 + 2.0 ** -7 * np.abs(want)).all()

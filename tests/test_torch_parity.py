@@ -184,3 +184,68 @@ def test_paged_attention_comparison_catches_faulty_outputs(monkeypatch, fault):
     monkeypatch.setattr(ops, "paged_attention", faulty)
     with pytest.raises(AssertionError, match="paged_attention: .*error"):
         parity.compare_paged_attention(*_paged_case())
+
+
+# -- pooling, top-K threshold, dense flash attention -----------------------------
+
+
+@pytest.mark.parametrize("method", ["mean", "quest", "arkvale"])
+def test_pool_rank_keys_comparison_passes_and_catches_a_moved_key(monkeypatch, method):
+    from repro_torch.kernels import block_centroid
+
+    keys = torch.randn((2, 3, 256, D), generator=torch.Generator().manual_seed(3))
+    res = parity.compare_pool_rank_keys(keys, 32, method)
+    assert res["max_abs_err"] == 0.0
+    plain = block_centroid.pool_rank_keys
+
+    def faulty(keys, bs, method):
+        out = plain(keys, bs, method).clone()
+        out[1, 2, 3, 0] += 10 * parity.POOL_RTOL * out[1, 2, 3].abs().max()
+        return out
+
+    monkeypatch.setattr(block_centroid, "pool_rank_keys", faulty)
+    with pytest.raises(AssertionError, match="pool_rank_keys"):
+        parity.compare_pool_rank_keys(keys, 32, method)
+
+
+def _tied_scores():
+    gen = torch.Generator().manual_seed(4)
+    s = torch.randint(-3, 4, (2, 4, 64), generator=gen).float()
+    s[:, :, ::7] = float("-inf")
+    s[:, :, 5::11] = float("inf")
+    s[:, 1, 40:] = -1e30
+    return s
+
+
+def test_topk_threshold_comparison_passes_on_ties_and_infs():
+    s, k = _tied_scores(), torch.tensor([1, 9, 33, 64], dtype=torch.int32)
+    res = parity.compare_topk_threshold(s, k)
+    assert (res["selected"].sum(-1) == k).all()
+
+
+def test_topk_threshold_comparison_catches_a_wrong_count(monkeypatch):
+    from repro_torch.kernels import topk_threshold as tk
+
+    plain = tk.topk_threshold
+
+    def faulty(scores, k):
+        thr, cnt = plain(scores, k)
+        return thr, cnt + 1
+
+    monkeypatch.setattr(tk, "topk_threshold", faulty)
+    with pytest.raises(AssertionError, match="counts differ"):
+        parity.compare_topk_threshold(_tied_scores(), [3, 3, 3, 3])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_comparison_passes_and_catches_2pct(monkeypatch, causal):
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((1, h, 256, D), generator=gen).to(torch.bfloat16)
+               for h in (4, 2, 2))
+    res = parity.compare_flash_attention(q, k, v, causal)
+    assert res["max_abs_err"] == 0.0
+    plain = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda *a, **kw: (plain(*a, **kw).float() * 1.02).to(torch.bfloat16))
+    with pytest.raises(AssertionError, match="flash_attention"):
+        parity.compare_flash_attention(q, k, v, causal)
