@@ -138,6 +138,20 @@ def cuda_time_ms(torch, fn, warmup: int, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(torch, fn, iters: int) -> float:
+    """Device time per call of ``fn``: the summed times of the kernels it
+    launches (``torch.profiler``), without the time the device waits for
+    the host between calls."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in device_time_rows(torch, prof)) / iters
+
+
 def bound(bytes_, f32_ops, bf16_ops):
     t_bytes = bytes_ / HBM_BPS
     t_ops = f32_ops / F32_FLOPS + bf16_ops / BF16_FLOPS
@@ -406,10 +420,32 @@ def check_flash_attention(torch, dev):
     for causal in (True, False):
         res = parity.compare_flash_attention(q, k, v, causal)
         err = max(err, res["max_abs_err"])
+        if causal:
+            plain = res["plain"]
         log(f"flash_attention check ({'causal' if causal else 'not causal'}, S {S}): "
             f"max_abs_err {res['max_abs_err']:.3e}, max rel L2 {res['max_rel_l2']:.3e} "
             f"(limit {parity.REL_L2}), {res['tol_use']:.2f} of the elementwise limit "
             f"{parity.OUT_ATOL} + 2^-7 |plain|")
+    # power: the causal output of query head 0 with one 64-key tile (keys
+    # S/2 .. S/2 + 63) left out must fail the comparison
+    t0 = S // 2
+    keep = torch.ones((S, S), dtype=torch.bool, device=dev).tril_()
+    keep[:, t0:t0 + 64] = False
+    logits = (q[0, 0].float() @ k[0, 0].float().T) * D ** -0.5
+    dropped = plain.clone()
+    dropped[0, 0] = (torch.softmax(torch.where(keep, logits, -1e30), -1)
+                     @ v[0, 0].float()).to(q.dtype)
+    moved = ((dropped[0, 0, t0:].float() - plain[0, 0, t0:].float()).norm(dim=-1)
+             / plain[0, 0, t0:].float().norm(dim=-1))
+    rows = torch.ones(plain.shape[:-1], dtype=torch.bool, device=dev)
+    try:
+        parity.check_outputs(dropped, plain, rows, "power check")
+    except AssertionError:
+        log(f"flash_attention check power: one key tile of one head left out moves "
+            f"its rows at and after the tile by median rel L2 "
+            f"{float(moved.median()):.3e} and fails the comparison")
+    else:
+        fail("the flash_attention comparison cannot see a key tile left out")
     return {"err": err}
 
 
@@ -601,14 +637,20 @@ def time_paged_attention(torch, dec, att):
     """One B = 4 launch on the staged page table of the check (rank order).
     Library yardstick: ``scaled_dot_product_attention`` over the selected
     K/V gathered beforehand (the gather is not timed), each head's group as
-    its query rows, the token mask as ``attn_mask``."""
+    its query rows, the token mask as ``attn_mask``.  The kernel and the
+    yardstick are timed by the device time of their kernels
+    (``device_ms``): back-to-back calls of the wrapper take longer on the
+    host than on the device, so CUDA events around them (logged too) time
+    the host."""
     from repro_torch.kernels import paged_attention as pa
 
     q, rq, k, v, _, la, sink, local, seq_len = dec["args"]
     tbl, vld = att["table"], att["valid"]
     B, n_q, _ = q.shape
     args = (q, k, v, tbl, vld, seq_len, PS)
-    ms = cuda_time_ms(torch, lambda: pa.paged_attention(*args), 5, 50)
+    kernel = lambda: pa.paged_attention(*args)
+    ms = device_ms(torch, kernel, 50)
+    event_ms = cuda_time_ms(torch, kernel, 5, 50)
     plain_ms = cuda_time_ms(torch, lambda: pa.paged_attention_plain(*args), 1, 5)
     P = tbl.shape[-1]
     pos = tbl.long()[..., None] * PS + torch.arange(PS, device=q.device)
@@ -619,13 +661,19 @@ def time_paged_attention(torch, dec, att):
     sel_v = torch.gather(v, 2, idx).reshape(B, N_KV, P * PS, D)
     q4 = q.reshape(B, N_KV, G, D)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_time_ms(
-        torch, lambda: sdpa(q4, sel_k, sel_v, attn_mask=live[:, :, None, :]), 5, 50)
+    library = lambda: sdpa(q4, sel_k, sel_v, attn_mask=live[:, :, None, :])
+    library_ms = device_ms(torch, library, 50)
+    library_event_ms = cuda_time_ms(torch, library, 5, 50)
     tokens = int(live.sum())
     bytes_ = (2 * q.numel() * 2 + 2 * tokens * D * 2 + tbl.numel() * 4
               + vld.numel() + seq_len.numel() * 4)
     f32_ops = 4 * tokens * G * D
     b_ms, by = bound(bytes_, f32_ops, 0)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"paged_attention (B {B}, {pa.split_plan(B, N_KV, P, n_sm)} "
+        f"splits): device {ms:.4f} ms/call (CUDA events over back-to-back calls "
+        f"{event_ms:.4f}), SDPA device {library_ms:.4f} (events {library_event_ms:.4f}), "
+        f"bound {b_ms:.4f} ms ({by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms}
 
@@ -690,7 +738,7 @@ def time_flash_attention(torch, dev):
     sparse, la, gen, kp, vp = layer_inputs(torch, dev, 1, seed=3)
     q = torch.randn((1, N_KV * G, S, D), generator=gen, device=dev).to(torch.bfloat16)
     k, v = kp.reshape(1, N_KV, S, D), vp.reshape(1, N_KV, S, D)
-    ms = cuda_time_ms(torch, lambda: fa.flash_attention(q, k, v, True), 1, 3)
+    ms = cuda_time_ms(torch, lambda: fa.flash_attention(q, k, v, True), 3, 20)
     plain_ms = cuda_time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True), 1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     try:
@@ -1185,9 +1233,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f}s")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "ptxas.log").write_text("".join(
+        f"== {name}\n{rep}\n" for name, rep in _build.PTXAS_REPORT.items()))
     for name, rep in _build.PTXAS_REPORT.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
     dec = check_fused_decode(torch, dev)
@@ -1277,8 +1329,6 @@ def main() -> int:
         f"flash over the whole prompt / its sparse_prefill chunks = "
         f"{t_flash['ms'] / sparse_prompt_ms:.3f}")
     log(f"total {time.perf_counter() - T_START:.1f}s")
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.log").write_text("\n".join(LOG) + "\n")
     print(card)
     print(json.dumps({"kernels": kernels_line}))

@@ -1,7 +1,8 @@
 // Shared device helpers of the AB-Sparse Hopper kernels: the sortable-u32
 // encoding of f32 scores, the INT4/INT8 store dequant, the one-warp row
-// scoring shared by the fused and the staged decode, block reductions and
-// the exact top-k threshold search (lax.top_k's lowest-index tie order).
+// scoring shared by the fused and the staged decode, block reductions, the
+// exact top-k threshold search (lax.top_k's lowest-index tie order) and
+// 16-byte cp.async copies into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -159,6 +160,29 @@ __device__ __forceinline__ uint32_t topk_threshold(const float* s, int n, int k,
   for (int j = threadIdx.x; j < n; j += NT) gt += to_sortable(s[j]) > t;
   *n_gt = block_sum_int(gt, red);
   return t;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte asynchronous copy global -> shared; zero-filled (nothing read)
+// when !ok.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// Make this thread's generic-proxy shared-memory writes (cp.async
+// included) visible to wgmma, which reads through the async proxy.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float bf2f(__nv_bfloat16 x) {

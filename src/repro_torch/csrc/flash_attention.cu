@@ -5,171 +5,149 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py (_flash_kernel,
 // pallas_call at line 117).  Same arithmetic: logits = (q . k) * D^-1/2,
-// future keys at -1e30 when causal, a running (max, sum, acc) rescaled by
-// exp(m_old - m_new) per key tile, and out = acc / max(l, 1e-30).  The TPU
-// kernel walks the key tiles as the last, sequential grid axis with the
-// state in VMEM scratch; here one thread block per (query tile of BQ rows,
-// head, sequence) loops over the key tiles itself with the state in
-// registers, and a causal block stops at its diagonal tile (the TPU grid
-// still visits the dead tiles).  Blocks are issued heaviest first.
+// future keys masked when causal, a running (max, sum, acc) rescaled per
+// key tile, and out = acc / max(l, 1e-30).  The TPU kernel walks the key
+// tiles as the last, sequential grid axis with the state in VMEM scratch;
+// here one thread block per (head, query tile of 128 rows, sequence) loops
+// over the 64-key tiles itself, and a causal block stops at its diagonal
+// tile (masking inside it).  Blocks are issued heaviest first: the grid's
+// slowest axis after the heads is the query tile, last tile first.
 //
-// Per key tile: the K tile is converted to f32 in shared memory; each of
-// the 256 threads (a 16 x 16 grid) computes a 4 x 4 patch of the logits
-// with CUDA-core FMAs; a butterfly over the 16 threads of a row gives its
-// max and sum; the probabilities go to shared memory, the V tile replaces
-// the K tile, and each thread adds p V to its 4 rows x D/16 channels.
-//
-// Bound on the card: operations (4 S^2 D flops per query head when not
-// causal, about half that when causal).  This first version runs on the
-// CUDA cores at the f32 FMA rate, far below the bf16 tensor cores; wgmma
-// and TMA are later work.
+// Bound on the card: operations (4 D flops per live query-key pair at the
+// bf16 tensor-core rate; 6 D as run here, see below).  Design
+// (attn_tile.cuh holds the tile):
+//  - both products on the tensor cores with wgmma: two warpgroups, each 64
+//    query rows; S = Q K^T from shared memory (m64n64k16), O += P V with P
+//    from registers and V from shared memory (m64nDk16, transposed B);
+//  - P is split into bf16 hi + lo and O accumulates both products: one
+//    bf16 rounding of P fails the one-bf16-step comparison with the f32
+//    plain version (attn_tile.cuh says by how much);
+//  - K and V arrive by 16-byte cp.async into a ring of three swizzled
+//    stages, tile j + 2 loading while tile j is computed; Q is loaded once;
+//  - the products of tile j + 1's logits and tile j's P V are issued
+//    together, and the softmax of tile j + 1 runs while P V is still on
+//    the tensor cores (one block-wide barrier per key tile);
+//  - a query tile that runs past S (S a multiple of 64, not of 128) zero-
+//    fills its missing rows and does not store them.
 #include "common.cuh"
+#include "attn_tile.cuh"
 
 using namespace absparse;
+using namespace absparse::tile;
 
 namespace {
 
-constexpr int BQ = 64;                  // query rows per thread block
-constexpr int BK = 64;                  // keys per tile
-constexpr int TR = 4;                   // logit rows per thread (16 x 4 = BQ)
-constexpr int TC = 4;                   // logit columns per thread (16 x 4 = BK)
-constexpr int PST = BK + 1;             // row stride of the probability tile
+constexpr int BQ = 2 * ROWS_WG;         // query rows per thread block
+constexpr int BK = KEYS;                // keys per tile
+constexpr int NSTAGE = 3;               // K / V ring depth
+constexpr int NTHR = 256;               // two warpgroups
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)(BQ + BK) * (D + 1) + (size_t)BQ * PST);
-}
-
-// rows [64, D] bf16 (row stride D) -> f32 in shared memory, row stride D + 1
-template <int D>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
-                                          float* dst) {
-  constexpr int V = D / 8;              // 16-byte vectors per row
-  for (int i = threadIdx.x; i < 64 * V; i += NT) {
-    const int r = i / V, c8 = (i - r * V) * 8;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c8);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) dst[r * (D + 1) + c8 + u] = bf2f(e[u]);
-  }
-}
-
-// max / sum over the 16 threads of one logit row (lanes 0-15 or 16-31)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  // 1024 bytes of slack to align the tiles to the swizzle period
+  return 1024 + (size_t)BQ * D * 2 + (size_t)NSTAGE * 2 * BK * D * 2;
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT) flash_attention_kernel(
+__global__ void __launch_bounds__(NTHR, 1) flash_attention_kernel(
     const __nv_bfloat16* __restrict__ q,    // [B, Hq, S, D]
     const __nv_bfloat16* __restrict__ k,    // [B, Hkv, S, D]
     const __nv_bfloat16* __restrict__ v,
     __nv_bfloat16* __restrict__ out,        // [B, Hq, S, D]
-    int Hq, int Hkv, int S, int causal, float scale) {
-  constexpr int DS = D + 1;
-  constexpr int DC = D / 16;            // output channels per thread
+    int Hq, int Hkv, int S, int causal, float scale_log2) {
+  constexpr int TILE = BK * D * 2;      // bytes of one K or V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);   // [BQ][DS]
-  float* kv = qs + BQ * DS;                         // [BK][DS], K then V
-  float* ps = kv + BK * DS;                         // [BQ][PST]
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t skv = sq + BQ * D * 2;  // stage st: K at skv + 2 st TILE, V after
 
-  const int qt = S / BQ - 1 - blockIdx.x;           // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t q_off = (((size_t)b * Hq + h) * S + (size_t)qt * BQ) * D;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int q0 = qt * BQ;
+  // this thread's rows: row0 and row0 + 8
+  const int row0 = q0 + wg * ROWS_WG + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const __nv_bfloat16* qh = q + (((size_t)b * Hq + h) * S + q0) * D;
   const __nv_bfloat16* kh = k + ((size_t)b * Hkv + hk) * S * D;
   const __nv_bfloat16* vh = v + ((size_t)b * Hkv + hk) * S * D;
+  const int n_kt = causal ? min(S / BK, (q0 + BQ - 1) / BK + 1) : S / BK;
 
-  load_tile<D>(q + q_off, qs);
-  float m[TR], l[TR], acc[TR][DC];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    m[i] = ABS_NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
+  auto load_kv = [&](int t) {
+    const uint32_t st = skv + (t % NSTAGE) * 2 * TILE;
+    load_tile<BK, D, NTHR>(st, kh + (size_t)t * BK * D, BK, tid);
+    load_tile<BK, D, NTHR>(st + TILE, vh + (size_t)t * BK * D, BK, tid);
+  };
+  load_tile<BQ, D, NTHR>(sq, qh, S - q0, tid);
+  load_kv(0);
+  cp_async_commit();
+  if (n_kt > 1) load_kv(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  fence_async_smem();
+  __syncthreads();
 
-  const int n_kt = causal ? qt + 1 : S / BK;        // BQ == BK
-  for (int kt = 0; kt < n_kt; ++kt) {
-    load_tile<D>(kh + (size_t)kt * BK * D, kv);
-    __syncthreads();
-    float sc[TR][TC];
+  const uint32_t q_rows = sq + wg * ROWS_WG * 128;
+  float s[32], o[D / 2];
+  uint32_t p_hi[4][4], p_lo[4][4];
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  wg_fence();
+  qk<D, BQ>(s, q_rows, skv);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(s);
+
+  // key tiles past the warpgroup's first row need the causal mask
+  const int diag0 = (q0 + wg * ROWS_WG) / BK;
+  for (int j = 0; j < n_kt; ++j) {
+    if (causal && j >= diag0) {
+      const int k0 = j * BK + 2 * (lane & 3);
 #pragma unroll
-      for (int j = 0; j < TC; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[TR], kk[TC];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) qv[i] = qs[(ty + 16 * i) * DS + d];
-#pragma unroll
-      for (int j = 0; j < TC; ++j) kk[j] = kv[(tx + 16 * j) * DS + d];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TC; ++j) sc[i][j] = fmaf(qv[i], kk[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int r = ty + 16 * i, row = qt * BQ + r;
-      float mx = ABS_NEG_INF;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        float x = sc[i][j] * scale;
-        if (causal && kt * BK + tx + 16 * j > row) x = ABS_NEG_INF;
-        sc[i][j] = x;
-        mx = fmaxf(mx, x);
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + 8 * (i >> 2) + (i & 1);
+        if (col > row0 + 8 * ((i >> 1) & 1)) s[i] = -INFINITY;
       }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        ps[r * PST + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();                    // K reads done, probabilities written
-    load_tile<D>(vh + (size_t)kt * BK * D, kv);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[TR], vv[DC];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) pv[i] = ps[(ty + 16 * i) * PST + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = kv[j * DS + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-    __syncthreads();                    // before the next tile overwrites kv
+    softmax_step(s, scale_log2, m, l, alpha);
+    wg_wait<0>();                       // P V of tile j - 1 is done
+    fence_regs(o);
+    // rows whose maximum did not move have alpha = 1
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) rescale(o, alpha);
+    split_p(s, p_hi, p_lo);
+    cp_async_wait<0>();                 // tile j + 1 has landed
+    fence_async_smem();
+    __syncthreads();                    // ... for all threads; stage of j - 1 free
+    if (j + 2 < n_kt) load_kv(j + 2);
+    cp_async_commit();
+    // the logits of tile j + 1 (after the last tile: of tile j again,
+    // unused), so that every iteration commits the same two groups and
+    // the compiler can keep the products in flight
+    wg_fence();
+    qk<D, BQ>(s, q_rows, skv + (min(j + 1, n_kt - 1) % NSTAGE) * 2 * TILE);
+    wg_commit();
+    const uint32_t v_tile = skv + (j % NSTAGE) * 2 * TILE + TILE;
+    pv<D>(o, p_hi, v_tile);
+    pv<D>(o, p_lo, v_tile);
+    wg_commit();
+    wg_wait<1>();                       // logits of tile j + 1
+    fence_regs(s);
   }
+  wg_wait<0>();
+  fence_regs(o);
+
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const float denom = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* o = out + q_off + (size_t)(ty + 16 * i) * D;
+  for (int hh = 0; hh < 2; ++hh) inv[hh] = 1.f / fmaxf(quad_sum(l[hh]), 1e-30f);
+  __nv_bfloat16* oh = out + ((size_t)b * Hq + h) * S * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      o[tx + 16 * c] = __float2bfloat16(acc[i][c] / denom);
+  for (int i = 0; i < D / 2; i += 2) {
+    const int hh = (i >> 1) & 1, row = row0 + 8 * hh;
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    if (row < S)
+      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)row * D + col) =
+          __floats2bfloat162_rn(o[i] * inv[hh], o[i + 1] * inv[hh]);
   }
 }
 
@@ -182,8 +160,9 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
       flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  flash_attention_kernel<D><<<dim3(S / BQ, Hq, B), NT, smem, stream>>>(
-      q, k, v, out, Hq, Hkv, S, causal, scale);
+  const int n_qt = (S + BQ - 1) / BQ;
+  flash_attention_kernel<D><<<dim3(Hq, n_qt, B), NTHR, smem, stream>>>(
+      q, k, v, out, Hq, Hkv, S, causal, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -196,8 +175,8 @@ extern "C" int flash_attention_launch(const __nv_bfloat16* q,
                                       __nv_bfloat16* out, int B, int Hq,
                                       int Hkv, int S, int D, int causal,
                                       float scale, void* stream) {
-  if (B < 1 || B > 65535 || Hkv < 1 || Hq % Hkv || Hq > 65535 || S < BQ ||
-      S % BQ)
+  if (B < 1 || B > 65535 || Hkv < 1 || Hq % Hkv || Hq > 65535 || S < BK ||
+      S % BK)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (D == 128) return launch<128>(q, k, v, out, B, Hq, Hkv, S, causal, scale, st);

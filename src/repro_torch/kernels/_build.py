@@ -3,9 +3,10 @@ shared library per kernel (plain C interface) and load it with ``ctypes``.
 
 Each library is built at first use, for ``sm_90a``, into a directory that
 git ignores (``src/repro_torch/_build`` or ``$REPRO_TORCH_BUILD_DIR``).  The
-file name carries a hash of the sources and flags, so an edited source is
-never served from a stale library.  :func:`build_all` starts one ``nvcc``
-per source at once and waits for all of them.
+file name carries a hash of the source, every header under ``csrc`` and
+the flags, so an edited source or header is never served from a stale
+library.  :func:`build_all` starts one ``nvcc`` per source at once and
+waits for all of them.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import Dict, Iterable, Optional
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-#: kernel name -> its translation unit (each includes ``common.cuh``).
+#: kernel name -> its translation unit (each includes ``common.cuh``;
+#: ``flash_attention.cu`` also ``attn_tile.cuh``).
 SOURCES = {
     "fused_decode": "fused_decode.cu",
     "sparse_prefill": "sparse_prefill.cu",
@@ -56,9 +58,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, every header under
+    ``CSRC`` (a source may include any of them) and the flags."""
     h = hashlib.sha256()
-    for f in (SOURCES[name], "common.cuh"):
-        h.update((CSRC / f).read_bytes())
+    for f in (CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 

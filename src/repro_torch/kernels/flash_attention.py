@@ -24,7 +24,8 @@ plain_calls = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 4 + [_I] * 6 + [_F, _P]
-#: query rows per thread block and keys per tile of the kernel
+#: keys per tile of the kernel: S must be a multiple of it (a block's 128
+#: query rows need not divide S)
 TILE = 64
 
 

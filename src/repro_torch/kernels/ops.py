@@ -9,6 +9,7 @@ and the oracle the kernels are held against).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -78,11 +79,13 @@ def paged_attention(
     page_valid: torch.Tensor,      # [B, n_kv, P_sel] bool
     page_size: int,
     seq_len: torch.Tensor,         # [B] live tokens
+    n_split: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention stage of the staged decode, one kernel launch ->
-    ``[B, n_q, D]`` over the selected pages only."""
-    return _paged_attention(pa.paged_attention, q, k, v, page_table,
-                            page_valid, page_size, seq_len)
+    ``[B, n_q, D]`` over the selected pages only (``n_split``: see
+    :func:`repro_torch.kernels.paged_attention.paged_attention`)."""
+    return _paged_attention(functools.partial(pa.paged_attention, n_split=n_split),
+                            q, k, v, page_table, page_valid, page_size, seq_len)
 
 
 def paged_attention_reference(q, k, v, page_table, page_valid, page_size,

@@ -173,15 +173,25 @@ def compare_centroid_scores(rq, store, la, sparse, seq_len):
             "kernel": s_k, "plain": s_p, "table": tbl_k, "valid": vld_k}
 
 
-def compare_paged_attention(q, k, v, page_table, page_valid, page_size, seq_len):
-    """Paged-attention kernel against its plain version on one page table
-    -> {"max_abs_err", "max_rel_l2", "tol_use", "kernel", "plain"}; every
-    output row is compared."""
+def compare_paged_attention(q, k, v, page_table, page_valid, page_size, seq_len,
+                            n_split=None):
+    """Paged-attention kernel (``n_split`` slot runs, default its plan)
+    against its plain version on one page table -> {"max_abs_err",
+    "max_rel_l2", "tol_use", "kernel", "plain"}.  Every output row of a
+    head with a live token is compared; a head with none must be 0 in the
+    kernel (the plain version averages its slots' V rows there)."""
     args = (q, k, v, page_table, page_valid, page_size, seq_len)
-    out_k = ops.paged_attention(*args)
+    out_k = ops.paged_attention(*args, **({} if n_split is None else {"n_split": n_split}))
     out_p = ops.paged_attention_reference(*args)
     torch.cuda.synchronize()
-    keep = torch.ones(out_p.shape[:-1], dtype=torch.bool, device=out_p.device)
+    B, n_kv, P = page_table.shape
+    pos = page_table.long()[..., None] * page_size + torch.arange(
+        page_size, device=q.device)
+    live = ((pos < seq_len.long().reshape(B, 1, 1, 1)) & page_valid[..., None]
+            & (page_table >= 0)[..., None]).reshape(B, n_kv, -1).any(-1)
+    keep = live.repeat_interleave(q.shape[1] // n_kv, dim=1)
+    assert not out_k[~keep].float().abs().any(), \
+        "paged_attention: a head with no live token is not 0"
     err, rel, use = check_outputs(out_k, out_p, keep, "paged_attention")
     return {"max_abs_err": err, "max_rel_l2": rel, "tol_use": use,
             "kernel": out_k, "plain": out_p}

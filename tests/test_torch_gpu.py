@@ -12,7 +12,10 @@ Grids: quant {none, int8, int4} x {asym, sym}, non-uniform and uniform
 block-size layouts, sink/local settings, ragged live lengths, head_dim 64
 and 128, GQA groups 1 to 8; sparse prefill over chunk offsets with dead
 trailing query blocks and prefill top-K scales; the staged decode's
-scoring and paged-attention kernels on the same axes.  Queries are scaled
+scoring and paged-attention kernels on the same axes, and the
+paged-attention kernel with its split count forced (1, 7, 8, one slot
+per split), with a head whose slots are all invalid, and with pages of 8
+and 32 tokens.  Queries are scaled
 so that attention logits have standard deviation 1.5.  Selection (decode
 page tables, prefill block sets) is exact up to the near-tie rule of
 :mod:`repro_torch.kernels.parity`; staged scores within its
@@ -26,7 +29,8 @@ plain version, mean / arkvale within ``POOL_RTOL``), and through the
 ``"cuda"`` backend's ``build_store`` (one launch per distinct block size,
 store bytes equal to the ``"reference"`` backend's); the threshold kernel
 over row lengths with ties and +-inf (bitwise); the dense flash kernel
-causal and not, head_dim 64/128, GQA groups 1 to 8.
+causal and not, head_dim 64/128, GQA groups 1 to 8, sequence lengths that
+are not a multiple of its 128-row query tile.
 """
 import pytest
 import torch
@@ -160,6 +164,55 @@ def _staged(dev, blocks, quant, seq, sink, local, D=128, g=3, seed=0):
     assert paged_attention.launches == launches + 1
 
 
+def _paged_case(dev, seq, D=128, g=3, seed=0):
+    """A page table selected from random block scores (sink 1, local 4)."""
+    blocks = LAYOUTS["nonuniform"]
+    sparse, la, gen, k, v = _inputs(dev, blocks, len(seq), D, seed)
+    q = torch.randn((len(seq), len(blocks) * g, D), generator=gen, device=dev)
+    q = (q * parity.QSCALE).to(torch.bfloat16)
+    scores = torch.randn((len(seq), len(blocks), la.max_blocks), generator=gen,
+                         device=dev)
+    sl = torch.tensor(seq, dtype=torch.int32, device=dev)
+    tbl, vld = select_page_table(scores, la, sl, 1, 4)
+    return q, k, v, tbl, vld, sl
+
+
+@pytest.mark.parametrize("dead", [False, True], ids=["live", "dead-head"])
+@pytest.mark.parametrize("n_split", [1, 7, 8, BUDGET // PS])
+def test_paged_attention_kernel_forced_splits(cuda, n_split, dead):
+    """Forced split counts: one run, 7 runs (the last one short), 8 runs,
+    one slot per run (more runs than the 7 live slots of the short
+    sequence); a head whose slots are all invalid gives 0."""
+    q, k, v, tbl, vld, sl = _paged_case(cuda, (S - 3, 100))
+    if dead:
+        vld[0, 1] = False
+    launches = paged_attention.launches
+    parity.compare_paged_attention(q, k, v, tbl, vld, PS, sl, n_split=n_split)
+    assert paged_attention.launches == launches + 1
+
+
+@pytest.mark.parametrize("ps", [8, 32])
+def test_paged_attention_kernel_page_sizes(cuda, ps):
+    """Pages of 8 tokens (half of the kernel's 16-token unit) and of 32
+    (two units), random distinct pages in any order, random invalid slots,
+    a sequence that ends inside a page; the planned and a forced split."""
+    B, n_kv, g, D, n_pages, P = 2, 4, 3, 128, 64, 24
+    gen = torch.Generator(device=cuda).manual_seed(ps)
+    kp, vp = (torch.randn((B, n_kv, n_pages, ps, D), generator=gen, device=cuda)
+              .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((B, n_kv * g, D), generator=gen, device=cuda)
+    q = (q * parity.QSCALE).to(torch.bfloat16)
+    tbl = torch.stack([torch.randperm(n_pages, generator=gen, device=cuda)[:P]
+                       for _ in range(B * n_kv)]).reshape(B, n_kv, P).to(torch.int32)
+    vld = torch.rand((B, n_kv, P), generator=gen, device=cuda) > 0.2
+    sl = torch.tensor([n_pages * ps - 3, n_pages * ps // 3 + 1], dtype=torch.int32,
+                      device=cuda)
+    for n_split in (None, 5):
+        launches = paged_attention.launches
+        parity.compare_paged_attention(q, kp, vp, tbl, vld, ps, sl, n_split=n_split)
+        assert paged_attention.launches == launches + 1
+
+
 @pytest.mark.parametrize("quant", QUANTS)
 @pytest.mark.parametrize("blocks", list(LAYOUTS.values()), ids=list(LAYOUTS))
 @pytest.mark.parametrize("sink,local", [(0, 0), (1, 4)])
@@ -230,6 +283,25 @@ def test_topk_threshold_kernel_matches_plain(cuda, M, ties):
 def test_flash_attention_kernel_matches_plain(cuda, causal, hq, hkv, s, d):
     gen = torch.Generator(device=cuda).manual_seed(s + d)
     q, k, v = (torch.randn((2, h, s, d), generator=gen, device=cuda) for h in (hq, hkv, hkv))
+    q = (q * parity.QSCALE).to(torch.bfloat16)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    launches = flash_attention.launches
+    parity.compare_flash_attention(q, k, v, causal)
+    assert flash_attention.launches == launches + 1
+
+
+@pytest.mark.parametrize("causal,hq,hkv,s,d", [
+    (True, 6, 2, 4160, 128), (False, 6, 2, 4160, 128),
+    (False, 16, 2, 1024, 128), (False, 8, 1, 2048, 64),
+    (True, 2, 1, 64, 128), (False, 3, 3, 192, 64),
+], ids=["causal-4160", "full-4160", "full-g8", "full-g8-d64", "causal-64", "full-192"])
+def test_flash_attention_kernel_ragged_query_tile_and_wide_groups(cuda, causal, hq,
+                                                                  hkv, s, d):
+    """S 4160, 64 and 192 are not multiples of the 128-row query tile (the
+    last tile masks half its rows; at S 64 there is one key tile); GQA
+    groups of 8, not causal."""
+    gen = torch.Generator(device=cuda).manual_seed(s + hq)
+    q, k, v = (torch.randn((1, h, s, d), generator=gen, device=cuda) for h in (hq, hkv, hkv))
     q = (q * parity.QSCALE).to(torch.bfloat16)
     k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
     launches = flash_attention.launches
