@@ -16,7 +16,7 @@ Phases (each failure is fatal, exit code != 0):
    stores) within 1e-5 of the head's largest, the staged page sets equal
    to the fused kernel's, every output element within one bf16 rounding
    step and every output row within 1e-2 relative L2; and show that a page
-   left out per head, or a score moved by 10x its tolerance, breaks them;
+   left out per head, or a score moved by twice its tolerance, breaks them;
 3. serve full-width llama3.2-3b (28 layers, bf16, random weights from a
    seeded generator) through ``Engine``: 6 requests of 4-12k prompt tokens,
    two sharing a 2048-token prefix, 32 new tokens each, with the fused
@@ -34,18 +34,27 @@ Phases (each failure is fatal, exit code != 0):
    Then the calibrated assignment of phase 2b is installed and requests 0
    and 3 are served with the fused kernel, then through the plain versions
    fed the same tokens (logit cosine at least 0.9995);
-4. time each kernel (CUDA events), its plain version and, where one
-   PyTorch call computes the same function, that call, at the serving
-   shapes, and compute its bound from this run's inputs; time the dense
-   flash kernel over a 16384-token prompt against the 32 sparse-prefill
-   chunks of 512 tokens of the same prompt (the dense baseline).
+4. (run between phases 2b and 3, so that its profiler sessions come
+   before the long ones of ``--profile``) time each kernel, its plain
+   version and, where one PyTorch call computes the same function, that
+   call, at the serving shapes, and compute its bound from this run's
+   inputs.  ``fused_decode``,
+   ``centroid_scores_*``, ``paged_attention``, ``pool_rank_keys`` and
+   ``topk_threshold`` and their library calls are timed by the device time
+   of their kernels (``torch.profiler``; all but ``paged_attention`` in
+   three rounds, in turns with their library calls), since back-to-back
+   calls of a wrapper below about 0.05 ms time its host work under CUDA
+   events; the rest by CUDA events.  Then time the dense flash kernel over
+   a 16384-token prompt against the 32 sparse-prefill chunks of 512 tokens
+   of the same prompt (the dense baseline).
 
 Phase 2 also holds the three kernels off the serving path against their
 plain versions: ``pool_rank_keys`` on llama3.2-3b K (bf16, B 4) and on f32
 calibration keys for every method and block size (quest bitwise, mean /
 arkvale within 1e-6 of the row's largest magnitude; the quest INT4 store
 bytes of the ``"cuda"`` and ``"reference"`` backends identical; a moved
-token shows in its block only), ``topk_threshold`` on the padded decode
+token shows in its block only; one pooled channel moved past the
+tolerance fails the comparison), ``topk_threshold`` on the padded decode
 scores and a grid of ties and +-inf (bitwise; its set equal to
 ``rank_blocks``' selection), ``flash_attention`` at B 1, 24/8 heads,
 S 4096, causal and not.  Phase 2b calibrates llama3.2-3b at full width
@@ -150,6 +159,21 @@ def device_ms(torch, fn, iters: int) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(r[0] for r in device_time_rows(torch, prof)) / iters
+
+
+def device_rounds(torch, fns: dict, iters: int, rounds: int = 3) -> dict:
+    """Device time per call (``device_ms``) of each function of ``fns``,
+    timed in turns over ``rounds`` rounds -> name -> (median, [each
+    round])."""
+    got = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            got[name].append(device_ms(torch, fn, iters))
+    return {name: (sorted(v)[len(v) // 2], v) for name, v in got.items()}
+
+
+def fmt_rounds(v) -> str:
+    return "/".join(f"{x:.4f}" for x in v)
 
 
 def bound(bytes_, f32_ops, bf16_ops):
@@ -270,14 +294,14 @@ def check_centroid_scores(torch, dec, quant):
         f"to the fused kernel's: {same}")
     if not same:
         fail(f"staged page sets ({quant}) differ from the fused kernel's")
-    # power: one score moved by 10x the tolerance must fail the comparison
+    # power: one score moved by twice the tolerance must fail the comparison
     bad = res["kernel"].clone()
     top = float(res["plain"][0, 0, : la.host.n_blocks[0]].abs().max())
-    bad[0, 0, 1] += 10 * parity.SCORE_RTOL * top
+    bad[0, 0, 1] = res["plain"][0, 0, 1] + 2 * parity.SCORE_RTOL * top
     try:
         parity.check_scores(bad, res["plain"], la, "power check")
     except AssertionError:
-        log(f"centroid_scores check power ({quant}): one score moved by 10x the "
+        log(f"centroid_scores check power ({quant}): one score moved by twice the "
             "tolerance fails the comparison")
     else:
         fail("the centroid_scores comparison cannot see a moved score")
@@ -357,6 +381,22 @@ def check_pool_rank_keys(torch, dev, dec):
                  f"{changed.nonzero().tolist()}, not only its block's")
     log("pool_rank_keys check power: one token's key moved changes its block's "
         "rank key and no other, every method")
+    # power: one pooled channel moved just past the tolerance (one ulp for
+    # quest, twice POOL_RTOL of its row's largest magnitude for mean and
+    # arkvale) must fail the comparison
+    for method in METHODS:
+        want = block_centroid.pool_rank_keys_plain(k_cal, 16, method)
+        bad = block_centroid.pool_rank_keys(k_cal, 16, method)
+        x = want[2, 0, 7, 5]
+        bad[2, 0, 7, 5] = (torch.nextafter(x, x + 1) if method == "quest" else
+                           x + 2 * parity.POOL_RTOL * want[2, 0, 7].abs().max())
+        try:
+            parity.check_pool(bad, want, method, "power check")
+        except AssertionError:
+            continue
+        fail(f"the pool_rank_keys comparison ({method}) cannot see one moved channel")
+    log("pool_rank_keys check power: one pooled channel moved past the tolerance "
+        "(one ulp for quest) fails the comparison, every method")
     stores = {be: get_backend(be).build_store(k_serve, la.host, "quest", "int4_asym")
               for be in ("cuda", "reference")}
     a, b = stores["cuda"], stores["reference"]
@@ -527,7 +567,9 @@ def time_fused_decode(torch, dec):
     from repro_torch.kernels import ops
 
     q, rq, k, v, store, la, sink, local, seq_len = dec["args"]
-    ms = cuda_time_ms(torch, lambda: ops.fused_decode(*dec["args"]), 5, 50)
+    kernel = lambda: ops.fused_decode(*dec["args"])
+    ms, rounds = device_rounds(torch, {"kernel": kernel}, 20)["kernel"]
+    event_ms = cuda_time_ms(torch, kernel, 5, 50)
     plain_ms = cuda_time_ms(
         torch, lambda: ops.fused_decode_reference(*dec["args"]), 1, 3)
     lay = la.host
@@ -548,6 +590,8 @@ def time_fused_decode(torch, dec):
     f32_ops = 2 * n_rows * G * rq.shape[-1]
     bf16_ops = 4 * tokens * G * D
     b_ms, by = bound(bytes_, f32_ops, bf16_ops)
+    log(f"fused_decode (B {q.shape[0]}): device {ms:.4f} ms/launch (rounds "
+        f"{fmt_rounds(rounds)}; CUDA events {event_ms:.4f}), bound {b_ms:.4f} ms ({by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
 
 
@@ -603,7 +647,10 @@ def time_centroid_scores(torch, dec, scored):
     """One B = 4 scoring launch over the whole store (every row is scored).
     Library yardstick for the f32 store: one ``torch.matmul`` of the rows by
     all n_q rank queries, every head's queries against every row (a superset
-    of the work); none dequantizes split-half INT4."""
+    of the work); none dequantizes split-half INT4.  The kernel and the
+    yardstick are timed by device time (``device_rounds``), in turns; CUDA
+    events around back-to-back calls, which time the wrapper's host work at
+    this size, are logged beside them."""
     from repro_torch.kernels import centroid_score as cs
 
     q, rq, k, v, _, la, sink, local, seq_len = dec["args"]
@@ -613,22 +660,30 @@ def time_centroid_scores(torch, dec, scored):
     if st.bits:
         args = (rq, st.codes, st.scale, st.zero, la.tile_head, la.tile_rows)
         kw = dict(bits=st.bits, symmetric=st.symmetric)
-        fn = lambda: cs.centroid_scores_quantized(*args, **kw)
-        library_ms = None
+        fns = {"kernel": lambda: cs.centroid_scores_quantized(*args, **kw)}
     else:
         args = (rq, st.codes, None, None, la.tile_head, la.tile_rows)
         kw = dict(bits=0, symmetric=False, n_kv=N_KV)
-        fn = lambda: cs.centroid_scores_f32(rq, st.codes, N_KV, la.tile_head,
-                                            la.tile_rows)
         rq_t = rq.transpose(1, 2).contiguous()
-        library_ms = cuda_time_ms(torch, lambda: torch.matmul(st.codes, rq_t), 5, 50)
-    ms = cuda_time_ms(torch, fn, 5, 50)
+        fns = {"kernel": lambda: cs.centroid_scores_f32(rq, st.codes, N_KV, la.tile_head,
+                                                        la.tile_rows),
+               "library": lambda: torch.matmul(st.codes, rq_t)}
+    dev_t = device_rounds(torch, fns, 50)
+    ms, rounds = dev_t["kernel"]
+    library_ms = dev_t["library"][0] if "library" in dev_t else None
+    event_ms = cuda_time_ms(torch, fns["kernel"], 5, 50)
     plain_ms = cuda_time_ms(torch, lambda: cs.centroid_scores_plain(*args, **kw), 1, 5)
     bytes_ = (rq.numel() * 4 + st.codes.numel() * st.codes.element_size()
               + (2 * st.scale.numel() * 4 if st.bits else 0)
               + la.tile_head.numel() * 4 + B * rows * 4)
     f32_ops = 2 * B * rows * G * Dp
     b_ms, by = bound(bytes_, f32_ops, 0)
+    lib = ("none" if library_ms is None else f"device {library_ms:.4f} "
+           f"(rounds {fmt_rounds(dev_t['library'][1])})")
+    log(f"centroid_scores ({'INT' + str(st.bits) if st.bits else 'f32'} store, B {B}, "
+        f"{rows} rows x Dp {Dp}): device {ms:.4f} ms/launch (rounds "
+        f"{fmt_rounds(rounds)}; CUDA events {event_ms:.4f}), torch.matmul {lib}, "
+        f"bound {b_ms:.4f} ms ({by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms}
 
@@ -681,43 +736,58 @@ def time_paged_attention(torch, dec, att):
 def time_pool_rank_keys(torch, pool):
     """One calibration launch (8 kv heads as sequences x 16384 tokens x 128
     f32, quest, block size 16: the most rank keys), and the bf16 serving
-    cache (B 4).  Library yardstick: ``torch.aminmax`` over the block axis,
-    the same max and min in one call, not concatenated or padded."""
+    cache (B 4), whose numbers go under ``serving_*`` keys.  Library
+    yardstick: ``torch.aminmax`` over the block axis, the same max and min
+    in one call, not concatenated or padded.  Kernel and yardstick by device
+    time, in turns (``device_rounds``); CUDA events logged beside them."""
     from repro_torch.kernels import block_centroid as bc
 
     out = {}
     for what, keys in (("calibration", pool["k_cal"]), ("serving", pool["k_serve"])):
-        fn = lambda: bc.pool_rank_keys(keys, 16, "quest")
-        ms = cuda_time_ms(torch, fn, 5, 50)
-        plain_ms = cuda_time_ms(torch, lambda: bc.pool_rank_keys_plain(keys, 16, "quest"), 1, 5)
         blocks = keys.reshape(*keys.shape[:2], keys.shape[2] // 16, 16, keys.shape[3])
-        library_ms = cuda_time_ms(torch, lambda: torch.aminmax(blocks, dim=-2), 5, 50)
+        fns = {"kernel": lambda: bc.pool_rank_keys(keys, 16, "quest"),
+               "library": lambda: torch.aminmax(blocks, dim=-2)}
+        dev_t = device_rounds(torch, fns, 50)
+        ms, library_ms = dev_t["kernel"][0], dev_t["library"][0]
+        event_ms = cuda_time_ms(torch, fns["kernel"], 5, 50)
+        plain_ms = cuda_time_ms(torch, lambda: bc.pool_rank_keys_plain(keys, 16, "quest"), 1, 5)
         out_bytes = keys.numel() // 16 * 2 * 4
         b_ms, by = bound(keys.numel() * keys.element_size() + out_bytes,
                          2 * keys.numel(), 0)
         out[what] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                      "library_ms": library_ms}
         log(f"pool_rank_keys ({what}, {tuple(keys.shape)} {str(keys.dtype)[6:]}, quest, "
-            f"block 16): {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, torch.aminmax "
-            f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
-    return out["calibration"]
+            f"block 16): device {ms:.4f} ms/launch (rounds "
+            f"{fmt_rounds(dev_t['kernel'][1])}; CUDA events {event_ms:.4f}), plain "
+            f"{plain_ms:.3f} ms, torch.aminmax device {library_ms:.4f} (rounds "
+            f"{fmt_rounds(dev_t['library'][1])}), bound {b_ms:.4f} ms ({by})")
+    return {**out["calibration"],
+            **{f"serving_{k}": v for k, v in out["serving"].items()}}
 
 
 def time_topk_threshold(torch, topk):
     """One launch on the masked decode scores ``[4, 8, 1024]``, K_h from the
     layout.  Library yardstick: ``torch.topk`` of the largest K_h (values
-    and indices, in no promised tie order)."""
+    and indices, in no promised tie order).  Both by device time, in
+    turns."""
     from repro_torch.kernels import topk_threshold as tk
 
     s, k = topk["scores"], topk["k"]
-    ms = cuda_time_ms(torch, lambda: tk.topk_threshold(s, k), 5, 100)
-    plain_ms = cuda_time_ms(torch, lambda: tk.topk_threshold_plain(s, k), 2, 20)
     kmax = int(k.max())
-    library_ms = cuda_time_ms(torch, lambda: torch.topk(s, kmax, dim=-1), 5, 100)
+    fns = {"kernel": lambda: tk.topk_threshold(s, k),
+           "library": lambda: torch.topk(s, kmax, dim=-1)}
+    dev_t = device_rounds(torch, fns, 100)
+    ms, library_ms = dev_t["kernel"][0], dev_t["library"][0]
+    event_ms = cuda_time_ms(torch, fns["kernel"], 5, 100)
+    plain_ms = cuda_time_ms(torch, lambda: tk.topk_threshold_plain(s, k), 2, 20)
     B, H, M = s.shape
     # 33 passes of a compare and a count over each score (integer work,
     # counted at the f32 CUDA-core rate)
     b_ms, by = bound(s.numel() * 4 + k.numel() * 4 + B * H * 8, 2 * 33 * s.numel(), 0)
+    log(f"topk_threshold ({tuple(s.shape)}): device {ms:.4f} ms/launch (rounds "
+        f"{fmt_rounds(dev_t['kernel'][1])}; CUDA events {event_ms:.4f}), torch.topk "
+        f"device {library_ms:.4f} (rounds {fmt_rounds(dev_t['library'][1])}), bound "
+        f"{b_ms:.5f} ms ({by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms}
 
@@ -1254,10 +1324,8 @@ def main() -> int:
     cal = calibrate_phase(torch, dev)
     log(f"phase 2b done at {time.perf_counter() - T_START:.1f}s")
 
-    paths = serve(torch, dev, cal["cfg"], profile=args.profile)
-    log(f"phase 3 done at {time.perf_counter() - T_START:.1f}s")
-
-    fused, staged = paths["fused"], paths["staged"]
+    # phase 4 before phase 3: under --profile, a device-time session that
+    # follows the profiled serving runs has recorded no kernel at all
     t_dec = time_fused_decode(torch, dec)
     t_pre = time_sparse_prefill(torch, dev)
     t_csq = time_centroid_scores(torch, dec, scored["int4_asym"])
@@ -1267,6 +1335,11 @@ def main() -> int:
     t_topk = time_topk_threshold(torch, topk)
     t_flash = time_flash_attention(torch, dev)
     sparse_prompt_ms = t_flash.pop("sparse_ms")
+    log(f"phase 4 done at {time.perf_counter() - T_START:.1f}s")
+
+    paths = serve(torch, dev, cal["cfg"], profile=args.profile)
+    log(f"phase 3 done at {time.perf_counter() - T_START:.1f}s")
+    fused, staged = paths["fused"], paths["staged"]
     kernels_line = [
         {"name": "fused_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_decode.cu",

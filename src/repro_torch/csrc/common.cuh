@@ -1,8 +1,8 @@
 // Shared device helpers of the AB-Sparse Hopper kernels: the sortable-u32
-// encoding of f32 scores, the INT4/INT8 store dequant, the one-warp row
-// scoring shared by the fused and the staged decode, block reductions, the
-// exact top-k threshold search (lax.top_k's lowest-index tie order) and
-// 16-byte cp.async copies into shared memory.
+// encoding of f32 scores, the INT4/INT8 store dequant, the row scoring
+// (eight lanes per row) shared by the fused and the staged decode, block
+// reductions, the exact top-k threshold search (lax.top_k's lowest-index
+// tie order) and 16-byte cp.async copies into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,37 +72,138 @@ __device__ __forceinline__ int warp_sum_int(int v) {
   return v;
 }
 
-// Block score of one packed store row against its head's GQA group of rank
-// queries, computed by one warp: lane l takes channels l, l + 32, ...
-// (dequant, then one fused multiply-add per group row), a butterfly
-// warp_sum per group row, then the max over the group.  Every lane returns
-// the score.  The summation order does not depend on the row's position,
+// Block scores of packed store rows against their head's GQA group of rank
+// queries, max over the group, four rows per warp: lanes 8i .. 8i + 7 (a
+// row group, ROW_LANES lanes) score the row `row` each of them passes.
+//
+// The row is read as 16-byte chunks (4 f32 channels, 16 INT8 channels, or
+// 16 INT4 bytes = channels j .. j + 15 in the low nibbles and j + Dp/2 ..
+// in the high ones); lane s of the group takes chunks s, s + 8, s + 16, ...
+// and issues up to ROW_CPL of its loads before any arithmetic.  It walks
+// each chunk in runs of 4 channels ("quads"): an f32 chunk is one quad; an
+// INT8 chunk is quads m = 0..3 at channel 16 k + 4 r, an INT4 chunk the
+// same with the high-nibble quad at Dp/2 + 16 k + 4 r after each low one,
+// where r = (m + s / 2) % 4 rotates the quads so that the group's eight
+// float4 reads of the rank queries fall in distinct shared-memory banks.
+// Each channel is dequantized (multiply and add rounded separately, as the
+// plain version computes them), then one fused multiply-add per group row
+// into that lane's sum; the group then adds its lanes with a 3-step
+// butterfly (xor 4, 2, 1) and takes the max over the group rows.  Every
+// lane of the group returns the row's score.  The order depends only on a
+// lane's place in its group and the channel, never on the row's position,
 // so identical rows score identically.  The staged scoring kernel and the
 // fused decode kernel both score through this one function, so their
-// scores are bitwise equal.  rq: [g, Dp] (row stride Dp); scale / zero:
-// the head's [Dp] affine parameters (not read for an f32 store, bits 0).
+// scores are bitwise equal.  All 32 lanes of the warp must call it (a
+// group without a row of its own passes any valid row and ignores the
+// result).  rq: [g, Dp] in shared memory (16-byte aligned, row stride Dp);
+// row, scale and zero 16-byte aligned (scale / zero: the head's [Dp]
+// affine parameters, not read for an f32 store, bits 0); Dp % 32 == 0.
+constexpr int ROW_LANES = 8;                    // lanes per row
+constexpr int ROWS_PER_WARP = 32 / ROW_LANES;   // rows a warp scores at once
+constexpr int ROW_CPL = 8;                      // chunks a lane loads at once
+
+// One quad of channels c .. c + 3 (values x) into the group rows' sums.
+__device__ __forceinline__ void fma_quad(const float (&x)[4], const float* rq,
+                                         int c, int g, int Dp,
+                                         float (&acc)[GMAX]) {
+#pragma unroll
+  for (int gi = 0; gi < GMAX; ++gi) {
+    if (gi < g) {
+      const float4 r = *reinterpret_cast<const float4*>(rq + gi * Dp + c);
+      acc[gi] = fmaf(x[0], r.x, acc[gi]);
+      acc[gi] = fmaf(x[1], r.y, acc[gi]);
+      acc[gi] = fmaf(x[2], r.z, acc[gi]);
+      acc[gi] = fmaf(x[3], r.w, acc[gi]);
+    }
+  }
+}
+
+// Codes q[0..3] of channels c .. c + 3, dequantized as dequant() does.
+__device__ __forceinline__ void dequant_quad(float (&x)[4], const float* scale,
+                                             const float* zero, int c, int bits,
+                                             bool sym) {
+  const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + c));
+  const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
+  if (sym) {
+    const float qhi = (float)((1 << (bits - 1)) - 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = __fmul_rn(__fsub_rn(x[j], qhi), sc[j]);
+  } else {
+    const float4 z4 = __ldg(reinterpret_cast<const float4*>(zero + c));
+    const float ze[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = __fadd_rn(__fmul_rn(x[j], sc[j]), ze[j]);
+  }
+}
+
+// Chunk k of a row (its 16 bytes in v) into the sums of lane s.
+__device__ __forceinline__ void fma_chunk(const uint4& v, int k, int s,
+                                          const float* rq, int g, int Dp,
+                                          int bits, bool sym, const float* scale,
+                                          const float* zero, float (&acc)[GMAX]) {
+  if (bits == 0) {
+    const float x[4] = {__uint_as_float(v.x), __uint_as_float(v.y),
+                        __uint_as_float(v.z), __uint_as_float(v.w)};
+    fma_quad(x, rq, 4 * k, g, Dp, acc);
+    return;
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int r = (m + (s >> 1)) & 3;
+    const uint32_t w = r == 0 ? v.x : r == 1 ? v.y : r == 2 ? v.z : v.w;
+    const int c = 16 * k + 4 * r;
+    float x[4];
+    if (bits == 8) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = (float)((w >> (8 * j)) & 0xFFu);
+      dequant_quad(x, scale, zero, c, bits, sym);
+      fma_quad(x, rq, c, g, Dp, acc);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = (float)((w >> (8 * j)) & 0xFu);
+      dequant_quad(x, scale, zero, c, bits, sym);
+      fma_quad(x, rq, c, g, Dp, acc);
+      const int ch = (Dp >> 1) + c;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = (float)((w >> (8 * j + 4)) & 0xFu);
+      dequant_quad(x, scale, zero, ch, bits, sym);
+      fma_quad(x, rq, ch, g, Dp, acc);
+    }
+  }
+}
+
 __device__ __forceinline__ float score_row(const uint8_t* row, const float* rq,
                                            int g, int Dp, int bits, bool sym,
                                            const float* scale,
                                            const float* zero) {
-  const int lane = threadIdx.x & 31;
+  const int s = threadIdx.x & (ROW_LANES - 1);
+  const int n_chunks = (bits == 0 ? Dp * 4 : bits == 4 ? Dp / 2 : Dp) >> 4;
+  const uint4* src = reinterpret_cast<const uint4*>(row);
   float acc[GMAX];
 #pragma unroll
   for (int gi = 0; gi < GMAX; ++gi) acc[gi] = 0.f;
-  for (int c = lane; c < Dp; c += 32) {
-    const float x = bits == 0
-        ? reinterpret_cast<const float*>(row)[c]
-        : dequant(row, c, Dp, bits, sym, scale[c], zero[c]);
+  for (int k0 = s; k0 < n_chunks; k0 += ROW_LANES * ROW_CPL) {
+    uint4 v[ROW_CPL];
 #pragma unroll
-    for (int gi = 0; gi < GMAX; ++gi)
-      if (gi < g) acc[gi] = fmaf(x, rq[gi * Dp + c], acc[gi]);
+    for (int i = 0; i < ROW_CPL; ++i) {
+      const int k = k0 + i * ROW_LANES;
+      if (k < n_chunks) v[i] = __ldg(src + k);
+    }
+#pragma unroll
+    for (int i = 0; i < ROW_CPL; ++i) {
+      const int k = k0 + i * ROW_LANES;
+      if (k < n_chunks) fma_chunk(v[i], k, s, rq, g, Dp, bits, sym, scale, zero, acc);
+    }
   }
   float best = ABS_NEG_INF;
 #pragma unroll
   for (int gi = 0; gi < GMAX; ++gi) {
     if (gi < g) {
-      const float v = warp_sum(acc[gi]);
-      best = gi == 0 ? v : fmaxf(best, v);
+      float t = acc[gi];
+      t += __shfl_xor_sync(0xffffffffu, t, 4);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      best = gi == 0 ? t : fmaxf(best, t);
     }
   }
   return best;

@@ -5,12 +5,12 @@
 // pallas_call at line 333).  One thread block per (kv head, sequence):
 //
 //  1. scores the head's packed centroid segment (rows [row_off, row_off +
-//     n_blocks) of the flattened store), one warp per row through
-//     score_row (common.cuh), the device function the staged scoring
-//     kernel centroid_score.cu uses too: INT4/INT8 dequant in registers,
-//     dot with each GQA rank query, max over the group; the lane-partial +
-//     butterfly sum order is the same for every row, so identical rows
-//     score identically;
+//     n_blocks) of the flattened store), eight lanes per row (four rows per
+//     warp at once) through score_row (common.cuh), the device function
+//     the staged scoring kernel centroid_score.cu uses too: 16-byte loads,
+//     INT4/INT8 dequant in registers, dot with each GQA rank query, max
+//     over the group; the lane-partial + butterfly sum order is the same
+//     for every row, so identical rows score identically;
 //  2. masks blocks past seq_len to -1e30 and pins sink / local blocks to
 //     +1e30, then selects exactly K_h blocks by a 32-step binary search over
 //     the sortable-u32 encoding with the lowest index winning ties, and
@@ -54,10 +54,10 @@ __global__ void __launch_bounds__(NT) fused_decode_kernel(
   const int n_q = n_kv * g;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s = reinterpret_cast<float*>(smem_raw);          // [max_blocks]
+  float* rq_s = reinterpret_cast<float*>(smem_raw);       // [g, Dp], 16-B aligned
+  float* s = rq_s + g * Dp;                               // [max_blocks]
   int* slot_blk = reinterpret_cast<int*>(s + max_blocks); // [k_max]
-  float* rq_s = reinterpret_cast<float*>(slot_blk + k_max);  // [g, Dp]
-  float* lg = rq_s + g * Dp;                              // [g, wmax]
+  float* lg = reinterpret_cast<float*>(slot_blk + k_max); // [g, wmax]
   float* m_s = lg + g * wmax;                             // [g]
   float* l_s = m_s + GMAX;                                // [g]
   float* al_s = l_s + GMAX;                               // [g]
@@ -79,11 +79,12 @@ __global__ void __launch_bounds__(NT) fused_decode_kernel(
   const float* sc_h = scale + ((size_t)b * n_kv + h) * Dp;
   const float* ze_h = zero + ((size_t)b * n_kv + h) * Dp;
   const bool symm = sym != 0;
-  for (int j = wid; j < nblk; j += NWARPS) {
-    const uint8_t* row =
-        codes + ((size_t)b * total_rows + roff + j) * (size_t)row_bytes;
+  for (int j0 = wid * ROWS_PER_WARP; j0 < nblk; j0 += NWARPS * ROWS_PER_WARP) {
+    const int j = j0 + lane / ROW_LANES;  // this lane group's row
+    const uint8_t* row = codes + ((size_t)b * total_rows + roff + min(j, nblk - 1)) *
+                                     (size_t)row_bytes;
     const float best = score_row(row, rq_s, g, Dp, bits, symm, sc_h, ze_h);
-    if (lane == 0) {
+    if (lane % ROW_LANES == 0 && j < nblk) {
       const int st = j * bs;
       const bool ok = st < sl;
       float sc = ok ? best : ABS_NEG_INF;
@@ -259,7 +260,7 @@ extern "C" int fused_decode_launch(
     int total_rows, int row_bytes, int bits, int sym, int sink_pages,
     int local_pages, int max_blocks, int k_max, int p_sel, int wmax,
     float scale_qk, void* stream) {
-  if (g > GMAX || g < 1) return (int)cudaErrorInvalidValue;
+  if (g > GMAX || g < 1 || Dp % 32) return (int)cudaErrorInvalidValue;
   const size_t smem = fused_decode_smem_bytes(g, Dp, max_blocks, k_max, wmax);
   cudaStream_t st = (cudaStream_t)stream;
 #define ARGS                                                                  \

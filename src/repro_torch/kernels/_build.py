@@ -125,6 +125,17 @@ def check(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+def expect_rows(Dp: int, what: str, **tensors):
+    """Wrapper-side check for ``common.cuh::score_row``: a rank-key width
+    that is a multiple of 32 and store rows, scale and zero on 16-byte
+    boundaries (it reads them as 16-byte vectors)."""
+    if Dp % 32:
+        raise ValueError(f"{what}: rank-key width {Dp} is not a multiple of 32")
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+
+
 def expect(t, dtype, shape, device, name: str):
     """Wrapper-side argument check: device, dtype, shape, contiguity."""
     if t.device != device:

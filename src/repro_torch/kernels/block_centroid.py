@@ -7,6 +7,11 @@ CPU does it run :func:`pool_rank_keys_plain`, the plain PyTorch version
 (:func:`repro_torch.kernels.ref.pool_rank_keys_ref`).  The TPU kernel's
 ``chunk`` (tokens per sequential grid step) has no counterpart here.
 
+The kernel treats the ``B * Hg * S / block_size`` rank keys as one flat
+list; :func:`pool_plan` says how a launch cuts it (``D / 8`` threads per
+key, each owning 8 consecutive channels, ``256 * 8 / D`` keys per thread
+block).
+
 ``launches`` counts kernel launches and ``plain_calls`` calls of the plain
 version.
 """
@@ -23,13 +28,32 @@ launches = 0
 plain_calls = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 2 + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 2 + [_I] * 8 + [_P]
 _DTYPES = (torch.float32, torch.bfloat16)
+#: threads per thread block and channels per thread of ``pool_rank_keys.cu``
+NT, VEC = 256, 8
 
 
 def reset_counts():
     global launches, plain_calls
     launches = plain_calls = 0
+
+
+def pool_plan(n_rows: int, seq_len: int, head_dim: int, block_size: int) -> dict:
+    """How one launch covers ``n_rows`` (sequence, head) rows of
+    ``seq_len`` tokens: ``{"n_keys", "lanes" (threads per rank key),
+    "keys_per_cta", "grid" (thread blocks)}``.  Raises for a head_dim the
+    kernel does not take (8 channels per thread, ``D / 8`` a power of two
+    up to 32: D in 8, 16, ..., 256)."""
+    D = head_dim
+    lanes = D // VEC
+    if D % VEC or not 1 <= lanes <= 32 or lanes & (lanes - 1):
+        raise ValueError(f"pool_rank_keys kernel takes head_dim 8, 16, 32, 64, "
+                         f"128 or 256, got {D}")
+    n_keys = n_rows * (seq_len // block_size)
+    per_cta = NT // lanes
+    return {"n_keys": n_keys, "lanes": lanes, "keys_per_cta": per_cta,
+            "grid": -(-n_keys // per_cta)}
 
 
 def pool_rank_keys(keys: torch.Tensor, block_size: int, method: str) -> torch.Tensor:
@@ -47,16 +71,16 @@ def pool_rank_keys(keys: torch.Tensor, block_size: int, method: str) -> torch.Te
     global launches
     if keys.dtype not in _DTYPES:
         raise TypeError(f"pool_rank_keys kernel takes f32 or bf16 keys, got {keys.dtype}")
-    if not keys.is_contiguous():
-        raise ValueError("keys must be contiguous")
-    if not 1 <= D <= 256:
-        raise ValueError(f"pool_rank_keys kernel takes head_dim <= 256, got {D}")
+    if not keys.is_contiguous() or keys.data_ptr() % 16:
+        raise ValueError("keys must be contiguous and 16-byte aligned")
+    plan = pool_plan(B * Hg, S, D, block_size)
     Dp = padded_rank_key_width(D, method)
     out = torch.empty((B, Hg, S // block_size, Dp), dtype=torch.float32,
                       device=keys.device)
     fn = _launcher(_build.load("pool_rank_keys"))
     rc = fn(keys.data_ptr(), out.data_ptr(), B * Hg, S, D, block_size, Dp,
-            METHODS.index(method), int(keys.dtype == torch.bfloat16),
+            METHODS.index(method), plan["keys_per_cta"],
+            int(keys.dtype == torch.bfloat16),
             torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check(rc, "pool_rank_keys")
     launches += 1

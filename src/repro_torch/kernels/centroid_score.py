@@ -89,6 +89,7 @@ def _scores(name, rq, codes, scale, zero, tile_head, tile_rows, bits,
             f"{name} kernel takes a GQA group <= 8 and whole row tiles (got "
             f"n_q={n_q}, n_kv={n_kv}, rows={rows}, tile_rows={tile_rows})"
         )
+    _build.expect_rows(Dp, name, codes=codes, scale=scale, zero=zero)
     out = torch.empty((B, rows), dtype=torch.float32, device=dev)
     lib = _build.load("centroid_score")
     fn = _launcher(lib)

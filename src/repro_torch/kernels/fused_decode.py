@@ -88,6 +88,7 @@ def fused_decode(
         )
     if n_q % n_kv or ps != la.page_size or rows != la.total_rows:
         raise ValueError("fused_decode: inconsistent head / page / row shapes")
+    _build.expect_rows(Dp, "fused_decode", codes=codes, scale=scale, zero=zero)
     out = torch.empty_like(q)
     table = torch.empty((B, n_kv, la.selected_pages), dtype=torch.int32,
                         device=dev)

@@ -247,23 +247,30 @@ def compare_sparse_prefill(q, rq, k, v, score_store, la, sparse, n_valid,
             "near_ties": int(diff.sum()), "tie_cells": int(tie_cells.sum())}
 
 
+def check_pool(got, want, method, what="pool_rank_keys"):
+    """Compare kernel and plain rank keys -> (max abs error, max error
+    relative to its row's largest |plain|): quest bitwise, mean and
+    arkvale within ``POOL_RTOL``."""
+    assert got.shape == want.shape and got.dtype == want.dtype, (got.shape, want.shape)
+    d = (got - want).abs()
+    row = want.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    rel = float((d / row).max())
+    if method == "quest":
+        assert torch.equal(got, want), f"{what} ({method}): not bitwise equal"
+    else:
+        assert rel <= POOL_RTOL, (f"{what} ({method}): error {rel:.3e} of "
+                                  f"the row's largest magnitude exceeds {POOL_RTOL}")
+    return float(d.max()), rel
+
+
 def compare_pool_rank_keys(keys, block_size, method):
     """Pooling kernel against its plain version -> {"max_abs_err",
     "max_rel_err", "kernel", "plain"}."""
     got = block_centroid.pool_rank_keys(keys, block_size, method)
     want = block_centroid.pool_rank_keys_plain(keys, block_size, method)
     torch.cuda.synchronize()
-    assert got.shape == want.shape and got.dtype == want.dtype, (got.shape, want.shape)
-    d = (got - want).abs()
-    row = want.abs().amax(-1, keepdim=True).clamp(min=1e-30)
-    rel = float((d / row).max())
-    if method == "quest":
-        assert torch.equal(got, want), f"pool_rank_keys ({method}): not bitwise equal"
-    else:
-        assert rel <= POOL_RTOL, (f"pool_rank_keys ({method}): error {rel:.3e} of "
-                                  f"the row's largest magnitude exceeds {POOL_RTOL}")
-    return {"max_abs_err": float(d.max()), "max_rel_err": rel, "kernel": got,
-            "plain": want}
+    err, rel = check_pool(got, want, method)
+    return {"max_abs_err": err, "max_rel_err": rel, "kernel": got, "plain": want}
 
 
 def threshold_selection(scores, thr, count_gt, k_per_head):

@@ -23,9 +23,13 @@ page tables, prefill block sets) is exact up to the near-tie rule of
 exactly; bf16 outputs agree within one bf16 rounding step per element and
 a relative L2 error of 1e-2 per row.
 
-The pooling kernel runs over the three centroid methods, block sizes
-16/32/64, f32 and bf16 keys and head_dim 64/128 (quest bitwise equal to the
-plain version, mean / arkvale within ``POOL_RTOL``), and through the
+The scoring kernel also runs at GQA groups 1, 3 and 8 and rank-key
+widths 128 and 256 for every store, and on 48-row tiles.  The pooling
+kernel runs over the three centroid methods, block sizes 16/32/64 (and 8
+and 48, its runtime path), f32 and bf16 keys and head_dim 64/128, also
+with a number of rank keys that is not a multiple of a thread block's run
+(quest bitwise equal to the plain version, mean / arkvale within
+``POOL_RTOL``), and through the
 ``"cuda"`` backend's ``build_store`` (one launch per distinct block size,
 store bytes equal to the ``"reference"`` backend's); the threshold kernel
 over row lengths with ties and +-inf (bitwise); the dense flash kernel
@@ -243,6 +247,59 @@ def test_pool_rank_keys_kernel_matches_plain(cuda, method, bs, D, dtype):
     out = block_centroid.pool_rank_keys(moved, bs, method)
     changed = (out != res["kernel"]).any(-1)
     assert changed[1, 2, 5] and int(changed.sum()) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [16, 32, 64, 8, 48])
+@pytest.mark.parametrize("method", ["mean", "quest", "arkvale"])
+def test_pool_rank_keys_kernel_ragged_grid(cuda, method, bs, D, dtype):
+    """5 rows of S = 1344: the flat list of rank keys is not a multiple of
+    a thread block's run (``pool_plan``) for any block size; 8 and 48 take
+    the kernel's runtime block-size path.  The last key of the last row
+    is the one a moved token changes."""
+    s = 1344
+    gen = torch.Generator(device=cuda).manual_seed(3 * bs + D)
+    keys = torch.randn((1, 5, s, D), generator=gen, device=cuda).to(dtype)
+    plan = block_centroid.pool_plan(5, s, D, bs)
+    assert plan["n_keys"] % plan["keys_per_cta"]
+    launches = block_centroid.launches
+    res = parity.compare_pool_rank_keys(keys, bs, method)
+    assert block_centroid.launches == launches + 1
+    moved = keys.clone()
+    last = s // bs - 1
+    moved[0, 4, last * bs + bs - 1] -= 4.0
+    out = block_centroid.pool_rank_keys(moved, bs, method)
+    changed = (out != res["kernel"]).any(-1)
+    assert changed[0, 4, last] and int(changed.sum()) == 1
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("g", [1, 3, 8])
+@pytest.mark.parametrize("D", [64, 128], ids=["Dp128", "Dp256"])
+def test_centroid_scores_kernel_groups_and_widths(cuda, quant, g, D):
+    """GQA groups 1, 3 and 8 at rank-key widths 128 and 256, every store:
+    scores within ``SCORE_RTOL``, the staged page sets equal to the fused
+    kernel's (both score through ``common.cuh::score_row``)."""
+    _staged(cuda, LAYOUTS["nonuniform"], quant, (S - 5, 700), 1, 4, D=D, g=g,
+            seed=g + D)
+
+
+@pytest.mark.parametrize("quant", ["none", "int4_asym"])
+def test_centroid_scores_kernel_short_tiles(cuda, quant):
+    """Tiles of 48 rows: a thread block's run of 32 rows ends past its tile
+    in every second block of the grid."""
+    blocks = LAYOUTS["nonuniform"]
+    sparse = SparseConfig(token_budget=BUDGET, quant=quant)
+    la = as_arrays(layout_for(blocks, S, PS, BUDGET, tile_rows=48), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(48)
+    k = torch.randn((2, len(blocks), S // PS, PS, 128), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    q = torch.randn((2, len(blocks) * 3, 128), generator=gen, device=cuda)
+    rq = rank_query(q, sparse.centroid_method, 128)
+    store = build_store_codes(k, la, sparse)
+    sl = torch.tensor([S, 999], dtype=torch.int32, device=cuda)
+    parity.compare_centroid_scores(rq, store, la, sparse, sl)
 
 
 @pytest.mark.parametrize("quant", ["none", "int8_asym", "int4_asym"])
