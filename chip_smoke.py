@@ -16,7 +16,9 @@ Phases (each failure is fatal, exit code != 0):
    stores) within 1e-5 of the head's largest, the staged page sets equal
    to the fused kernel's, every output element within one bf16 rounding
    step and every output row within 1e-2 relative L2; and show that a page
-   left out per head, or a score moved by twice its tolerance, breaks them;
+   left out per head, or a score moved by twice its tolerance, breaks them.
+   The fused decode and the sparse prefill are also held against their
+   plain versions with their split counts forced (1 and 5 runs);
 3. serve full-width llama3.2-3b (28 layers, bf16, random weights from a
    seeded generator) through ``Engine``: 6 requests of 4-12k prompt tokens,
    two sharing a 2048-token prefix, 32 new tokens each, with the fused
@@ -38,15 +40,19 @@ Phases (each failure is fatal, exit code != 0):
    before the long ones of ``--profile``) time each kernel, its plain
    version and, where one PyTorch call computes the same function, that
    call, at the serving shapes, and compute its bound from this run's
-   inputs.  ``fused_decode``,
+   inputs.  ``fused_decode``, ``sparse_prefill`` (at chunk offsets 0,
+   8192 and 15872; the kernel line takes 8192),
    ``centroid_scores_*``, ``paged_attention``, ``pool_rank_keys`` and
    ``topk_threshold`` and their library calls are timed by the device time
    of their kernels (``torch.profiler``; all but ``paged_attention`` in
    three rounds, in turns with their library calls), since back-to-back
    calls of a wrapper below about 0.05 ms time its host work under CUDA
-   events; the rest by CUDA events.  Then time the dense flash kernel over
+   events (logged beside); ``fused_decode`` and ``sparse_prefill`` also
+   print their device time by kernel, and ``fused_decode`` its time
+   forced to one run of slots.  Then time the dense flash kernel over
    a 16384-token prompt against the 32 sparse-prefill chunks of 512 tokens
-   of the same prompt (the dense baseline).
+   of the same prompt (the dense baseline), by CUDA events and by device
+   time, with SDPA beside.
 
 Phase 2 also holds the three kernels off the serving path against their
 plain versions: ``pool_rank_keys`` on llama3.2-3b K (bf16, B 4) and on f32
@@ -110,6 +116,10 @@ STAGED_REQS = AGREE_REQS
 #: per layer, and the requests served with the calibrated assignment
 CAL_SEED, CAL_SAMPLES, CAL_REQS = 0, 4, (0, 3)
 CANDIDATES = (16, 32, 64)
+#: forced split counts at which the fused decode kernel is also checked
+FUSED_FORCED_SPLITS = (1, 5)
+#: ... and the sparse prefill kernel (key-tile runs per cell)
+PREFILL_FORCED_SPLITS = (1, 5)
 #: dense flash attention: sequence length of the check against the plain
 #: version (its [24, S, S] f32 logits fit in memory) and of the timing
 FLASH_CHECK_S, FLASH_TIME_S = 4096, CTX
@@ -159,6 +169,23 @@ def device_ms(torch, fn, iters: int) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(r[0] for r in device_time_rows(torch, prof)) / iters
+
+
+def kernel_breakdown(torch, fn, iters: int) -> str:
+    """Device ms per call of ``fn`` by kernel (``torch.profiler``), as text."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+        return name.split("(")[0].split("<")[0].split("::")[-1].strip() or name[:40]
+
+    return ", ".join(f"{short(name)} {ms / iters:.4f}"
+                     for ms, _, name in device_time_rows(torch, prof))
 
 
 def device_rounds(torch, fns: dict, iters: int, rounds: int = 3) -> dict:
@@ -236,6 +263,19 @@ def check_fused_decode(torch, dev):
     if not med > parity.REL_L2:
         fail("the fused_decode comparison cannot see a page left out")
     _, table, valid = res["kernel"]
+    # the kernel at forced split counts: one run (the block writes the
+    # output) and 5 (runs of unequal length), held against the plain
+    # version; their page tables must equal the planned launch's
+    for n_split in FUSED_FORCED_SPLITS:
+        r = parity.compare_fused_decode(q, rq, k, v, store, la, sparse, seq_len,
+                                        n_split=n_split)
+        same = torch.equal(r["kernel"][1], table) and torch.equal(r["kernel"][2], valid)
+        log(f"fused_decode check, n_split forced to {n_split}: valid exact, near-tie "
+            f"blocks {r['near_ties']}, max_abs_err {r['max_abs_err']:.3e}, max rel L2 "
+            f"{r['max_rel_l2']:.3e}, {r['tol_use']:.2f} of the elementwise limit; "
+            f"page table equal to the planned launch's: {same}")
+        if not same:
+            fail(f"fused_decode with {n_split} runs selects other pages")
     return {"err": res["max_abs_err"], "table": table, "valid": valid,
             "sparse": sparse,
             "args": (q, rq, k, v, store, la, sparse.sink_pages,
@@ -267,7 +307,16 @@ def check_sparse_prefill(torch, dev):
         f"max_abs_err {res['max_abs_err']:.3e}, max rel L2 "
         f"{res['max_rel_l2']:.3e} (limit {parity.REL_L2}), {res['tol_use']:.2f} "
         f"of the elementwise limit")
-    return {"err": res["max_abs_err"]}
+    err = res["max_abs_err"]
+    for n_split in PREFILL_FORCED_SPLITS:
+        r = parity.compare_sparse_prefill(q, rq, k, v, ss, la, sparse, n_valid, OFF,
+                                          n_split=n_split)
+        err = max(err, r["max_abs_err"])
+        log(f"sparse_prefill check, n_split forced to {n_split}: n_attended exact, "
+            f"{r['near_ties']} near-tie blocks, max_abs_err {r['max_abs_err']:.3e}, "
+            f"max rel L2 {r['max_rel_l2']:.3e}, {r['tol_use']:.2f} of the elementwise "
+            f"limit")
+    return {"err": err}
 
 
 def check_centroid_scores(torch, dec, quant):
@@ -565,10 +614,13 @@ def calibrate_phase(torch, dev):
 
 def time_fused_decode(torch, dec):
     from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
 
     q, rq, k, v, store, la, sink, local, seq_len = dec["args"]
     kernel = lambda: ops.fused_decode(*dec["args"])
-    ms, rounds = device_rounds(torch, {"kernel": kernel}, 20)["kernel"]
+    one_run = lambda: ops.fused_decode(*dec["args"], n_split=1)
+    dev_t = device_rounds(torch, {"kernel": kernel, "one_run": one_run}, 20)
+    ms, rounds = dev_t["kernel"]
     event_ms = cuda_time_ms(torch, kernel, 5, 50)
     plain_ms = cuda_time_ms(
         torch, lambda: ops.fused_decode_reference(*dec["args"]), 1, 3)
@@ -590,57 +642,112 @@ def time_fused_decode(torch, dec):
     f32_ops = 2 * n_rows * G * rq.shape[-1]
     bf16_ops = 4 * tokens * G * D
     b_ms, by = bound(bytes_, f32_ops, bf16_ops)
-    log(f"fused_decode (B {q.shape[0]}): device {ms:.4f} ms/launch (rounds "
-        f"{fmt_rounds(rounds)}; CUDA events {event_ms:.4f}), bound {b_ms:.4f} ms ({by})")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = pa.split_plan(q.shape[0], N_KV, tbl.shape[-1], n_sm)
+    log(f"fused_decode, device ms per call by kernel: {kernel_breakdown(torch, kernel, 20)}")
+    log(f"fused_decode (B {q.shape[0]}, {plan} runs x {q.shape[0] * N_KV} cells = "
+        f"{plan * q.shape[0] * N_KV} blocks): device {ms:.4f} ms/launch (rounds "
+        f"{fmt_rounds(rounds)}; CUDA events {event_ms:.4f}); forced to one run "
+        f"{dev_t['one_run'][0]:.4f} (rounds {fmt_rounds(dev_t['one_run'][1])}); "
+        f"bound {b_ms:.4f} ms ({by}), {b_ms / ms:.3f} of the bound")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
 
 
-def time_sparse_prefill(torch, dev):
-    """B=1, one prefill chunk at offset CTX/2: one slot's chunk as the engine
-    issues it."""
-    from repro_torch.backends.store import build_score_rows
-    from repro_torch.backends.base import CentroidStore
-    from repro_torch.core.centroids import rank_query
-    from repro_torch.core.quantization import store_bits
-    from repro_torch.kernels import ops, parity
+#: chunk offsets at which sparse_prefill is timed: the first chunk, the
+#: middle of the context (the kernel line's numbers) and the last chunk
+PREFILL_OFFSETS = (0, CTX // 2, CTX - CHUNK)
 
-    B, SQ, OFF = 1, CHUNK, CTX // 2
-    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=3)
-    q = torch.randn((B, N_KV * G, SQ, D), generator=gen, device=dev).to(torch.bfloat16)
-    n_valid = torch.tensor([OFF + SQ], dtype=torch.int32, device=dev)
-    codes, sc, ze = build_score_rows(k, la, sparse)
-    ss = CentroidStore(codes, sc, ze, store_bits(sparse.quant), False)
-    rq = rank_query(q, sparse.centroid_method, D)
-    kw = dict(sink_pages=sparse.sink_pages, local_pages=sparse.local_pages,
-              block_q=sparse.prefill_block_q, topk_scale=sparse.prefill_topk_scale,
-              n_valid=n_valid, chunk_offset=OFF)
-    ms = cuda_time_ms(torch, lambda: ops.sparse_prefill(q, rq, k, v, ss, la, **kw), 3, 20)
-    plain_ms = cuda_time_ms(
-        torch, lambda: ops.sparse_prefill_reference(q, rq, k, v, ss, la, **kw), 1, 2)
 
-    extra, _ = parity.prefill_selection(q, rq, k, v, ss, la, sparse, n_valid, OFF)
-    sel, cand, qpos_live = extra["selected"], extra["cand"], extra["live_rows"]
-    lay = la.host
-    bsz = torch.tensor(lay.block_sizes, device=dev)[None, :, None, None]
+def prefill_bound(torch, q, rq, k, v, ss, la, sparse, n_valid, off):
+    """Least time of one sparse_prefill call on these inputs: the bytes it
+    must move (queries, rank queries, the candidate score rows, the K/V of
+    the blocks any query block attends, the output) and its operations
+    (f32 scoring of live query rows x candidate blocks, bf16 QK^T and PV
+    over the causal (live row, selected key) pairs)."""
+    from repro_torch.kernels import parity
+
+    dev = q.device
+    extra, _ = parity.prefill_selection(q, rq, k, v, ss, la, sparse, n_valid, off)
+    sel, cand, live_rows = extra["selected"], extra["cand"], extra["live_rows"]
+    bsz = torch.tensor(la.host.block_sizes, device=dev)[None, :, None, None]
     M = sel.shape[-1]
     starts = torch.arange(M, device=dev)[None, None, None, :] * bsz
     nv = n_valid.long()[:, None, None, None]
     keys = torch.clamp(torch.minimum(bsz, nv - starts), min=0)
-    # K/V each needed once per (b, h): union of the blocks any query block attends
-    union = sel.any(dim=2)
-    kv_tokens = int((keys[:, :, 0] * union).sum())
-    cand_union = cand.any(dim=2)
-    n_cand_rows = int(cand_union.sum())
+    kv_tokens = int((keys[:, :, 0] * sel.any(dim=2)).sum())
+    n_cand_rows = int(cand.any(dim=2).sum())
     row_bytes = ss.codes.shape[-1] * ss.codes.element_size() + 8
     Dp = rq.shape[-1]
     bytes_ = (q.numel() * 2 + rq.numel() * 4 + n_cand_rows * row_bytes
               + 2 * kv_tokens * D * 2 + q.numel() * 2 + sel[..., 0].numel() * 4)
-    # scoring: live query rows x candidate blocks x Dp multiply-adds (f32)
-    f32_ops = 2 * Dp * float((cand.sum(-1) * qpos_live[:, None, :]).sum())
-    # attention: causal (live row, selected key) pairs x D, for QK^T and PV
+    f32_ops = 2 * Dp * float((cand.sum(-1) * live_rows[:, None, :]).sum())
     bf16_ops = 4 * D * float(extra["pairs"].sum())
-    b_ms, by = bound(bytes_, f32_ops, bf16_ops)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+    return bound(bytes_, f32_ops, bf16_ops)
+
+
+def time_sparse_prefill(torch, dev):
+    """B 1, one prefill chunk of CHUNK tokens as the engine issues it, at the
+    chunk offsets ``PREFILL_OFFSETS``: device time of the call's kernels
+    (``device_rounds``, three rounds) beside CUDA events around
+    back-to-back calls; the bound from each offset's inputs.  The kernel
+    line takes the middle offset's numbers."""
+    from repro_torch.backends.store import build_score_rows
+    from repro_torch.backends.base import CentroidStore
+    from repro_torch.core.centroids import rank_query
+    from repro_torch.core.quantization import store_bits
+    from repro_torch.kernels import ops, sparse_prefill as sp
+
+    B, SQ = 1, CHUNK
+    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=3)
+    q = torch.randn((B, N_KV * G, SQ, D), generator=gen, device=dev).to(torch.bfloat16)
+    codes, sc, ze = build_score_rows(k, la, sparse)
+    ss = CentroidStore(codes, sc, ze, store_bits(sparse.quant), False)
+    rq = rank_query(q, sparse.centroid_method, D)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    nQB = SQ // sparse.prefill_block_q
+    n_split = sp.prefill_split_plan(B * N_KV * nQB, G * sparse.prefill_block_q, n_sm)
+    rows = G * sparse.prefill_block_q
+    blocks = n_split * sp.attend_blocks(B * N_KV * nQB, rows)
+    res = {}
+    for off in PREFILL_OFFSETS:
+        n_valid = torch.tensor([off + SQ], dtype=torch.int32, device=dev)
+        kw = dict(sink_pages=sparse.sink_pages, local_pages=sparse.local_pages,
+                  block_q=sparse.prefill_block_q, topk_scale=sparse.prefill_topk_scale,
+                  n_valid=n_valid, chunk_offset=off)
+        # the kernel's wrapper on query blocks laid out beforehand, and the
+        # entry point that lays them out (two copies) and calls it
+        q6, rq6, k_sel, nv, qb0 = ops._prefill_query_blocks(
+            q, rq, la, sparse.prefill_block_q, sparse.prefill_topk_scale, n_valid, off)
+        kernel = lambda: sp.sparse_prefill(
+            q6, rq6, k, v, ss.codes, ss.scale, ss.zero, la, k_sel, nv, qb0,
+            bits=ss.bits, symmetric=ss.symmetric, block_q=sparse.prefill_block_q,
+            sink_pages=sparse.sink_pages, local_pages=sparse.local_pages)
+        call = lambda: ops.sparse_prefill(q, rq, k, v, ss, la, **kw)
+        dev_t = device_rounds(torch, {"kernel": kernel, "call": call}, 20)
+        ms, rounds = dev_t["kernel"]
+        event_ms = cuda_time_ms(torch, kernel, 3, 20)
+        b_ms, by = prefill_bound(torch, q, rq, k, v, ss, la, sparse, n_valid, off)
+        res[off] = {"ms": ms, "event_ms": event_ms, "bound_ms": b_ms, "bound_by": by}
+        log(f"sparse_prefill at offset {off}, device ms per call by kernel: "
+            f"{kernel_breakdown(torch, kernel, 20)}")
+        log(f"sparse_prefill (B 1, chunk {SQ} at offset {off}, {n_split} runs x "
+            f"{B * N_KV * nQB} cells = {blocks} attention blocks of "
+            f"{sp.attend_warpgroups(rows)} warpgroups): device {ms:.4f} "
+            f"ms/call (rounds {fmt_rounds(rounds)}; CUDA events {event_ms:.4f}), bound "
+            f"{b_ms:.4f} ms ({by}), {b_ms / ms:.3f} of the bound; "
+            f"ops.sparse_prefill with its layout copies {dev_t['call'][0]:.4f} "
+            f"(rounds {fmt_rounds(dev_t['call'][1])})")
+    mid = PREFILL_OFFSETS[1]
+    n_valid = torch.tensor([mid + SQ], dtype=torch.int32, device=dev)
+    kw = dict(sink_pages=sparse.sink_pages, local_pages=sparse.local_pages,
+              block_q=sparse.prefill_block_q, topk_scale=sparse.prefill_topk_scale,
+              n_valid=n_valid, chunk_offset=mid)
+    plain_ms = cuda_time_ms(
+        torch, lambda: ops.sparse_prefill_reference(q, rq, k, v, ss, la, **kw), 1, 2)
+    r = res[mid]
+    return {"ms": r["ms"], "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "event_ms": r["event_ms"],
+            "ms_by_offset": {str(o): round(x["ms"], 5) for o, x in res.items()}}
 
 
 def time_centroid_scores(torch, dec, scored):
@@ -835,10 +942,18 @@ def time_flash_attention(torch, dev):
             ops.sparse_prefill(qc, rqc, kp, vp, ss, la, n_valid=nv, chunk_offset=off, **kw)
 
     sparse_ms = cuda_time_ms(torch, sparse_prompt, 1, 1)
+    dev_t = device_rounds(torch, {"flash": lambda: fa.flash_attention(q, k, v, True),
+                                  "sdpa": library, "sparse": sparse_prompt}, 3)
+    d_flash, d_sdpa, d_sparse = (dev_t[n][0] for n in ("flash", "sdpa", "sparse"))
     log(f"dense baseline: flash_attention over the {S}-token prompt (causal, one "
         f"layer) {ms:.3f} ms against {sparse_ms:.3f} ms for its {len(chunks)} "
         f"sparse_prefill chunks of {CHUNK}: dense / sparse = {ms / sparse_ms:.3f}; "
-        f"SDPA {library_ms:.3f} ms")
+        f"SDPA {library_ms:.3f} ms (CUDA events)")
+    log(f"dense baseline by device time (three rounds): flash {d_flash:.4f} ms "
+        f"({fmt_rounds(dev_t['flash'][1])}), SDPA {d_sdpa:.4f} "
+        f"({fmt_rounds(dev_t['sdpa'][1])}), the {len(chunks)} sparse_prefill chunks "
+        f"{d_sparse:.4f} ({fmt_rounds(dev_t['sparse'][1])}): dense flash / sparse = "
+        f"{d_flash / d_sparse:.3f}, SDPA / sparse = {d_sdpa / d_sparse:.3f}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms, "sparse_ms": sparse_ms}
 

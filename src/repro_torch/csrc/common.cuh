@@ -1,8 +1,8 @@
 // Shared device helpers of the AB-Sparse Hopper kernels: the sortable-u32
 // encoding of f32 scores, the INT4/INT8 store dequant, the row scoring
 // (eight lanes per row) shared by the fused and the staged decode, block
-// reductions, the exact top-k threshold search (lax.top_k's lowest-index
-// tie order) and 16-byte cp.async copies into shared memory.
+// reductions, the exact top-k threshold (a radix select; lax.top_k's
+// lowest-index tie order) and 16-byte cp.async copies into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -243,24 +243,65 @@ __device__ __forceinline__ int block_excl_scan(bool f, int* red, int* total) {
   return off + in_warp;
 }
 
-// Exact k-th largest of s[0..n) as a sortable u32 (32-step binary search on
-// the count of entries >= candidate), plus the count strictly above it.
+// Exact k-th largest of s[0..n) as a sortable u32, plus the count strictly
+// above it: the largest t with at least k entries >= t (0 when k > n).
 // Selecting every entry above the threshold and the first (k - n_gt) ties
-// in index order reproduces lax.top_k's selected set.
+// in index order reproduces lax.top_k's selected set.  A radix select over
+// the 32 bits, 8 at a time: each of 4 passes counts, among the entries
+// whose higher bits equal the prefix found so far, how many fall in each of
+// 256 bins, and warp 0 finds the bin that holds the k-th (bin sums of eight
+// per lane, a suffix scan by shuffles, a ballot).  Must be reached by all
+// threads of the block; red: shared scratch of NWARPS ints.
 __device__ __forceinline__ uint32_t topk_threshold(const float* s, int n, int k,
                                                    int* red, int* n_gt) {
-  uint32_t t = 0;
-  for (int i = 0; i < 32; ++i) {
-    const uint32_t cand = t | (1u << (31 - i));
-    int cnt = 0;
-    for (int j = threadIdx.x; j < n; j += NT) cnt += to_sortable(s[j]) >= cand;
-    cnt = block_sum_int(cnt, red);
-    if (cnt >= k) t = cand;
+  __shared__ int hist[256];
+  __shared__ uint32_t prefix_s;
+  __shared__ int k_s;
+  const int tid = threadIdx.x, lane = tid & 31;
+  uint32_t prefix = 0, mask = 0;
+  int kk = k;
+  for (int shift = 24; shift >= 0 && k <= n; shift -= 8) {
+    for (int i = tid; i < 256; i += NT) hist[i] = 0;
+    __syncthreads();
+    for (int j = tid; j < n; j += NT) {
+      const uint32_t u = to_sortable(s[j]);
+      if ((u & mask) == prefix) atomicAdd(&hist[(u >> shift) & 255u], 1);
+    }
+    __syncthreads();
+    if (tid < 32) {
+      int c = 0;                          // bins 8 lane .. 8 lane + 7
+#pragma unroll
+      for (int i = 0; i < 8; ++i) c += hist[8 * lane + i];
+      int suf = c;                        // bins >= 8 lane
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_down_sync(0xffffffffu, suf, o);
+        if (lane + o < 32) suf += v;
+      }
+      const unsigned hit = __ballot_sync(0xffffffffu, suf >= kk);
+      const int top = 31 - __clz(hit);    // the lane whose bins hold the k-th
+      if (lane == top) {
+        int cum = suf - c;                // entries in higher bins
+        for (int i = 7; i >= 0; --i) {
+          const int h = hist[8 * lane + i];
+          if (cum + h >= kk) {
+            prefix_s = prefix | ((uint32_t)(8 * lane + i) << shift);
+            k_s = kk - cum;
+            break;
+          }
+          cum += h;
+        }
+      }
+    }
+    __syncthreads();
+    prefix = prefix_s;
+    kk = k_s;
+    mask |= 255u << shift;
   }
   int gt = 0;
-  for (int j = threadIdx.x; j < n; j += NT) gt += to_sortable(s[j]) > t;
+  for (int j = tid; j < n; j += NT) gt += to_sortable(s[j]) > prefix;
   *n_gt = block_sum_int(gt, red);
-  return t;
+  return prefix;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -5,17 +5,18 @@
 //
 // Replaces the TPU kernel repro/kernels/topk_threshold.py (_kth_kernel,
 // pallas_call at line 88).  One thread block per (head, sequence) copies
-// its score row into shared memory and runs topk_threshold (common.cuh):
-// 32 steps of a binary search on the sortable-u32 encoding of f32, each a
-// block-wide count of the entries >= the candidate.  The fused decode
-// kernel selects through the same device function, so the standalone
-// threshold and the fused kernel's are one computation.
+// its score row into shared memory and runs topk_threshold (common.cuh): a
+// radix select on the sortable-u32 encoding of f32, four passes of a
+// 256-bin count.  The fused decode and sparse prefill selections go
+// through the same device function, so the standalone threshold and
+// theirs are one computation.
 //
 // Bound on the card: bytes (each score read once from device memory, then
 // from shared memory), well under a microsecond at the decode shapes
-// ([4, 8, 1024]).  The 33 dependent block-wide counts, two barriers each,
-// make the kernel latency-bound instead (0.039 ms there on an NVIDIA H100
-// 80GB HBM3 at 700 W).
+// ([4, 8, 1024]).  The dependent block-wide passes (three barriers each)
+// make the kernel latency-bound instead; the earlier 32-step binary search
+// took 0.012 ms there (device time on an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md).
 #include "common.cuh"
 
 using namespace absparse;

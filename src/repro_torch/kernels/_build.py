@@ -21,7 +21,9 @@ from typing import Dict, Iterable, Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 #: kernel name -> its translation unit (each includes ``common.cuh``;
-#: ``flash_attention.cu`` also ``attn_tile.cuh``).
+#: ``flash_attention.cu`` and ``sparse_prefill.cu`` also ``attn_tile.cuh``,
+#: ``paged_attention.cu`` and ``fused_decode.cu`` ``split_attn.cuh``,
+#: ``centroid_score.cu`` and ``fused_decode.cu`` ``score_rows.cuh``).
 SOURCES = {
     "fused_decode": "fused_decode.cu",
     "sparse_prefill": "sparse_prefill.cu",

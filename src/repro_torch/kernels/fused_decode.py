@@ -7,6 +7,14 @@ does it run :func:`fused_decode_plain`, the plain PyTorch version of the same
 function (dequant -> broadcast-sum scores -> mask/pin -> stable-sort top-K ->
 ascending block order -> paged attention).
 
+The call scores every store row with the staged path's scoring kernel,
+selects the top-K_h into the page table (one block per (sequence, kv
+head)), then attends the
+table's slots in ``n_split`` runs per (sequence, kv head) and combines the
+runs' softmax states; the default is
+:func:`repro_torch.kernels.paged_attention.split_plan`, as for the staged
+paged attention.  One call counts one in ``launches``.
+
 ``launches`` counts kernel launches and ``plain_calls`` calls of the plain
 version, so a run can show which of the two it went through.
 """
@@ -14,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -21,13 +30,14 @@ from repro_torch.core.selection import NEG_INF, rank_blocks
 from repro_torch.core.sparse_attention import paged_attention_reference
 from repro_torch.core.stacked import LayoutArrays
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.paged_attention import _sm_count, split_plan
 from repro_torch.kernels._build import expect
 
 launches = 0
 plain_calls = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 16 + [_I] * 17 + [_F, _P]
+_ARGTYPES = [_P] * 20 + [_I] * 18 + [_F, _P]
 _BIG = 1 << 30
 
 
@@ -51,10 +61,12 @@ def fused_decode(
     symmetric: bool,
     sink_pages: int,
     local_pages: int,
+    n_split: Optional[int] = None,
 ):
     """-> (out [B, n_q, D], page_table [B, n_kv, P_sel] int32,
     page_valid [B, n_kv, P_sel] bool); slots hold the selected blocks in
-    ascending block order."""
+    ascending block order.  ``n_split`` forces the kernel's number of slot
+    runs (default :func:`split_plan`); the plain version ignores it."""
     if q.device.type == "cpu":
         return fused_decode_plain(
             q, rq, k_pages, v_pages, codes, scale, zero, la, seq_len,
@@ -81,6 +93,7 @@ def fused_decode(
     for name in ("row_offsets", "n_blocks", "top_k", "block_sizes",
                  "pages_per_block"):
         expect(getattr(la, name), torch.int32, (n_kv,), dev, f"la.{name}")
+    expect(la.tile_head, torch.int32, (rows // la.tile_rows,), dev, "la.tile_head")
     if D not in (64, 128) or not 1 <= g <= 8 or bits not in (0, 4, 8):
         raise ValueError(
             f"fused_decode kernel takes head_dim 64/128, GQA group <= 8 and "
@@ -89,26 +102,33 @@ def fused_decode(
     if n_q % n_kv or ps != la.page_size or rows != la.total_rows:
         raise ValueError("fused_decode: inconsistent head / page / row shapes")
     _build.expect_rows(Dp, "fused_decode", codes=codes, scale=scale, zero=zero)
+    P = la.selected_pages
+    if n_split is None:
+        n_split = split_plan(B, n_kv, P, _sm_count(dev))
+    if not 1 <= n_split <= P:
+        raise ValueError(f"fused_decode: n_split {n_split} not in [1, {P}]")
     out = torch.empty_like(q)
-    table = torch.empty((B, n_kv, la.selected_pages), dtype=torch.int32,
-                        device=dev)
-    valid = torch.empty((B, n_kv, la.selected_pages), dtype=torch.bool,
-                        device=dev)
+    table = torch.empty((B, n_kv, P), dtype=torch.int32, device=dev)
+    valid = torch.empty((B, n_kv, P), dtype=torch.bool, device=dev)
+    flat = torch.empty((B, rows), dtype=torch.float32, device=dev)
+    rows_p = B * n_kv * n_split * g if n_split > 1 else 0
+    part_ml = torch.empty((rows_p, 2), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((rows_p, D), dtype=torch.float32, device=dev)
     lib = _build.load("fused_decode")
     fn = _launcher(lib)
     _build.check_smem(lib.fused_decode_smem_bytes(
-        g, Dp, la.max_blocks, la.max_top_k, la.max_block_size), "fused_decode")
+        D, g, Dp, la.max_blocks, la.max_top_k), "fused_decode")
     rc = fn(
         q.data_ptr(), rq.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         codes.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-        la.row_offsets.data_ptr(), la.n_blocks.data_ptr(),
+        la.tile_head.data_ptr(), la.row_offsets.data_ptr(), la.n_blocks.data_ptr(),
         la.top_k.data_ptr(), la.block_sizes.data_ptr(),
         la.pages_per_block.data_ptr(), seq_len.data_ptr(),
-        out.data_ptr(), table.data_ptr(), valid.data_ptr(),
-        B, n_kv, g, D, Dp, n_pages, ps, rows,
+        out.data_ptr(), table.data_ptr(), valid.data_ptr(), flat.data_ptr(),
+        part_ml.data_ptr(), part_acc.data_ptr(),
+        B, n_kv, g, D, Dp, n_pages, ps, rows, la.tile_rows,
         codes.shape[2] * codes.element_size(), bits, int(symmetric),
-        sink_pages, local_pages, la.max_blocks, la.max_top_k,
-        la.selected_pages, la.max_block_size,
+        sink_pages, local_pages, la.max_blocks, la.max_top_k, P, n_split,
         1.0 / math.sqrt(D), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "fused_decode")

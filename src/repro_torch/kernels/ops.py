@@ -114,11 +114,13 @@ def fused_decode(
     sink_pages: int,
     local_pages: int,
     seq_len: torch.Tensor,         # [B] live tokens
+    n_split: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-launch AB-Sparse decode -> (out [B, n_q, D],
-    page_table [B, H, P_sel], page_valid [B, H, P_sel])."""
-    return _fused_decode(fd.fused_decode, q, rq, k, v, store, la, sink_pages,
-                         local_pages, seq_len)
+    page_table [B, H, P_sel], page_valid [B, H, P_sel]) (``n_split``: see
+    :func:`repro_torch.kernels.fused_decode.fused_decode`)."""
+    return _fused_decode(functools.partial(fd.fused_decode, n_split=n_split),
+                         q, rq, k, v, store, la, sink_pages, local_pages, seq_len)
 
 
 def fused_decode_reference(q, rq, k, v, store, la, sink_pages, local_pages,
@@ -160,7 +162,8 @@ def _prefill_query_blocks(q, rq, la, block_q, topk_scale, n_valid, chunk_offset)
     qb0 = int(chunk_offset) // block_q
 
     def to_blocks(x):
-        x = F.pad(x, (0, 0, 0, pad))
+        if pad:                                 # F.pad copies even when pad is 0
+            x = F.pad(x, (0, 0, 0, pad))
         x = x.reshape(B, n_kv, g, nQB, block_q, x.shape[-1])
         return x.movedim(3, 2).contiguous()     # [B, n_kv, nQB, g, BQ, .]
 
@@ -189,13 +192,16 @@ def sparse_prefill(
     n_valid: Optional[torch.Tensor] = None,
     chunk_offset: int = 0,         # absolute pos of q[..., 0, :]; block_q-aligned
     return_selected: bool = False,
+    n_split: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Query-block sparse prefill in one kernel launch -> (out [B, Hq, Sq, D],
+    """Query-block sparse prefill in one kernel call -> (out [B, Hq, Sq, D],
     n_attended [B, n_kv, nQB]), plus the selected blocks
     ``[B, n_kv, nQB, max_blocks]`` bool with ``return_selected``.
     ``n_valid`` defaults to ``chunk_offset + Sq``, the live length after
-    this chunk."""
-    return _sparse_prefill(sp.sparse_prefill, q, rq, k, v, score_store, la,
+    this chunk (``n_split``: see
+    :func:`repro_torch.kernels.sparse_prefill.sparse_prefill`)."""
+    return _sparse_prefill(functools.partial(sp.sparse_prefill, n_split=n_split),
+                           q, rq, k, v, score_store, la,
                            sink_pages, local_pages, block_q, topk_scale,
                            n_valid, chunk_offset, return_selected)
 

@@ -115,9 +115,9 @@ def paged_attention(
 
 def paged_attention_plain(q, k_pages, v_pages, page_table, page_valid,
                           seq_len, page_size):
-    """Plain PyTorch version of :func:`paged_attention` (same outputs, but
-    for a head with no live token: the kernel gives 0, this version the
-    mean V row of the head's table, as JAX's TPU kernel does)."""
+    """Plain PyTorch version of :func:`paged_attention` (same outputs; a
+    head with no live token gets the mean V row of its table, as JAX's TPU
+    kernel computes it)."""
     global plain_calls
     plain_calls += 1
     return ref.paged_attention_ref(q, k_pages, v_pages, page_table,

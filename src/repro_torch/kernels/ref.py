@@ -239,7 +239,7 @@ def from_sortable_key(key: torch.Tensor) -> torch.Tensor:
 def topk_threshold_ref(scores: torch.Tensor, k_per_head: torch.Tensor):
     """scores ``[B, H, M]`` -> (the K_h-th largest score ``[B, H]`` f32, the
     count of scores strictly above it ``[B, H]`` int32), ranked by
-    :func:`sortable_key` as the kernels' binary search ranks them."""
+    :func:`sortable_key` as the kernels' threshold search ranks them."""
     B, H, M = scores.shape
     key = sortable_key(scores)
     desc = torch.sort(key, dim=-1, descending=True).values

@@ -14,8 +14,11 @@ and 128, GQA groups 1 to 8; sparse prefill over chunk offsets with dead
 trailing query blocks and prefill top-K scales; the staged decode's
 scoring and paged-attention kernels on the same axes, and the
 paged-attention kernel with its split count forced (1, 7, 8, one slot
-per split), with a head whose slots are all invalid, and with pages of 8
-and 32 tokens.  Queries are scaled
+per split), with a head whose slots are all invalid (the mean V row of
+its table, as the plain version and JAX give), and with pages of 8 and
+32 tokens.  The fused decode and the sparse prefill also run with their
+split counts forced, and at GQA group 4 with head_dim 128 (qwen3-8b's
+group: 256 query rows per prefill cell, four row tiles).  Queries are scaled
 so that attention logits have standard deviation 1.5.  Selection (decode
 page tables, prefill block sets) is exact up to the near-tie rule of
 :mod:`repro_torch.kernels.parity`; staged scores within its
@@ -76,7 +79,7 @@ def _inputs(dev, blocks, B, D, seed, **sparse_kw):
     return sparse, la, gen, k, v
 
 
-def _decode(dev, blocks, quant, seq, sink, local, D=128, g=3, seed=0):
+def _decode(dev, blocks, quant, seq, sink, local, D=128, g=3, seed=0, n_split=None):
     B = len(seq)
     sparse, la, gen, k, v = _inputs(dev, blocks, B, D, seed, quant=quant,
                                     sink_pages=sink, local_pages=local)
@@ -86,7 +89,8 @@ def _decode(dev, blocks, quant, seq, sink, local, D=128, g=3, seed=0):
     rq = rank_query(q, sparse.centroid_method, D)
     sl = torch.tensor(seq, dtype=torch.int32, device=dev)
     launches = fused_decode.launches
-    res = parity.compare_fused_decode(q, rq, k, v, store, la, sparse, sl)
+    res = parity.compare_fused_decode(q, rq, k, v, store, la, sparse, sl,
+                                      n_split=n_split)
     assert fused_decode.launches == launches + 1
     return res
 
@@ -100,13 +104,24 @@ def test_fused_decode_kernel_matches_plain(cuda, quant, blocks, sink, local):
 
 @pytest.mark.parametrize("seq", [(1, 17), (31, 100), (2047, 513)],
                          ids=["edge", "tiny", "ragged"])
-@pytest.mark.parametrize("D,g", [(128, 3), (64, 2), (128, 8)])
+@pytest.mark.parametrize("D,g", [(128, 3), (64, 2), (128, 8), (128, 4)])
 def test_fused_decode_kernel_shapes_and_lengths(cuda, seq, D, g):
     _decode(cuda, LAYOUTS["nonuniform"], "int4_asym", seq, 1, 4, D=D, g=g, seed=5)
 
 
+@pytest.mark.parametrize("seq", [(S, 1234), (31, 100)], ids=["long", "tiny"])
+@pytest.mark.parametrize("n_split", [1, 7, 8, BUDGET // PS])
+def test_fused_decode_kernel_forced_splits(cuda, n_split, seq):
+    """Forced split counts of the fused kernel: one run (the block writes
+    the output), 7 runs (the last one short), 8 and one slot per run (runs
+    with no live slot at the tiny lengths); page tables and valid masks
+    exact, outputs within the bf16 rule."""
+    _decode(cuda, LAYOUTS["nonuniform"], "int4_asym", seq, 1, 4, seed=11,
+            n_split=n_split)
+
+
 def _prefill(dev, blocks, quant, off, sq, n_valid, D=128, g=3, scale=1.0,
-             seed=0):
+             seed=0, n_split=None):
     B = len(n_valid)
     sparse, la, gen, k, v = _inputs(dev, blocks, B, D, seed, quant=quant,
                                     prefill_topk_scale=scale)
@@ -117,7 +132,8 @@ def _prefill(dev, blocks, quant, off, sq, n_valid, D=128, g=3, scale=1.0,
     rq = rank_query(q, sparse.centroid_method, D)
     nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
     launches = sparse_prefill.launches
-    res = parity.compare_sparse_prefill(q, rq, k, v, ss, la, sparse, nv, off)
+    res = parity.compare_sparse_prefill(q, rq, k, v, ss, la, sparse, nv, off,
+                                        n_split=n_split)
     assert sparse_prefill.launches == launches + 1
     return res
 
@@ -139,10 +155,22 @@ def test_sparse_prefill_kernel_chunks_and_scales(cuda, off, sq, n_valid, scale):
              scale=scale, seed=3)
 
 
-@pytest.mark.parametrize("D,g", [(64, 4), (128, 1), (64, 2)])
+@pytest.mark.parametrize("D,g", [(64, 4), (128, 1), (64, 2), (128, 4)])
 def test_sparse_prefill_kernel_shapes(cuda, D, g):
     _prefill(cuda, LAYOUTS["nonuniform"], "int8_asym", 1024, 256, (1280, 1100),
              D=D, g=g, seed=7)
+
+
+@pytest.mark.parametrize("off,n_valid", [(1536, (2048, 1600)), (0, (512, 100))],
+                         ids=["last-chunk", "first-chunk"])
+@pytest.mark.parametrize("n_split", [1, 3, 8, 40])
+def test_sparse_prefill_kernel_forced_splits(cuda, n_split, off, n_valid):
+    """Forced runs of key tiles per cell: one run (the block writes the
+    output), 3 (runs of unequal length), 8, and 40 (more runs than most
+    cells have tiles, so many runs are empty); in the first chunk every
+    cell has only its few causal tiles."""
+    _prefill(cuda, LAYOUTS["nonuniform"], "int4_asym", off, 512, n_valid,
+             seed=13, n_split=n_split)
 
 
 def _staged(dev, blocks, quant, seq, sink, local, D=128, g=3, seed=0):
@@ -186,7 +214,8 @@ def _paged_case(dev, seq, D=128, g=3, seed=0):
 def test_paged_attention_kernel_forced_splits(cuda, n_split, dead):
     """Forced split counts: one run, 7 runs (the last one short), 8 runs,
     one slot per run (more runs than the 7 live slots of the short
-    sequence); a head whose slots are all invalid gives 0."""
+    sequence); a head whose slots are all invalid gives the mean V row of
+    its table, as the plain version does."""
     q, k, v, tbl, vld, sl = _paged_case(cuda, (S - 3, 100))
     if dead:
         vld[0, 1] = False
