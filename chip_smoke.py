@@ -18,7 +18,9 @@ Phases (each failure is fatal, exit code != 0):
    step and every output row within 1e-2 relative L2; and show that a page
    left out per head, or a score moved by twice its tolerance, breaks them.
    The fused decode and the sparse prefill are also held against their
-   plain versions with their split counts forced (1 and 5 runs);
+   plain versions with their split counts forced (1 and 5 runs), and all
+   of it again at the shapes phase 3b gives them (qwen3-8b: GQA group 4,
+   Q1's live lengths, the last chunk of its 9000-token prompt);
 3. serve full-width llama3.2-3b (28 layers, bf16, random weights from a
    seeded generator) through ``Engine``: 6 requests of 4-12k prompt tokens,
    two sharing a 2048-token prefix, 32 new tokens each, with the fused
@@ -36,6 +38,21 @@ Phases (each failure is fatal, exit code != 0):
    Then the calibrated assignment of phase 2b is installed and requests 0
    and 3 are served with the fused kernel, then through the plain versions
    fed the same tokens (logit cosine at least 0.9995);
+3b. serve full-width qwen3-8b (36 layers, d_model 4096, 32 / 8 heads,
+   untied head, bf16, random weights from a seeded generator) through
+   ``Engine`` at max_batch 4, chunks of 512, 32 new tokens, temperature 0,
+   in five runs, each of which must launch its path's kernels and no
+   other and call no plain version: Q1 the repo's default configuration
+   (``"cuda"``, fused decode, ``sparse_prefill`` off: dense chunked
+   prefill through ``flash_attention``) on requests 0, 1 and 3; Q2 the
+   ``"dense"`` backend (``flash_attention``, ``paged_attention`` over the
+   identity page table) on the same; Q3 an inactive plan (max_context
+   4096: dense prefill and decode, no store) on prompts of 3000 and 2000
+   tokens sharing a 1000-token prefix, and 1000; Q4 as Q1 with
+   single-shot prefill (``prefill_chunk`` 0) on request 3; Q5 the sparse
+   main path (``sparse_prefill``, fused decode) on requests 0 and 3.  Q1,
+   Q2 and Q5 are served again through the plain versions, fed the kernel
+   run's tokens: logit cosine at least 0.9995;
 4. (run between phases 2b and 3, so that its profiler sessions come
    before the long ones of ``--profile``) time each kernel, its plain
    version and, where one PyTorch call computes the same function, that
@@ -52,7 +69,12 @@ Phases (each failure is fatal, exit code != 0):
    forced to one run of slots.  Then time the dense flash kernel over
    a 16384-token prompt against the 32 sparse-prefill chunks of 512 tokens
    of the same prompt (the dense baseline), by CUDA events and by device
-   time, with SDPA beside.
+   time, with SDPA beside; then the flash kernel at the chunk shape of
+   dense prefill (32 / 8 heads, 512 queries at offset 8192 over 8704 live
+   keys; SDPA with the equivalent boolean mask beside it; the kernel
+   line's numbers, the S x S ones under ``sxs_*``) and ``paged_attention``
+   over the identity page table of dense decode (B 4, 32 / 8 heads, mean
+   live 12000; SDPA on the dense view beside it; ``identity_*`` keys).
 
 Phase 2 also holds the three kernels off the serving path against their
 plain versions: ``pool_rank_keys`` on llama3.2-3b K (bf16, B 4) and on f32
@@ -63,7 +85,12 @@ token shows in its block only; one pooled channel moved past the
 tolerance fails the comparison), ``topk_threshold`` on the padded decode
 scores and a grid of ties and +-inf (bitwise; its set equal to
 ``rank_blocks``' selection), ``flash_attention`` at B 1, 24/8 heads,
-S 4096, causal and not.  Phase 2b calibrates llama3.2-3b at full width
+S 4096, causal and not.  It holds ``flash_attention`` with a query offset
+and a key length as chunked dense prefill calls it (32 / 8 heads: 512
+queries at offsets 8192 and 5003, one at 12345, over the keys written so
+far of a 16384-row buffer; a key tile of one head left out must fail the
+comparison) and ``paged_attention`` over dense decode's identity page
+table (B 4, 32 / 8 heads, 1024 pages, ragged live lengths).  Phase 2b calibrates llama3.2-3b at full width
 (28 layers x 8 kv heads, context 16384, budget 4096, INT4 quest store,
 tau 0.98, 4 samples) through ``calibrate_for_config`` on the ``"cuda"``
 backend and again on ``"reference"`` from the same seed: the assignments
@@ -84,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -123,6 +151,26 @@ PREFILL_FORCED_SPLITS = (1, 5)
 #: dense flash attention: sequence length of the check against the plain
 #: version (its [24, S, S] f32 logits fit in memory) and of the timing
 FLASH_CHECK_S, FLASH_TIME_S = 4096, CTX
+#: qwen3-8b at full width (phase 3b) and its GQA group
+QWEN, QG = "qwen3-8b", 4
+#: flash attention as chunked dense prefill calls it: a chunk at the middle
+#: of the context over the keys written so far of a CTX-row cache row, and
+#: at an offset that is no multiple of the 64-key tile
+FLASH_CHUNK_OFF, FLASH_ODD_OFF = CTX // 2, 5003
+#: dense decode over the identity page table: live lengths (mean 12000)
+IDENTITY_LIVE = (CTX, 12000, 11001, 8615)
+#: phase 3b's runs: requests of Q1 / Q2 (0 and 1 share the prefix), Q4
+#: (single-shot prefill) and Q5 (sparse prefill); Q3 (plan inactive) serves
+#: its own traffic: max_context, prompt lengths and their shared prefix
+Q_REQS, Q4_REQS, Q5_REQS = (0, 1, 3), (3,), (0, 3)
+Q3_CTX, Q3_LENS, Q3_PREFIX = 4096, (3000, 2000, 1000), 1000
+#: phase 2's checks of fused_decode and sparse_prefill at qwen3-8b's heads
+#: (N_KV x QG): Q1's live lengths halfway through its decode (its fourth
+#: slot empty), and the last chunk of its 9000-token request
+QWEN_DECODE_LIVE = tuple(PROMPT_LENS[i] + NEW_TOKENS // 2 for i in Q_REQS) + (1,)
+QWEN_PREFILL_OFF = PROMPT_LENS[0] // CHUNK * CHUNK
+QWEN_PREFILL_VALID = (PROMPT_LENS[0], QWEN_PREFILL_OFF + CHUNK,
+                      QWEN_PREFILL_OFF + CHUNK * 3 // 5, QWEN_PREFILL_OFF + 1)
 
 LOG = []
 T_START = time.perf_counter()
@@ -229,18 +277,23 @@ def layer_inputs(torch, dev, B, seed):
     return sparse, la, gen, k, v
 
 
-def check_fused_decode(torch, dev):
+def check_fused_decode(torch, dev, g=G, live=None, seed=1):
+    """The fused kernel against its plain version at ``N_KV * g`` query
+    heads and live lengths ``live`` (default: llama3.2-3b's group and
+    ragged lengths up to CTX), at its planned and forced split counts, with
+    the comparison's power check."""
     from repro_torch.backends.store import build_store_codes
     from repro_torch.core.centroids import rank_query
     from repro_torch.core.sparse_attention import paged_attention_reference
     from repro_torch.kernels import parity
 
     B = 4
-    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=1)
-    q = torch.randn((B, N_KV * G, D), generator=gen, device=dev)
+    live = live or (CTX, CTX * 3 // 4 + 1, CTX * 7 // 16 - 3, CTX // 7)
+    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=seed)
+    q = torch.randn((B, N_KV * g, D), generator=gen, device=dev)
     q = (q * parity.QSCALE).to(torch.bfloat16)
-    seq_len = torch.tensor([CTX, CTX * 3 // 4 + 1, CTX * 7 // 16 - 3, CTX // 7],
-                           dtype=torch.int32, device=dev)
+    seq_len = torch.tensor(live, dtype=torch.int32, device=dev)
+    log(f"fused_decode check at {N_KV * g}/{N_KV} heads, live {live}:")
     store = build_store_codes(k, la, sparse)
     rq = rank_query(q, sparse.centroid_method, D)
     res = parity.compare_fused_decode(q, rq, k, v, store, la, sparse, seq_len)
@@ -263,6 +316,7 @@ def check_fused_decode(torch, dev):
     if not med > parity.REL_L2:
         fail("the fused_decode comparison cannot see a page left out")
     _, table, valid = res["kernel"]
+    err = res["max_abs_err"]
     # the kernel at forced split counts: one run (the block writes the
     # output) and 5 (runs of unequal length), held against the plain
     # version; their page tables must equal the planned launch's
@@ -270,33 +324,39 @@ def check_fused_decode(torch, dev):
         r = parity.compare_fused_decode(q, rq, k, v, store, la, sparse, seq_len,
                                         n_split=n_split)
         same = torch.equal(r["kernel"][1], table) and torch.equal(r["kernel"][2], valid)
+        err = max(err, r["max_abs_err"])
         log(f"fused_decode check, n_split forced to {n_split}: valid exact, near-tie "
             f"blocks {r['near_ties']}, max_abs_err {r['max_abs_err']:.3e}, max rel L2 "
             f"{r['max_rel_l2']:.3e}, {r['tol_use']:.2f} of the elementwise limit; "
             f"page table equal to the planned launch's: {same}")
         if not same:
             fail(f"fused_decode with {n_split} runs selects other pages")
-    return {"err": res["max_abs_err"], "table": table, "valid": valid,
+    return {"err": err, "table": table, "valid": valid,
             "sparse": sparse,
             "args": (q, rq, k, v, store, la, sparse.sink_pages,
                      sparse.local_pages, seq_len)}
 
 
-def check_sparse_prefill(torch, dev):
+def check_sparse_prefill(torch, dev, g=G, off=CTX // 2, valid=None, seed=2):
+    """The sparse prefill kernel against its plain version on a CHUNK-query
+    chunk at ``off`` with ``N_KV * g`` query heads and live lengths
+    ``valid`` (default: llama3.2-3b's group and ragged lengths ending
+    inside the chunk), at its planned and forced split counts."""
     from repro_torch.backends.base import CentroidStore
     from repro_torch.backends.store import build_score_rows
     from repro_torch.core.centroids import rank_query
     from repro_torch.core.quantization import store_bits
     from repro_torch.kernels import parity
 
-    B, SQ, OFF = 4, CHUNK, CTX // 2
-    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=2)
-    q = torch.randn((B, N_KV * G, SQ, D), generator=gen, device=dev)
+    B, SQ, OFF = 4, CHUNK, off
+    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=seed)
+    q = torch.randn((B, N_KV * g, SQ, D), generator=gen, device=dev)
     q = (q * parity.QSCALE).to(torch.bfloat16)
     # ragged live lengths: later sequences end inside the chunk, leaving
     # dead trailing query blocks
-    n_valid = torch.tensor([OFF + SQ, OFF + SQ * 3 // 5, OFF + SQ // 8, OFF + 1],
-                           dtype=torch.int32, device=dev)
+    valid = valid or (OFF + SQ, OFF + SQ * 3 // 5, OFF + SQ // 8, OFF + 1)
+    n_valid = torch.tensor(valid, dtype=torch.int32, device=dev)
+    log(f"sparse_prefill check at {N_KV * g}/{N_KV} heads, offset {OFF}, live {valid}:")
     codes, sc, ze = build_score_rows(k, la, sparse)
     ss = CentroidStore(codes, sc, ze, store_bits(sparse.quant), False)
     rq = rank_query(q, sparse.centroid_method, D)
@@ -536,6 +596,88 @@ def check_flash_attention(torch, dev):
     else:
         fail("the flash_attention comparison cannot see a key tile left out")
     return {"err": err}
+
+
+def flash_chunk_inputs(torch, dev, seed):
+    """A chunk of CHUNK queries at qwen3-8b's 32 / 8 heads (D 128) and a
+    CTX-row K / V buffer, as ``prefill_chunk`` hands the flash kernel a
+    slot's cache row."""
+    from repro_torch.kernels import parity
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((1, N_KV * QG, CHUNK, D), generator=gen, device=dev)
+         * parity.QSCALE).to(torch.bfloat16)
+    k, v = (torch.randn((1, N_KV, CTX, D), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v
+
+
+def check_flash_offset(torch, dev):
+    """The flash kernel with a query offset and a key length, as chunked
+    dense prefill calls it, against its plain version: a CHUNK-query chunk
+    at offset ``FLASH_CHUNK_OFF`` over the keys written so far
+    (``FLASH_CHUNK_OFF + CHUNK`` of CTX rows), the same at
+    ``FLASH_ODD_OFF`` (no multiple of the key tile), one query at offset
+    12345 (at CTX 16384).  Power: the chunk's output with one 64-key tile
+    of one head left out must fail the comparison."""
+    from repro_torch.kernels import parity
+
+    q, k, v = flash_chunk_inputs(torch, dev, seed=12)
+    err, plain = 0.0, None
+    for off, sq in ((FLASH_CHUNK_OFF, CHUNK), (FLASH_ODD_OFF, CHUNK),
+                    (CTX * 3 // 4 + 57, 1)):
+        qs = q[:, :, :sq].contiguous()
+        res = parity.compare_flash_attention(qs, k, v, True, off, off + sq)
+        err = max(err, res["max_abs_err"])
+        if off == FLASH_CHUNK_OFF:
+            plain = res["plain"]
+        log(f"flash_attention offset check (32/8 heads, {sq} queries at offset {off}, "
+            f"keys [0, {off + sq}) of {CTX}): max_abs_err {res['max_abs_err']:.3e}, "
+            f"max rel L2 {res['max_rel_l2']:.3e} (limit {parity.REL_L2}), "
+            f"{res['tol_use']:.2f} of the elementwise limit")
+    off, n = FLASH_CHUNK_OFF, FLASH_CHUNK_OFF + CHUNK
+    t0 = off // 2
+    pos = off + torch.arange(CHUNK, device=dev)
+    keep = torch.arange(n, device=dev)[None, :] <= pos[:, None]
+    keep[:, t0:t0 + 64] = False
+    logits = (q[0, 0].float() @ k[0, 0, :n].float().T) * D ** -0.5
+    dropped = plain.clone()
+    dropped[0, 0] = (torch.softmax(torch.where(keep, logits, -1e30), -1)
+                     @ v[0, 0, :n].float()).to(q.dtype)
+    moved = ((dropped[0, 0].float() - plain[0, 0].float()).norm(dim=-1)
+             / plain[0, 0].float().norm(dim=-1))
+    rows = torch.ones(plain.shape[:-1], dtype=torch.bool, device=dev)
+    try:
+        parity.check_outputs(dropped, plain, rows, "power check")
+    except AssertionError:
+        log(f"flash_attention offset check power: one key tile of one head left out "
+            f"(keys {t0}..{t0 + 63}) moves its rows by median rel L2 "
+            f"{float(moved.median()):.3e} and fails the comparison")
+    else:
+        fail("the flash_attention offset comparison cannot see a key tile left out")
+    return {"err": err}
+
+
+def check_paged_identity(torch, dev):
+    """The paged-attention kernel over dense decode's identity page table
+    (the ``"dense"`` backend, an inactive plan) at qwen3-8b's shape: B 4,
+    32 / 8 heads, CTX / PS pages, live lengths ``IDENTITY_LIVE``."""
+    from repro_torch.backends import get_backend
+    from repro_torch.kernels import parity
+
+    B = len(IDENTITY_LIVE)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    kp, vp = (torch.randn((B, N_KV, CTX // PS, PS, D), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    q = (torch.randn((B, N_KV * QG, D), generator=gen, device=dev)
+         * parity.QSCALE).to(torch.bfloat16)
+    live = torch.tensor(IDENTITY_LIVE, dtype=torch.int32, device=dev)
+    tbl, vld = get_backend("cuda").full_page_table(kp, live)
+    res = parity.compare_paged_attention(q, kp, vp, tbl, vld, PS, live)
+    log(f"paged_attention identity-table check (B {B}, 32/8 heads, {CTX // PS} pages, "
+        f"live {list(IDENTITY_LIVE)}): max_abs_err {res['max_abs_err']:.3e}, max rel "
+        f"L2 {res['max_rel_l2']:.3e}, {res['tol_use']:.2f} of the elementwise limit")
+    return {"err": res["max_abs_err"], "args": (q, kp, vp, tbl, vld, live)}
 
 
 # ---------------------------------------------------------------------------
@@ -955,7 +1097,82 @@ def time_flash_attention(torch, dev):
         f"{d_sparse:.4f} ({fmt_rounds(dev_t['sparse'][1])}): dense flash / sparse = "
         f"{d_flash / d_sparse:.3f}, SDPA / sparse = {d_sdpa / d_sparse:.3f}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": library_ms, "sparse_ms": sparse_ms}
+            "library_ms": library_ms, "sparse_ms": sparse_ms, "device_ms": d_flash,
+            "library_device_ms": d_sdpa}
+
+
+def time_flash_chunk(torch, dev):
+    """The flash kernel at the chunk shape of dense prefill (qwen3-8b's 32 /
+    8 heads, D 128, CHUNK queries at offset ``FLASH_CHUNK_OFF`` over the
+    keys written so far of a CTX-row buffer), by the device time of its
+    kernel in three rounds, in turns with its library call:
+    ``scaled_dot_product_attention`` on the live keys with the equivalent
+    boolean mask (K / V sliced beforehand, not timed)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = flash_chunk_inputs(torch, dev, seed=14)
+    off = FLASH_CHUNK_OFF
+    n = off + CHUNK
+    kernel = lambda: fa.flash_attention(q, k, v, True, off, n)
+    ks, vs = k[:, :, :n].contiguous(), v[:, :, :n].contiguous()
+    mask = (torch.arange(n, device=dev)[None, :]
+            <= off + torch.arange(CHUNK, device=dev)[:, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        library = lambda: sdpa(q, ks, vs, attn_mask=mask, enable_gqa=True)
+        library()
+    except TypeError:       # no enable_gqa: K/V expanded beforehand, not timed
+        ke, ve = ks.repeat_interleave(QG, dim=1), vs.repeat_interleave(QG, dim=1)
+        library = lambda: sdpa(q, ke, ve, attn_mask=mask)
+    dev_t = device_rounds(torch, {"kernel": kernel, "library": library}, 20)
+    ms, library_ms = dev_t["kernel"][0], dev_t["library"][0]
+    event_ms = cuda_time_ms(torch, kernel, 3, 20)
+    plain_ms = cuda_time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True, off, n),
+                            1, 3)
+    pairs = N_KV * QG * sum(off + i + 1 for i in range(CHUNK))
+    b_ms, by = bound((2 * q.numel() + 2 * N_KV * n * D) * 2, 0, 4 * D * pairs)
+    log(f"flash_attention at the chunk shape (B 1, 32/8 heads, {CHUNK} queries at offset "
+        f"{off}, {n} live keys): device {ms:.4f} ms/call (rounds "
+        f"{fmt_rounds(dev_t['kernel'][1])}; CUDA events {event_ms:.4f}), SDPA with the "
+        f"boolean mask device {library_ms:.4f} (rounds {fmt_rounds(dev_t['library'][1])}), "
+        f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / ms:.3f} of the bound")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": library_ms, "event_ms": event_ms}
+
+
+def time_paged_identity(torch, ident):
+    """The paged-attention kernel over the identity page table of dense
+    decode (B 4, 32 / 8 heads, live ``IDENTITY_LIVE``) by device time, in
+    turns with its library call: ``scaled_dot_product_attention`` over the
+    dense view of the same K / V, each head's group as its query rows, the
+    live keys as ``attn_mask``."""
+    from repro_torch.kernels import paged_attention as pa
+
+    q, kp, vp, tbl, vld, live = ident["args"]
+    B = q.shape[0]
+    kernel = lambda: pa.paged_attention(q, kp, vp, tbl, vld, live, PS)
+    kd, vd = kp.reshape(B, N_KV, CTX, D), vp.reshape(B, N_KV, CTX, D)
+    mask = (torch.arange(CTX, device=q.device)[None, :] < live[:, None])[:, None, None, :]
+    q4 = q.reshape(B, N_KV, QG, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = lambda: sdpa(q4, kd, vd, attn_mask=mask)
+    dev_t = device_rounds(torch, {"kernel": kernel, "library": library}, 50)
+    ms, library_ms = dev_t["kernel"][0], dev_t["library"][0]
+    plain_ms = cuda_time_ms(
+        torch, lambda: pa.paged_attention_plain(q, kp, vp, tbl, vld, live, PS), 1, 5)
+    tokens = int(live.long().sum()) * N_KV
+    bytes_ = (2 * q.numel() * 2 + 2 * tokens * D * 2 + tbl.numel() * 4 + vld.numel()
+              + live.numel() * 4)
+    b_ms, by = bound(bytes_, 4 * tokens * QG * D, 0)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"paged_attention over the identity table (B {B}, 32/8 heads, "
+        f"{tbl.shape[-1]} pages, live {list(IDENTITY_LIVE)}, "
+        f"{pa.split_plan(B, N_KV, tbl.shape[-1], n_sm)} splits): device {ms:.4f} "
+        f"ms/call (rounds {fmt_rounds(dev_t['kernel'][1])}), SDPA on the dense view "
+        f"device {library_ms:.4f} (rounds {fmt_rounds(dev_t['library'][1])}), plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / ms:.3f} of the bound")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1009,24 +1226,48 @@ def traffic(vocab: int):
     return prompts
 
 
-def use_config(model, cfg):
+def q3_traffic(vocab: int):
+    """Run Q3's prompts (numpy seed 1): ``Q3_LENS`` tokens each, the first
+    two sharing a ``Q3_PREFIX``-token prefix (no multiple of the 64-token
+    query block, so the chunk after the installed prefix starts off it)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, vocab, Q3_PREFIX)
+    prompts = []
+    for i, n in enumerate(Q3_LENS):
+        p = rng.integers(0, vocab, n)
+        if i < 2:
+            p[:Q3_PREFIX] = prefix
+        prompts.append(p.astype(np.int32))
+    return prompts
+
+
+def use_config(model, cfg, backend=None):
     """Point ``model`` (same weights) at ``cfg``'s sparse settings: the
-    backend, fused or staged decode, the store's quantization."""
+    backend (or ``backend``, an instance), fused or staged decode, the
+    store's quantization."""
     from repro_torch.backends import get_backend
 
     model.cfg = cfg
-    model.backend = get_backend(cfg.sparse.backend)
+    model.backend = backend or get_backend(cfg.sparse.backend)
 
 
-def make_engine(cfg, model, dev, req_ids, new_tokens, telemetry=False):
+def make_engine(cfg, model, dev, req_ids, new_tokens, telemetry=False,
+                prompts=None, backend=None, **serve_kw):
+    """An ``Engine`` over ``model`` with ``cfg`` (``backend`` in place of
+    its registered backend), max_batch ``MAX_BATCH``, context CTX, chunks
+    of CHUNK (``serve_kw`` overrides), temperature 0, and requests
+    ``req_ids`` of ``prompts`` (default: ``traffic``) submitted."""
     from repro_torch.config import ServeConfig
     from repro_torch.serving import Engine, Request
 
-    use_config(model, cfg)
-    serve_cfg = ServeConfig(max_batch=MAX_BATCH, max_context=CTX,
-                            prefill_chunk=CHUNK, temperature=0.0)
+    use_config(model, cfg, backend)
+    serve_cfg = ServeConfig(**{**dict(max_batch=MAX_BATCH, max_context=CTX,
+                                      prefill_chunk=CHUNK, temperature=0.0),
+                               **serve_kw})
     eng = Engine(cfg, model, serve_cfg, device=dev, telemetry=telemetry)
-    prompts = traffic(cfg.vocab_size)
+    prompts = traffic(cfg.vocab_size) if prompts is None else prompts
     for i in req_ids:
         eng.submit(Request(req_id=i, prompt=prompts[i], max_new_tokens=new_tokens))
     return eng
@@ -1038,7 +1279,8 @@ def check_served(eng, done, n_requests, new_tokens, vocab, prefix_hit=True):
     for r in done:
         if len(r.output) != new_tokens or not all(0 <= t < vocab for t in r.output):
             fail(f"request {r.req_id}: bad output {r.output[:8]}...")
-    if eng.pool.assert_consistent(known_pins=eng.prefix_cache.pages()):
+    pins = eng.prefix_cache.pages() if eng.prefix_cache is not None else None
+    if eng.pool.assert_consistent(known_pins=pins):
         fail("page pool leaked pages")
     if prefix_hit and eng.metrics.snapshot()["prefix_hit_tokens"] <= 0:
         fail("the shared prefix was not served from the prefix cache")
@@ -1089,6 +1331,8 @@ def run_engine(torch, model, eng, forced=None, record=False, profile=False):
     counts = kernels.counts()
     for name in steps:
         delattr(model, name)
+    if record:
+        del eng._sample         # the recording closure holds the engine
     return {"done": done, "counts": counts, "steps": steps, "wall": wall,
             "logits": logits, "tokens": tokens, "prof": prof}
 
@@ -1388,6 +1632,123 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: qwen3-8b at full width, the default configuration
+# ---------------------------------------------------------------------------
+
+
+def qwen_runs():
+    """Phase 3b's runs: name -> (config, requests, prompts or None, serve
+    overrides, kernels the run must launch, prefix-cache hit expected).
+    The default configuration is the ``"cuda"`` backend with the fused
+    decode and ``sparse_prefill`` off (dense prefill through the flash
+    kernel), T = BUDGET, INT4-asym quest store, block sizes
+    ``(16, 32, 64)[(layer + head) % 3]``."""
+    from repro_torch.configs import get_config
+
+    base = get_config(QWEN)
+    pattern = tuple(
+        tuple((16, 32, 64)[(l + h) % 3] for h in range(base.n_kv_heads))
+        for l in range(base.n_layers)
+    )
+    default = dataclasses.replace(base, sparse=dataclasses.replace(
+        base.sparse, backend="cuda", fused_decode=True, quant="int4_asym",
+        block_sizes=pattern, token_budget=BUDGET))
+    dense = dataclasses.replace(default, sparse=dataclasses.replace(
+        default.sparse, backend="dense"))
+    sparse_pf = dataclasses.replace(default, sparse=dataclasses.replace(
+        default.sparse, sparse_prefill=True))
+    return {
+        "Q1": (default, Q_REQS, None, {}, {"flash_attention", "fused_decode"}, True),
+        "Q2": (dense, Q_REQS, None, {}, {"flash_attention", "paged_attention"}, True),
+        "Q3": (default, range(len(Q3_LENS)), "q3", {"max_context": Q3_CTX},
+               {"flash_attention", "paged_attention"}, True),
+        "Q4": (default, Q4_REQS, None, {"prefill_chunk": 0},
+               {"flash_attention", "fused_decode"}, False),
+        "Q5": (sparse_pf, Q5_REQS, None, {}, {"sparse_prefill", "fused_decode"}, False),
+    }
+
+
+#: the runs of phase 3b served again through the plain versions, and the
+#: plain backend of each: the "reference" backend for the sparse runs, the
+#: dense backend's plain twin for Q2
+QWEN_PLAIN = ("Q1", "Q2", "Q5")
+
+
+def serve_qwen(torch, dev):
+    """Phase 3b: qwen3-8b at full width (36 layers, bf16, random weights from
+    ``torch.Generator`` seed 0) served through ``Engine`` in runs Q1-Q5
+    (``qwen_runs``), NEW_TOKENS new tokens each; each run's counts zeroed
+    just before and read just after, its path's kernels launched and no
+    other, no plain version called.  Then Q1, Q2 and Q5 are served again
+    through the plain versions for ``AGREE_NEW`` tokens, fed the first
+    run's tokens: every step's logits finite, of the vocabulary's size, at
+    a cosine of at least ``LOGIT_COS`` to the kernel run's."""
+    from repro_torch.backends import DenseBackend
+    from repro_torch.models import Transformer
+
+    runs_cfg = qwen_runs()
+    gc.collect()                # engines of earlier phases
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = Transformer(runs_cfg["Q1"][0], device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    vocab = model.cfg.vocab_size
+    log(f"{QWEN} weights: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params "
+        f"bf16 ({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} "
+        f"GB), untied head, init {time.perf_counter() - t0:.1f}s")
+    runs = {}
+    for name, (cfg, reqs, prompts, serve_kw, launched, hit) in runs_cfg.items():
+        prompts = q3_traffic(vocab) if prompts == "q3" else None
+        eng = make_engine(cfg, model, dev, reqs, NEW_TOKENS, prompts=prompts, **serve_kw)
+        run = run_engine(torch, model, eng, record=name in QWEN_PLAIN)
+        check_served(eng, run["done"], len(reqs), NEW_TOKENS, vocab, prefix_hit=hit)
+        expect_path(f"{QWEN} run {name}", run["counts"], launched)
+        active = model.use_sparse(eng.max_context)
+        log_serving(f"{QWEN} {name} (backend {cfg.sparse.backend}, sparse_prefill "
+                    f"{cfg.sparse.sparse_prefill}, max_context {eng.max_context}, "
+                    f"plan {'active' if active else 'inactive'}, prefill_chunk "
+                    f"{eng.serve.prefill_chunk})", run, eng.metrics.snapshot())
+        runs[name] = run
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in QWEN_PLAIN:
+        cfg, reqs, _, serve_kw, _, hit = runs_cfg[name]
+        backend = DenseBackend(plain=True) if cfg.sparse.backend == "dense" else None
+        plain_cfg = cfg if backend else dataclasses.replace(
+            cfg, sparse=dataclasses.replace(cfg.sparse, backend="reference"))
+        eng = make_engine(plain_cfg, model, dev, reqs, AGREE_NEW, backend=backend,
+                          **serve_kw)
+        run = run_engine(torch, model, eng, forced=runs[name]["tokens"], record=True)
+        check_served(eng, run["done"], len(reqs), AGREE_NEW, vocab, prefix_hit=hit)
+        expect_path(f"{QWEN} run {name}, plain", run["counts"], set())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        lk, lp = runs[name]["logits"], run["logits"]
+        if not set(lp) <= set(lk):
+            fail(f"{QWEN} {name}: the plain run sampled at steps the kernel run did not")
+        for key, lg in (*((k, lk[k]) for k in lp), *lp.items()):
+            if lg.shape != (vocab,) or not bool(torch.isfinite(lg).all()):
+                fail(f"{QWEN} {name} logits at {key} of shape {tuple(lg.shape)} are "
+                     "not finite")
+        worst = min(float(torch.nn.functional.cosine_similarity(lk[k], lp[k], dim=0))
+                    for k in lp)
+        same = sum(int(lk[k].argmax() == lp[k].argmax()) for k in lp)
+        log(f"{QWEN} {name} kernels vs plain: requests {tuple(reqs)} x {AGREE_NEW} new "
+            f"tokens, fed the kernel run's tokens: min logit cosine {worst:.6f} (>= "
+            f"{LOGIT_COS}) over {len(lp)} steps, greedy tokens equal at {same} of "
+            f"{len(lp)}")
+        if not worst >= LOGIT_COS:
+            fail(f"{QWEN} {name}: kernel and plain logits drift apart: cosine {worst}")
+    use_config(model, runs_cfg["Q1"][0])
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1429,11 +1790,17 @@ def main() -> int:
 
     dec = check_fused_decode(torch, dev)
     pre = check_sparse_prefill(torch, dev)
+    # the same two kernels at the shapes phase 3b gives them (qwen3-8b)
+    dec_q = check_fused_decode(torch, dev, g=QG, live=QWEN_DECODE_LIVE, seed=11)
+    pre_q = check_sparse_prefill(torch, dev, g=QG, off=QWEN_PREFILL_OFF,
+                                 valid=QWEN_PREFILL_VALID, seed=12)
     scored = {q: check_centroid_scores(torch, dec, q) for q in ("int4_asym", "none")}
     att = check_paged_attention(torch, dec, scored["int4_asym"])
     pool = check_pool_rank_keys(torch, dev, dec)
     topk = check_topk_threshold(torch, dev, dec, scored["int4_asym"])
     flash = check_flash_attention(torch, dev)
+    flash_off = check_flash_offset(torch, dev)
+    ident = check_paged_identity(torch, dev)
     log(f"phase 2 done at {time.perf_counter() - T_START:.1f}s")
 
     cal = calibrate_phase(torch, dev)
@@ -1450,22 +1817,27 @@ def main() -> int:
     t_topk = time_topk_threshold(torch, topk)
     t_flash = time_flash_attention(torch, dev)
     sparse_prompt_ms = t_flash.pop("sparse_ms")
+    t_chunk = time_flash_chunk(torch, dev)
+    t_ident = time_paged_identity(torch, ident)
     log(f"phase 4 done at {time.perf_counter() - T_START:.1f}s")
 
     paths = serve(torch, dev, cal["cfg"], profile=args.profile)
     log(f"phase 3 done at {time.perf_counter() - T_START:.1f}s")
+    qwen = serve_qwen(torch, dev)
+    log(f"phase 3b done at {time.perf_counter() - T_START:.1f}s")
     fused, staged = paths["fused"], paths["staged"]
+    q1, q2 = qwen["Q1"], qwen["Q2"]
     kernels_line = [
         {"name": "fused_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_decode.cu",
          "replaces": "src/repro/kernels/fused_decode.py:333",
          "launches": fused["counts"]["fused_decode"]["launches"],
-         "max_abs_err": dec["err"], **t_dec, "library_ms": None},
+         "max_abs_err": max(dec["err"], dec_q["err"]), **t_dec, "library_ms": None},
         {"name": "sparse_prefill", "route": "cuda",
          "source": "src/repro_torch/csrc/sparse_prefill.cu",
          "replaces": "src/repro/kernels/sparse_prefill.py:355",
          "launches": fused["counts"]["sparse_prefill"]["launches"],
-         "max_abs_err": pre["err"], **t_pre, "library_ms": None},
+         "max_abs_err": max(pre["err"], pre_q["err"]), **t_pre, "library_ms": None},
         {"name": "centroid_scores_quantized", "route": "cuda",
          "source": "src/repro_torch/csrc/centroid_score.cu",
          "replaces": "src/repro/kernels/centroid_score.py:147",
@@ -1480,7 +1852,9 @@ def main() -> int:
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:143",
          "launches": staged["counts"]["paged_attention"]["launches"],
-         "max_abs_err": att["err"], **t_pa},
+         "max_abs_err": max(att["err"], ident["err"]), **t_pa,
+         **{f"identity_{k}": v for k, v in t_ident.items()},
+         "identity_launches": q2["counts"]["paged_attention"]["launches"]},
         {"name": "pool_rank_keys", "route": "cuda",
          "source": "src/repro_torch/csrc/pool_rank_keys.cu",
          "replaces": "src/repro/kernels/block_centroid.py:80",
@@ -1492,7 +1866,9 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:117",
-         "launches": 0, "max_abs_err": flash["err"], **t_flash},
+         "launches": q1["counts"]["flash_attention"]["launches"],
+         "max_abs_err": max(flash["err"], flash_off["err"]), **t_chunk,
+         **{f"sxs_{k}": v for k, v in t_flash.items()}},
     ]
     for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
@@ -1513,9 +1889,17 @@ def main() -> int:
         f"dequantizes split-half INT4)")
     log(f"launches: pool_rank_keys {cal['launches']} in the cuda calibration run "
         f"(one per layer, sample and candidate block size), 0 while serving; "
-        f"topk_threshold and flash_attention lie on no serving path (0); dense "
-        f"flash over the whole prompt / its sparse_prefill chunks = "
-        f"{t_flash['ms'] / sparse_prompt_ms:.3f}")
+        f"topk_threshold lies on no serving path (0); dense flash over the whole "
+        f"prompt / its sparse_prefill chunks = {t_flash['ms'] / sparse_prompt_ms:.3f}")
+    log(f"{QWEN} launches: Q1 flash_attention "
+        f"{q1['counts']['flash_attention']['launches']} over "
+        f"{q1['steps']['prefill_chunk']} prefill chunks "
+        f"({q1['counts']['flash_attention']['launches'] / q1['steps']['prefill_chunk']:.1f} "
+        f"per chunk), fused_decode {q1['counts']['fused_decode']['launches']} over "
+        f"{q1['steps']['decode_step']} decode steps; Q2 paged_attention (identity table) "
+        f"{q2['counts']['paged_attention']['launches']} over {q2['steps']['decode_step']} "
+        f"decode steps; flash_attention's kernel-line numbers are the chunk shape's, "
+        f"its S x S numbers under sxs_*")
     log(f"total {time.perf_counter() - T_START:.1f}s")
     (out_dir / "chip_smoke.log").write_text("\n".join(LOG) + "\n")
     print(card)

@@ -1,5 +1,6 @@
-"""Attention backend registry of the port: ``"reference"`` (plain PyTorch)
-and ``"cuda"`` (hand-written Hopper kernels)."""
+"""Attention backend registry of the port: ``"reference"`` (plain PyTorch),
+``"cuda"`` (hand-written Hopper kernels) and ``"dense"`` (the Full
+Attention baseline, on the same kernels)."""
 from repro_torch.backends.base import (
     AttentionBackend,
     AttentionPlan,
@@ -10,12 +11,16 @@ from repro_torch.backends.base import (
     get_backend,
     register_backend,
 )
+from repro_torch.backends.dense import DenseBackend
+
+register_backend(DenseBackend())
 
 __all__ = [
     "AttentionBackend",
     "AttentionPlan",
     "CentroidStore",
     "CudaBackend",
+    "DenseBackend",
     "ReferenceBackend",
     "build_plan",
     "get_backend",

@@ -16,7 +16,10 @@
   launches the hand-written kernels (their plain versions on CPU tensors)
   and decodes with the fused kernel when ``SparseConfig.fused_decode`` is
   set, else staged: the scoring kernel, the stable-sort selection, the
-  paged-attention kernel.
+  paged-attention kernel.  Both also run the dense attention of the
+  default configuration (:meth:`AttentionBackend.causal_attention`, dense
+  prefill) and of the inactive plan (:meth:`AttentionBackend.dense_decode`);
+  ``"dense"`` (:mod:`repro_torch.backends.dense`) decodes that way always.
 """
 from __future__ import annotations
 
@@ -41,6 +44,11 @@ from repro_torch.core.selection import (
     rank_blocks,
     select_page_table,
     selection_telemetry,
+)
+from repro_torch.core.sparse_attention import (
+    as_dense,
+    as_paged,
+    dense_decode_attention,
 )
 from repro_torch.core.stacked import LayoutArrays, stack_layouts
 
@@ -151,6 +159,8 @@ class AttentionBackend:
 
     name: str = "?"
     plain: bool = True
+    #: decodes over every live token (the Full Attention baseline)
+    full_attention: bool = False
 
     # -- stores ---------------------------------------------------------------
 
@@ -227,6 +237,60 @@ class AttentionBackend:
             n_valid=n_valid, chunk_offset=chunk_offset,
         )
 
+    def causal_attention(self, q, k, v, q_offset: int = 0, k_len=None):
+        """Dense causal attention of dense prefill: q ``[B, Hq, Sq, D]`` at
+        positions ``q_offset + i`` over the keys ``[0, k_len)`` of k/v
+        (dense ``[B, Hkv, Sk, D]`` or paged; ``k_len`` an int or ``[B]``;
+        None for a whole prompt: offset 0, keys ``[0, Sq)``) ->
+        ``[B, Hq, Sq, D]``.  The kernel backend launches
+        ``flash_attention``.  The plain one runs what JAX runs there: its
+        chunked online softmax over a whole prompt, the masked dense chunk
+        (the flash kernel's plain version) otherwise."""
+        from repro_torch.kernels import ops
+        from repro_torch.models.layers import attn_chunk, chunked_causal_attention
+
+        kd, vd = as_dense(k), as_dense(v)
+        Sq = q.shape[2]
+        if k_len is None:
+            q_offset, k_len = 0, Sq
+            # JAX's chunk; one under 64 (a length with no divisor near 512)
+            # would loop over up to Sq^2 / 2 chunk pairs in Python, so such
+            # a prompt takes the masked form
+            if self.plain and attn_chunk(Sq) >= 64:
+                return chunked_causal_attention(q, kd[:, :, :Sq], vd[:, :, :Sq],
+                                                chunk=attn_chunk(Sq))
+        fn = ops.flash_attention_reference if self.plain else ops.flash_attention
+        return fn(q, kd, vd, True, q_offset, k_len)
+
+    def full_page_table(self, k, seq_len):
+        """(identity page table ``[B, n_kv, n_pages]`` int32, page valid
+        while it holds a position ``< seq_len``) of paged k, for
+        :meth:`dense_decode`'s kernel; None on the plain backend."""
+        if self.plain:
+            return None
+        B, n_kv, n_pages, ps = k.shape[:4]
+        pages = torch.arange(n_pages, dtype=torch.int32, device=k.device)
+        table = pages.expand(B, n_kv, n_pages).contiguous()
+        valid = (pages * ps)[None, :] < seq_len.to(torch.int32)[:, None]
+        return table, valid[:, None].expand(B, n_kv, n_pages).contiguous()
+
+    def dense_decode(self, q, k, v, seq_len, page_size: int, table=None):
+        """Full-attention decode: q ``[B, n_q, D]`` over every key of k/v
+        (paged or dense) at a position ``< seq_len`` (all when None) ->
+        ``[B, n_q, D]``.  The kernel backend runs the paged-attention kernel
+        over the identity page table (``table``, from
+        :meth:`full_page_table` once per decode step; built here when
+        None); the plain one the oracle :func:`dense_decode_attention`."""
+        if self.plain:
+            return dense_decode_attention(q, as_dense(k), as_dense(v), seq_len)
+        kp, vp = as_paged(k, page_size), as_paged(v, page_size)
+        if seq_len is None:
+            seq_len = torch.full((q.shape[0],), kp.shape[2] * page_size,
+                                 dtype=torch.int32, device=q.device)
+        if table is None:
+            table = self.full_page_table(kp, seq_len)
+        return self.attend(q, kp, vp, *table, page_size, seq_len)
+
     def scores(self, rq, store: CentroidStore, la, n_kv: int) -> torch.Tensor:
         """Estimation: rank queries ``[B, n_q, Dp]`` + store -> block
         scores ``[B, n_kv, max_blocks]`` (``NEG_INF`` pads)."""
@@ -243,11 +307,15 @@ class AttentionBackend:
         fn = ops.paged_attention_reference if self.plain else ops.paged_attention
         return fn(q, k, v, page_table, page_valid, page_size, seq_len)
 
-    def decode(self, q, k, v, store, la, sparse, seq_len, collect_tel=False):
+    def decode(self, q, k, v, store, la, sparse, seq_len, collect_tel=False,
+               page_table=None):
         """Score -> top-K_h -> attend -> (out [B, n_q, D],
         page_table [B, H, P_sel], page_valid [B, H, P_sel]); with
         ``collect_tel`` also the ``[B, 4]`` sparsity counters
         (:func:`selection_telemetry`) of the selection just made.
+        ``page_table`` is read only by a backend that attends a fixed table
+        (``"dense"``: :meth:`full_page_table`, built once per decode step);
+        a sparse backend selects its own.
 
         The kernel backend with ``sparse.fused_decode`` runs the fused
         kernel (slots in ascending block order); otherwise, and always on

@@ -7,9 +7,9 @@ import dataclasses
 
 from repro_torch.config import ModelConfig
 
-from . import llama32_3b
+from . import llama32_3b, qwen3_8b
 
-_MODULES = {"llama3.2-3b": llama32_3b}
+_MODULES = {"llama3.2-3b": llama32_3b, "qwen3-8b": qwen3_8b}
 
 
 def get_config(name: str) -> ModelConfig:

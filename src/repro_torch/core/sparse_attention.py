@@ -1,5 +1,7 @@
 """Reference attention primitives (counterpart of
-``repro.core.sparse_attention``): the plain attention stage of decode."""
+``repro.core.sparse_attention``): the plain attention stage of the sparse
+decode and the full-attention decode oracle (the paper's Full Attention
+baseline)."""
 from __future__ import annotations
 
 import math
@@ -16,6 +18,36 @@ def as_paged(kv: torch.Tensor, page_size: int) -> torch.Tensor:
         return kv
     B, n_kv, S, D = kv.shape
     return kv.reshape(B, n_kv, S // page_size, page_size, D)
+
+
+def as_dense(kv: torch.Tensor) -> torch.Tensor:
+    """Paged ``[B, n_kv, n_pages, page, D]`` -> dense ``[B, n_kv, S, D]`` (a
+    view: the bytes are the same)."""
+    if kv.ndim == 4:
+        return kv
+    B, n_kv, n_pages, page, D = kv.shape
+    return kv.reshape(B, n_kv, n_pages * page, D)
+
+
+def dense_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           seq_len=None) -> torch.Tensor:
+    """Full-attention decode oracle: q ``[B, n_q, D]`` over every key of
+    dense k/v ``[B, n_kv, S, D]`` at a position ``< seq_len`` (all of them
+    when ``seq_len`` is None) -> ``[B, n_q, D]`` in q's dtype."""
+    B, n_q, D = q.shape
+    n_kv, S = k.shape[1], k.shape[2]
+    g = n_q // n_kv
+    qf = q.reshape(B, n_kv, g, D).to(torch.float32)
+    logits = torch.einsum("bhgd,bhsd->bhgs", qf, k.to(torch.float32))
+    logits = logits / math.sqrt(D)
+    if seq_len is not None:
+        sl = torch.as_tensor(seq_len, dtype=torch.int32, device=q.device)
+        sl = sl.reshape(-1, 1, 1, 1) if sl.ndim == 1 else sl
+        mask = torch.arange(S, device=q.device)[None, None, None, :] < sl
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", probs, v.to(torch.float32))
+    return out.reshape(B, n_q, D).to(q.dtype)
 
 
 def paged_attention_reference(

@@ -3,7 +3,7 @@
 plain ``flat_to_padded``) and ``paged_attention``, the ``fused_decode`` and
 ``sparse_prefill`` wrappers with the shared sparse-prefill preamble,
 ``topk_threshold`` (K_h from the layout) and the dense
-``flash_attention``; all but ``topk_threshold`` have a ``*_reference`` twin
+``flash_attention`` (queries at an offset over a prefix of the keys); all but ``topk_threshold`` have a ``*_reference`` twin
 that runs the kernel modules' plain versions (the ``"reference"`` backend,
 and the oracle the kernels are held against).
 """
@@ -236,13 +236,16 @@ def _sparse_prefill(fn, q, rq, k, v, score_store, la, sink_pages, local_pages,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """Dense GQA attention q ``[B, Hq, S, D]``, k/v ``[B, Hkv, S, D]`` ->
-    ``[B, Hq, S, D]`` (the dense-prefill baseline)."""
+                    causal: bool = True, q_offset: int = 0,
+                    k_len=None) -> torch.Tensor:
+    """Dense GQA attention, one kernel launch: q ``[B, Hq, Sq, D]`` at
+    positions ``q_offset + i`` over the keys ``[0, k_len)`` of k/v
+    ``[B, Hkv, Sk, D]`` (dense, or a paged cache's dense view), causal
+    when asked -> ``[B, Hq, Sq, D]`` (dense prefill, chunked or not)."""
     return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal)
+                              causal, q_offset, k_len)
 
 
-def flash_attention_reference(q, k, v, causal=True):
+def flash_attention_reference(q, k, v, causal=True, q_offset=0, k_len=None):
     """:func:`flash_attention` through the plain version."""
-    return fa.flash_attention_plain(q, k, v, causal)
+    return fa.flash_attention_plain(q, k, v, causal, q_offset, k_len)

@@ -312,11 +312,12 @@ def compare_topk_threshold(scores, k_per_head):
     return {"kernel": (thr_k, cnt_k), "selected": sel}
 
 
-def compare_flash_attention(q, k, v, causal):
-    """Dense flash kernel against its plain version -> {"max_abs_err",
+def compare_flash_attention(q, k, v, causal, q_offset=0, k_len=None):
+    """Dense flash kernel (queries at ``q_offset`` over the keys
+    ``[0, k_len)``) against its plain version -> {"max_abs_err",
     "max_rel_l2", "tol_use", "kernel", "plain"}; every row compared."""
-    out_k = ops.flash_attention(q, k, v, causal)
-    out_p = ops.flash_attention_reference(q, k, v, causal)
+    out_k = ops.flash_attention(q, k, v, causal, q_offset, k_len)
+    out_p = ops.flash_attention_reference(q, k, v, causal, q_offset, k_len)
     torch.cuda.synchronize()
     keep = torch.ones(out_p.shape[:-1], dtype=torch.bool, device=out_p.device)
     err, rel, use = check_outputs(out_k, out_p, keep, "flash_attention")

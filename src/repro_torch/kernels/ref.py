@@ -249,15 +249,26 @@ def topk_threshold_ref(scores: torch.Tensor, k_per_head: torch.Tensor):
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """q ``[B, Hq, S, D]``, k/v ``[B, Hkv, S, D]`` -> ``[B, Hq, S, D]`` in q's
-    dtype: f32 softmax attention, query head h reading kv head ``h // g``,
-    future keys at -1e30 when ``causal``.  Query heads go in chunks so that
-    the f32 logits stay within ``_LOGIT_ELEMS`` elements."""
-    B, Hq, S, D = q.shape
+                        causal: bool = True, q_offset: int = 0,
+                        k_len=None) -> torch.Tensor:
+    """q ``[B, Hq, Sq, D]`` at positions ``q_offset + i``, k/v
+    ``[B, Hkv, Sk, D]`` -> ``[B, Hq, Sq, D]`` in q's dtype: f32 softmax
+    attention, query head h reading kv head ``h // g``, keys at or past
+    ``k_len`` (None: Sk; an int or a ``[B]`` tensor) and, when ``causal``,
+    keys past the query's position at -1e30.  Query heads go in chunks so
+    that the f32 logits stay within ``_LOGIT_ELEMS`` elements."""
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
     g = Hq // k.shape[1]
-    step = max(1, _LOGIT_ELEMS // (B * S * S))
-    keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril_()
+    step = max(1, _LOGIT_ELEMS // (B * Sq * Sk))
+    keep = None
+    if causal:
+        pos = q_offset + torch.arange(Sq, device=q.device)
+        keep = torch.arange(Sk, device=q.device)[None, :] <= pos[:, None]
+    if k_len is not None:
+        kl = torch.as_tensor(k_len, device=q.device).reshape(-1, 1, 1, 1)
+        live = torch.arange(Sk, device=q.device)[None, None, None, :] < kl
+        keep = live if keep is None else keep & live
     outs = []
     for h0 in range(0, Hq, step):
         hs = torch.arange(h0, min(Hq, h0 + step), device=q.device)
@@ -265,7 +276,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kf = k[:, hs // g].to(torch.float32)
         vf = v[:, hs // g].to(torch.float32)
         logits = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(D)
-        if causal:
+        if keep is not None:
             logits = torch.where(keep, logits, NEG_INF)
         outs.append(torch.matmul(torch.softmax(logits, dim=-1), vf).to(q.dtype))
     return torch.cat(outs, dim=1)

@@ -2,16 +2,27 @@
 ``repro.models.transformer`` for the ``("attn",)`` pattern).
 
 Entry points:
-  prefill          prompt -> KV cache + decode store + prefill score segment
-  prefill_chunk    one prompt chunk of one batch slot (query-block sparse)
+  prefill          prompt -> KV cache + decode store (+ prefill score
+                   segment under sparse prefill)
+  prefill_chunk    one prompt chunk of one batch slot
   decode_step      one token for every slot: score -> top-K_h -> attend
                    (fused kernel or staged, ``SparseConfig.fused_decode``)
 
+Prefill is query-block sparse when ``SparseConfig.sparse_prefill`` is on
+and the plan is active; otherwise (the default) it is dense causal
+attention (``AttentionBackend.causal_attention``: the flash kernel, with
+the chunk's offset and live length for a chunk).  Decode is sparse when
+the plan is active at ``max_context`` (``context >= 2 x budget``), and
+attends every live token when it is not (``AttentionBackend.dense_decode``)
+or on the ``"dense"`` backend (whose ``decode`` runs the same); an inactive
+plan allocates no store.
+
 The JAX model scans over stacked layer parameters and donates its cache;
 here the layers are a Python loop over per-layer cache tensors, and every
-cache tensor (KV pages, stores, ``seq_len``) is updated in place.  Only the
-sparse path is ported: the plan must be active at ``max_context`` and
-``SparseConfig.sparse_prefill`` must be on.
+cache tensor (KV pages, stores, ``seq_len``) is updated in place.  The KV
+cache is always the paged ``[B, n_kv, n_pages, page, hd]`` tensor, viewed
+as JAX's dense ``[B, n_kv, S, hd]`` where JAX holds that layout (the
+bytes are the same).
 """
 from __future__ import annotations
 
@@ -101,18 +112,6 @@ class Transformer(nn.Module):
     def use_sparse(self, context_len: int) -> bool:
         return self.attention_plan(context_len).active
 
-    def _require_sparse(self, max_context: int):
-        if not self.use_sparse(max_context):
-            raise NotImplementedError(
-                f"the dense fallback is not ported: sparse attention is off "
-                f"at max_context={max_context} (needs >= 2 x token budget)"
-            )
-        if not self.cfg.sparse.sparse_prefill:
-            raise NotImplementedError(
-                "only the query-block sparse prefill is ported: set "
-                "SparseConfig.sparse_prefill=True"
-            )
-
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         w = self.embed.T if self.lm_head is None else self.lm_head
         return torch.matmul(h, w)
@@ -120,42 +119,59 @@ class Transformer(nn.Module):
     # ----------------------------------------------------------------- cache
 
     def init_cache(self, batch: int, max_context: int) -> Cache:
-        """Per-layer paged KV pools, decode stores and prefill score segments
-        for ``batch`` sequences of up to ``max_context`` tokens."""
-        self._require_sparse(max_context)
-        cfg = self.cfg
-        quant = cfg.sparse.quant
-        hd, ps = cfg.resolved_head_dim, cfg.sparse.page_size
+        """Per-layer paged KV pools for ``batch`` sequences of up to
+        ``max_context`` tokens, with the decode stores when the plan is
+        active and the prefill score segments when sparse prefill runs too.
+
+        An active plan holds ``max_context // page_size`` pages, as JAX's
+        paged cache does; an inactive one, whose JAX cache is dense, pads
+        the last page (``ceil(max_context / page_size)`` pages, the rows
+        past ``max_context`` never written nor attended)."""
+        cfg, sp = self.cfg, self.cfg.sparse
+        hd, ps = cfg.resolved_head_dim, sp.page_size
         plan = self.attention_plan(max_context)
-        stk = plan.stacked(self.device)
-        Dp = plan.rank_key_width
-        bits = store_bits(quant)
-        cw = Dp // 2 if bits == 4 else Dp
-        cdt = torch.uint8 if bits else torch.float32
         dev = self.device
-        rows = stk.total_rows
+        n_pages = max_context // ps if plan.active else -(-max_context // ps)
+        kv_shape = (batch, cfg.n_kv_heads, n_pages, ps, hd)
+        if plan.active:
+            stk = plan.stacked(dev)
+            Dp, bits = plan.rank_key_width, store_bits(sp.quant)
+            cw = Dp // 2 if bits == 4 else Dp
+            cdt = torch.uint8 if bits else torch.float32
+            rows = stk.total_rows
         entries = []
         for _ in range(cfg.n_layers):
-            kv_shape = (batch, cfg.n_kv_heads, max_context // ps, ps, hd)
-            entries.append({
-                "k": torch.zeros(kv_shape, dtype=self.dtype, device=dev),
-                "v": torch.zeros(kv_shape, dtype=self.dtype, device=dev),
-                "codes": torch.zeros((batch, rows, cw), dtype=cdt, device=dev),
-                "scale": torch.ones((batch, cfg.n_kv_heads, Dp),
-                                    dtype=torch.float32, device=dev),
-                "zero": torch.zeros((batch, cfg.n_kv_heads, Dp),
-                                    dtype=torch.float32, device=dev),
-                "pcodes": torch.zeros((batch, rows, cw), dtype=cdt, device=dev),
-                "pscale": torch.ones((batch, rows, 1), dtype=torch.float32,
-                                     device=dev),
-                "pzero": torch.zeros((batch, rows, 1), dtype=torch.float32,
-                                     device=dev),
-            })
-        return {
+            e = {"k": torch.zeros(kv_shape, dtype=self.dtype, device=dev),
+                 "v": torch.zeros(kv_shape, dtype=self.dtype, device=dev)}
+            if plan.active:
+                e["codes"] = torch.zeros((batch, rows, cw), dtype=cdt, device=dev)
+                e["scale"] = torch.ones((batch, cfg.n_kv_heads, Dp),
+                                        dtype=torch.float32, device=dev)
+                e["zero"] = torch.zeros((batch, cfg.n_kv_heads, Dp),
+                                        dtype=torch.float32, device=dev)
+            if plan.active and sp.sparse_prefill:
+                e["pcodes"] = torch.zeros((batch, rows, cw), dtype=cdt, device=dev)
+                e["pscale"] = torch.ones((batch, rows, 1), dtype=torch.float32,
+                                         device=dev)
+                e["pzero"] = torch.zeros((batch, rows, 1), dtype=torch.float32,
+                                         device=dev)
+            entries.append(e)
+        cache = {
             "seq_len": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "layers": entries,
-            "la": [stk.layer(l) for l in range(cfg.n_layers)],
+            "la": ([stk.layer(l) for l in range(cfg.n_layers)] if plan.active
+                   else [None] * cfg.n_layers),
+            "max_context": max_context,
         }
+        return cache
+
+    @staticmethod
+    def _active(cache: Cache) -> bool:
+        return cache["la"][0] is not None
+
+    @staticmethod
+    def _sparse_prefill(cache: Cache) -> bool:
+        return "pcodes" in cache["layers"][0]
 
     def _store(self, e) -> CentroidStore:
         quant = self.cfg.sparse.quant
@@ -173,26 +189,38 @@ class Transformer(nn.Module):
         B, S = tokens.shape
         max_context = S if max_context is None else max_context
         cache = self.init_cache(B, max_context)
+        active, use_sp = self._active(cache), self._sparse_prefill(cache)
         hd = cfg.resolved_head_dim
+        S_max = cache["layers"][0]["k"].shape[2] * sp.page_size
         positions = torch.arange(S, device=self.device)[None]
-        n_valid = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        if use_sp:
+            n_valid = torch.full((B,), S, dtype=torch.int32, device=self.device)
         x = self.embed[tokens]
         for layer, e, la in zip(self.layers, cache["layers"], cache["la"]):
             h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
             q, k, v = layers.qkv_project(layer, h, cfg, positions)
-            kd = e["k"].view(B, cfg.n_kv_heads, max_context, hd)
-            vd = e["v"].view(B, cfg.n_kv_heads, max_context, hd)
+            kd = e["k"].view(B, cfg.n_kv_heads, S_max, hd)
+            vd = e["v"].view(B, cfg.n_kv_heads, S_max, hd)
             kd[:, :, :S] = k.transpose(1, 2)
             vd[:, :, :S] = v.transpose(1, 2)
-            store, score = self.backend.prefill_stores(e["k"], la, sp)
-            for name, t in (("codes", store.codes), ("scale", store.scale),
-                            ("zero", store.zero), ("pcodes", score.codes),
-                            ("pscale", score.scale), ("pzero", score.zero)):
-                e[name].copy_(t)
-            attn, _ = self.backend.prefill_attention(
-                q.transpose(1, 2), e["k"], e["v"], score, la, sp,
-                n_valid=n_valid,
-            )
+            if use_sp:
+                store, score = self.backend.prefill_stores(e["k"], la, sp)
+                for name, t in (("pcodes", score.codes), ("pscale", score.scale),
+                                ("pzero", score.zero)):
+                    e[name].copy_(t)
+            elif active:
+                store = self.backend.prefill_store(e["k"], la, sp)
+            if active:
+                for name, t in (("codes", store.codes), ("scale", store.scale),
+                                ("zero", store.zero)):
+                    e[name].copy_(t)
+            if use_sp:
+                attn, _ = self.backend.prefill_attention(
+                    q.transpose(1, 2), e["k"], e["v"], score, la, sp,
+                    n_valid=n_valid,
+                )
+            else:
+                attn = self.backend.causal_attention(q.transpose(1, 2), kd, vd)
             x = x + layers.out_project(layer, attn.transpose(1, 2))
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
             x = x + layers.mlp(layer, h, cfg.activation)
@@ -208,21 +236,24 @@ class Transformer(nn.Module):
         ``tokens`` is the chunk buffer (its length sizes the score-refresh
         window, as the JAX model's compiled chunk shape does); only its first
         ``n_valid`` tokens are processed and written at rows
-        ``[offset, offset + n_valid)``.  ``offset`` must be a multiple of
-        ``SparseConfig.prefill_block_q``.  The slot's running score segment
-        is refreshed with the blocks the chunk completes, then each query
-        block attends its forced + top-scored blocks.  The decode store is
-        not maintained: call :meth:`refresh_slot_store` after the last chunk.
-        When the cache carries ``"_ptel"`` (``[n_layers]`` int32), each
-        layer's entry is set to the number of (query block, key block) pairs
-        it attended.
+        ``[offset, offset + n_valid)``.  Dense (the default): each chunk
+        query attends the slot's keys up to its own position.  Under sparse
+        prefill (the cache holds the score segment), ``offset`` must be a
+        multiple of ``SparseConfig.prefill_block_q``; the slot's running
+        score segment is refreshed with the blocks the chunk completes,
+        then each query block attends its forced + top-scored blocks.  The
+        decode store is not maintained: call :meth:`refresh_slot_store`
+        after the last chunk.  When the cache carries ``"_ptel"``
+        (``[n_layers]`` int32), each sparse layer's entry is set to the
+        number of (query block, key block) pairs it attended.
         -> (logits [vocab] at the last valid position, cache)."""
         cfg, sp = self.cfg, self.cfg.sparse
         C = len(tokens)
         tok = torch.as_tensor(tokens, device=self.device).long()[:n_valid]
         n_kv, hd, ps = cfg.n_kv_heads, cfg.resolved_head_dim, sp.page_size
         S_max = cache["layers"][0]["k"].shape[2] * ps
-        if offset % sp.prefill_block_q or offset + n_valid > S_max:
+        use_sp = self._sparse_prefill(cache)
+        if (use_sp and offset % sp.prefill_block_q) or offset + n_valid > S_max:
             raise ValueError(f"chunk [{offset}, {offset + n_valid}) is not "
                              f"query-block aligned or exceeds {S_max}")
         bits, sym = store_bits(sp.quant), store_symmetric(sp.quant)
@@ -236,19 +267,26 @@ class Transformer(nn.Module):
             h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
             q, k, v = layers.qkv_project(layer, h, cfg, positions)
             kslot, vslot = e["k"][slot], e["v"][slot]       # [n_kv, nP, ps, hd]
-            kslot.view(n_kv, S_max, hd)[:, offset:offset + n_valid] = k[0].transpose(0, 1)
-            vslot.view(n_kv, S_max, hd)[:, offset:offset + n_valid] = v[0].transpose(0, 1)
-            sstore = CentroidStore(e["pcodes"][slot][None], e["pscale"][slot][None],
-                                   e["pzero"][slot][None], bits, sym)
-            self.backend.refresh_score_rows(
-                sstore, kslot[None], la, offset, offset + n_valid, sp, window
-            )
-            attn, n_att = self.backend.prefill_attention(
-                q.transpose(1, 2), kslot[None], vslot[None], sstore, la, sp,
-                n_valid=offset + n_valid, chunk_offset=offset,
-            )
-            if ptel is not None:
-                ptel[l] = n_att.sum()
+            kd, vd = kslot.view(n_kv, S_max, hd), vslot.view(n_kv, S_max, hd)
+            kd[:, offset:offset + n_valid] = k[0].transpose(0, 1)
+            vd[:, offset:offset + n_valid] = v[0].transpose(0, 1)
+            if use_sp:
+                sstore = CentroidStore(e["pcodes"][slot][None],
+                                       e["pscale"][slot][None],
+                                       e["pzero"][slot][None], bits, sym)
+                self.backend.refresh_score_rows(
+                    sstore, kslot[None], la, offset, offset + n_valid, sp, window
+                )
+                attn, n_att = self.backend.prefill_attention(
+                    q.transpose(1, 2), kslot[None], vslot[None], sstore, la, sp,
+                    n_valid=offset + n_valid, chunk_offset=offset,
+                )
+                if ptel is not None and n_att is not None:
+                    ptel[l] = n_att.sum()
+            else:
+                attn = self.backend.causal_attention(
+                    q.transpose(1, 2), kd[None], vd[None], offset,
+                    offset + n_valid)
             x = x + layers.out_project(layer, attn.transpose(1, 2))
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
             x = x + layers.mlp(layer, h, cfg.activation)
@@ -258,7 +296,10 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def refresh_slot_store(self, cache: Cache, slot: int) -> Cache:
         """Rebuild one slot's decode-store rows from its K cache, in place
-        (same builder as :meth:`prefill`, so the bytes are identical)."""
+        (same builder as :meth:`prefill`, so the bytes are identical); no-op
+        when the plan is inactive (no store)."""
+        if not self._active(cache):
+            return cache
         for e, la in zip(cache["layers"], cache["la"]):
             st = self.backend.prefill_store(e["k"][slot][None], la,
                                             self.cfg.sparse)
@@ -270,7 +311,10 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def refresh_slot_score_rows(self, cache: Cache, slot: int) -> Cache:
         """Rebuild one slot's prefill score segment from its K cache, in
-        place (after a prefix-cache install, whose KV never ran a chunk)."""
+        place (after a prefix-cache install, whose KV never ran a chunk);
+        no-op without sparse prefill (no score segment)."""
+        if not self._sparse_prefill(cache):
+            return cache
         for e, la in zip(cache["layers"], cache["la"]):
             st = self.backend.prefill_score_rows(e["k"][slot][None], la,
                                                  self.cfg.sparse)
@@ -286,8 +330,11 @@ class Transformer(nn.Module):
         """One token for every slot at position ``cache["seq_len"]``.
         -> (logits [B, vocab], cache); ``seq_len`` is advanced in place.
         When the cache carries ``"_telemetry"`` (``[n_layers, B, 4]``
-        int32), each layer's slice is set to the decode's sparsity counters
-        (:func:`~repro_torch.core.selection.selection_telemetry`)."""
+        int32), each sparse layer's slice is set to the decode's sparsity
+        counters (:func:`~repro_torch.core.selection.selection_telemetry`);
+        dense decode (inactive plan, ``"dense"`` backend) sets nothing.
+        An inactive plan decodes through ``AttentionBackend.dense_decode``,
+        an active one through the backend's ``append`` and ``decode``."""
         cfg, sp = self.cfg, self.cfg.sparse
         tok = torch.as_tensor(tokens, device=self.device).long()
         B = tok.shape[0]
@@ -295,11 +342,20 @@ class Transformer(nn.Module):
         positions = seq_len[:, None].long()
         ps = sp.page_size
         bidx = torch.arange(B, device=self.device)
-        n_pages = cache["layers"][0]["k"].shape[2]
-        # JAX drops a write at position S_max; keep the old row there instead.
-        in_range = (seq_len < n_pages * ps)[:, None, None]
-        pos = torch.clamp(seq_len.long(), max=n_pages * ps - 1)
+        k0 = cache["layers"][0]["k"]
+        # the rows JAX holds: max_context // ps pages when paged, max_context
+        # when dense (an inactive plan's padded page rows are never used)
+        S_lim = min(cache["max_context"], k0.shape[2] * ps)
+        # JAX drops a write at position S_lim; keep the old row there instead.
+        in_range = (seq_len < S_lim)[:, None, None]
+        pos = torch.clamp(seq_len.long(), max=S_lim - 1)
         page, within = pos // ps, pos % ps
+        # every layer of a step that attends every live token (inactive
+        # plan, or the "dense" backend) reads one identity page table
+        dense, table = not self._active(cache), None
+        if dense or self.backend.full_attention:
+            live = torch.clamp(seq_len + 1, max=S_lim)
+            table = self.backend.full_page_table(k0, live)
         x = self.embed[tok][:, None]                        # [B, 1, d]
         tel = cache.get("_telemetry")
         for l, (layer, e, la) in enumerate(
@@ -309,19 +365,22 @@ class Transformer(nn.Module):
             for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0])):
                 old = e[name][bidx, :, page, within]         # [B, n_kv, hd]
                 e[name][bidx, :, page, within] = torch.where(in_range, new, old)
-            store = self._store(e)
-            self.backend.append(store, e["k"], la, seq_len, sp)
-            res = self.backend.decode(
-                q[:, 0], e["k"], e["v"], store, la, sp, seq_len + 1,
-                collect_tel=tel is not None,
-            )
-            out = res[0]
-            if tel is not None:
-                tel[l] = res[3]
+            if dense:
+                out = self.backend.dense_decode(q[:, 0], e["k"], e["v"], live,
+                                                ps, table)
+            else:
+                store = self._store(e)
+                self.backend.append(store, e["k"], la, seq_len, sp)
+                res = self.backend.decode(
+                    q[:, 0], e["k"], e["v"], store, la, sp, seq_len + 1,
+                    collect_tel=tel is not None, page_table=table,
+                )
+                out = res[0]
+                if tel is not None and res[3] is not None:
+                    tel[l] = res[3]
             x = x + layers.out_project(layer, out[:, None])
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
             x = x + layers.mlp(layer, h, cfg.activation)
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         seq_len += 1
         return self.unembed(x[:, 0]), cache
-

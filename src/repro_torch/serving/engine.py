@@ -7,16 +7,20 @@ Per tick the engine executes what the
 1. **admit** waiting requests into free slots (page-pool gated); a prompt
    whose page-aligned prefix hits the radix prefix cache gets the cached KV
    pages copied into its slot and its score segment rebuilt;
-2. **prefill chunks** through ``Transformer.prefill_chunk`` (query-block
-   sparse prefill); a finished prompt gets its decode store rebuilt and its
-   pages published to the prefix cache;
+2. **prefill chunks** through ``Transformer.prefill_chunk`` (dense, or
+   query-block sparse under ``SparseConfig.sparse_prefill``); a finished
+   prompt gets its decode store rebuilt and its pages published to the
+   prefix cache.  With ``ServeConfig.prefill_chunk`` 0 a prompt is
+   prefilled in one ``Transformer.prefill`` at ``max_context`` and
+   scattered into its slot, and there is no prefix cache;
 3. **decode** one ``decode_step`` over the whole batch; only decoding slots
    consume the sampled tokens (host-side lengths are authoritative);
 4. **retire / preempt** finished or evicted sequences.
 
-With ``telemetry=True`` the decode step and each prefill chunk also fill
-the sparsity counters of :mod:`repro_torch.obs.telemetry`, which the engine
-copies to the host once per decode tick and once per chunk and folds into
+With ``telemetry=True`` (and the plan active at ``max_context``) the
+decode step and each sparse prefill chunk also fill the sparsity counters
+of :mod:`repro_torch.obs.telemetry`, which the engine copies to the host
+once per decode tick and once per chunk and folds into
 ``metrics.snapshot()``.
 
 Not ported (each raises ``NotImplementedError`` when asked for): tiered KV
@@ -97,27 +101,36 @@ class Engine:
         self.finished: List[Request] = []
         self.metrics = ServingMetrics(clock=clock)
         self._chunk_len = min(serve_cfg.prefill_chunk, self.max_context)
-        if self._chunk_len <= 0:
-            raise NotImplementedError("monolithic prefill is not ported: "
-                                      "set ServeConfig.prefill_chunk > 0")
+        self._chunkable = serve_cfg.prefill_chunk > 0
         self.prefix_cache = (
-            PrefixCache(self.pool) if serve_cfg.enable_prefix_cache else None
+            PrefixCache(self.pool)
+            if serve_cfg.enable_prefix_cache and self._chunkable else None
         )
+        #: sparse prefill runs: chunk boundaries and reused prefix spans then
+        #: align to the query-block size (chunked selection is then
+        #: token-identical to single-shot sparse prefill)
+        self._sparse_prefill = (model_cfg.sparse.sparse_prefill
+                                and self._chunkable
+                                and model.use_sparse(self.max_context))
         self.scheduler = Scheduler(
             serve_cfg, self.pool, self.prefix_cache, self.metrics,
-            chunkable=True, chunk_align=model_cfg.sparse.prefill_block_q,
+            chunkable=self._chunkable,
+            chunk_align=(model_cfg.sparse.prefill_block_q
+                         if self._sparse_prefill else 1),
         )
         self._tokens_buf = np.zeros((self.max_batch,), np.int64)
         #: authoritative per-slot sequence lengths (tokens with KV in cache).
         self._seq_len = np.zeros((self.max_batch,), np.int32)
-        self._telemetry_on = telemetry
+        # counters only where selection runs (as JAX's set_tracing)
+        self._telemetry_on = telemetry and model.use_sparse(self.max_context)
         if self._telemetry_on:
             L = model_cfg.n_layers
             self.cache["_telemetry"] = torch.zeros(
                 (L, self.max_batch, N_COUNTERS), dtype=torch.int32,
                 device=self.device)
-            self.cache["_ptel"] = torch.zeros((L,), dtype=torch.int32,
-                                              device=self.device)
+            if self._sparse_prefill:
+                self.cache["_ptel"] = torch.zeros((L,), dtype=torch.int32,
+                                                  device=self.device)
             self.metrics.sparsity = SparsityAggregate(L)
             self._plan_layouts = model.attention_plan(self.max_context).layouts
 
@@ -151,8 +164,9 @@ class Engine:
         self.scheduler.submit(req)
 
     def _install(self, adm: AdmitDecision):
-        """Occupy the slot; copy prefix-cache KV pages into its rows and
-        rebuild its score segment (the installed span never ran a chunk)."""
+        """Occupy the slot; copy prefix-cache KV pages into its rows and,
+        under sparse prefill, rebuild its score segment (the installed span
+        never ran a chunk)."""
         seq = adm.seq
         self.slots[adm.slot] = seq
         self._seq_len[adm.slot] = adm.prefix_tokens
@@ -164,7 +178,8 @@ class Engine:
                     [kv["k"][l] for kv in adm.prefix_kv], dim=1)
                 e["v"][adm.slot, :, :nP] = torch.stack(
                     [kv["v"][l] for kv in adm.prefix_kv], dim=1)
-            self.model.refresh_slot_score_rows(self.cache, adm.slot)
+            if self._sparse_prefill:
+                self.model.refresh_slot_score_rows(self.cache, adm.slot)
 
     # -- prefill -------------------------------------------------------------
 
@@ -172,13 +187,16 @@ class Engine:
         seq = ch.seq
         if seq.state != PREFILL:      # preempted after planning
             return
+        if not self.scheduler._seq_chunkable(seq):
+            self._prefill_monolithic(seq)
+            return
         n = len(ch.tokens)
         buf = np.zeros((self._chunk_len,), np.int64)
         buf[:n] = ch.tokens
         logits, self.cache = self.model.prefill_chunk(
             self.cache, seq.slot, buf, ch.offset, n
         )
-        if self._telemetry_on:
+        if self._telemetry_on and self._sparse_prefill:
             self.metrics.on_prefill_sparsity(
                 self.cache["_ptel"].cpu().numpy(),
                 prefill_block_candidates(
@@ -190,6 +208,23 @@ class Engine:
         self.metrics.on_prefill(n)
         if ch.is_last:
             self._finish_prefill(seq, logits[None])
+
+    def _prefill_monolithic(self, seq: SeqState):
+        """Single-shot prefill (``prefill_chunk`` 0): one
+        ``Transformer.prefill`` of the prompt at ``max_context``, its
+        one-sequence cache scattered into the batch slot."""
+        if seq.req.prefix_emb is not None:
+            raise NotImplementedError("prefix embeddings are not ported")
+        tokens = torch.as_tensor(np.asarray(seq.prefill_tokens, np.int64))[None]
+        logits, one = self.model.prefill(tokens, max_context=self.max_context)
+        slot = seq.slot
+        for e, e1 in zip(self.cache["layers"], one["layers"]):
+            for name, t in e1.items():
+                e[name][slot] = t[0]
+        del one
+        self._seq_len[slot] = seq.n_prefill
+        self.metrics.on_prefill(seq.n_prefill)
+        self._finish_prefill(seq, logits)
 
     def _finish_prefill(self, seq: SeqState, logits: torch.Tensor):
         """Prompt complete: sample the first token, rebuild the slot's decode
@@ -203,15 +238,17 @@ class Engine:
                 raise SamplerAnomaly([seq.seq_id], detail="prefill logits")
             tok = int(first[0])
             resumed = False
-        self.model.refresh_slot_store(self.cache, seq.slot)
-        if self.prefix_cache is not None:
-            tokens = seq.prefill_tokens
-            n_pages = len(tokens) // self.pool.page_size
-            if n_pages:
-                pages = self.pool.table(seq.seq_id).physical[:n_pages]
-                self.prefix_cache.insert(
-                    tokens, pages, self._page_snapshot_fn(seq.slot, n_pages)
-                )
+        if self.scheduler._seq_chunkable(seq):
+            # a monolithic prefill built the store itself
+            self.model.refresh_slot_store(self.cache, seq.slot)
+            if self.prefix_cache is not None:
+                tokens = seq.prefill_tokens
+                n_pages = len(tokens) // self.pool.page_size
+                if n_pages:
+                    pages = self.pool.table(seq.seq_id).physical[:n_pages]
+                    self.prefix_cache.insert(
+                        tokens, pages, self._page_snapshot_fn(seq.slot, n_pages)
+                    )
         if not resumed:
             seq.req.output.append(tok)
             self.metrics.on_first_token(seq.seq_id)

@@ -37,7 +37,14 @@ with a number of rank keys that is not a multiple of a thread block's run
 store bytes equal to the ``"reference"`` backend's); the threshold kernel
 over row lengths with ties and +-inf (bitwise); the dense flash kernel
 causal and not, head_dim 64/128, GQA groups 1 to 8, sequence lengths that
-are not a multiple of its 128-row query tile.
+are not a multiple of its 128-row query tile; and with a query offset and
+a key length (chunked dense prefill): offsets that are no multiple of its
+64-key tile, chunks of 1, 64 and 512 queries, ragged key lengths per
+sequence, 32/8 and 24/8 heads, head_dim 64/128.  The paged-attention
+kernel also runs over the identity page table of dense decode (the
+``"dense"`` backend, an inactive plan) at GQA group 4 over 1024 pages, and
+the staged scoring and paged-attention kernels at GQA group 4 with
+head_dim 128 (qwen3-8b's shape).
 """
 import pytest
 import torch
@@ -255,7 +262,7 @@ def test_staged_kernels_match_plain_and_fused(cuda, quant, blocks, sink, local):
 
 @pytest.mark.parametrize("seq", [(1, 17), (31, 100), (2047, 513)],
                          ids=["edge", "tiny", "ragged"])
-@pytest.mark.parametrize("D,g", [(128, 3), (64, 1), (128, 8), (64, 5)])
+@pytest.mark.parametrize("D,g", [(128, 3), (64, 1), (128, 8), (64, 5), (128, 4)])
 def test_staged_kernels_shapes_and_lengths(cuda, seq, D, g):
     _staged(cuda, LAYOUTS["nonuniform"], "int4_asym", seq, 1, 4, D=D, g=g, seed=5)
 
@@ -304,10 +311,10 @@ def test_pool_rank_keys_kernel_ragged_grid(cuda, method, bs, D, dtype):
 
 
 @pytest.mark.parametrize("quant", QUANTS)
-@pytest.mark.parametrize("g", [1, 3, 8])
+@pytest.mark.parametrize("g", [1, 3, 8, 4])
 @pytest.mark.parametrize("D", [64, 128], ids=["Dp128", "Dp256"])
 def test_centroid_scores_kernel_groups_and_widths(cuda, quant, g, D):
-    """GQA groups 1, 3 and 8 at rank-key widths 128 and 256, every store:
+    """GQA groups 1, 3, 8 and 4 at rank-key widths 128 and 256, every store:
     scores within ``SCORE_RTOL``, the staged page sets equal to the fused
     kernel's (both score through ``common.cuh::score_row``)."""
     _staged(cuda, LAYOUTS["nonuniform"], quant, (S - 5, 700), 1, 4, D=D, g=g,
@@ -393,3 +400,87 @@ def test_flash_attention_kernel_ragged_query_tile_and_wide_groups(cuda, causal, 
     launches = flash_attention.launches
     parity.compare_flash_attention(q, k, v, causal)
     assert flash_attention.launches == launches + 1
+
+
+#: (chunk queries, offset, key buffer, key length per sequence or None)
+FLASH_CHUNKS = {
+    "chunk512-off1536": (512, 1536, 2048, (2048, 1600)),
+    "chunk512-off200": (512, 200, 1024, (712, 712)),
+    "chunk64-off63": (64, 63, 1024, (127, 100)),
+    "chunk64-off4001": (64, 4001, 4096, (4065, 4065)),
+    "chunk1-off1000": (1, 1000, 2048, (1001, 17)),
+    "chunk1-off0": (1, 0, 64, (1, 1)),
+    "chunk512-off0": (512, 0, 640, None),
+}
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (24, 8, 128), (32, 8, 64),
+                                      (24, 8, 64)], ids=["32-8-128", "24-8-128",
+                                                         "32-8-64", "24-8-64"])
+@pytest.mark.parametrize("case", list(FLASH_CHUNKS))
+def test_flash_attention_kernel_with_offset(cuda, case, hq, hkv, d):
+    """Queries at an offset over a prefix of the keys, as chunked dense
+    prefill calls the kernel: the key tile holding the length loads
+    zeros past it, a warpgroup's per-key mask starts at a tile found from
+    positions; the buffer's rows past the lengths hold large values, which
+    must never reach an output."""
+    sq, off, sk, k_len = FLASH_CHUNKS[case]
+    gen = torch.Generator(device=cuda).manual_seed(sq + off + hq + d)
+    q = torch.randn((2, hq, sq, d), generator=gen, device=cuda)
+    q = (q * parity.QSCALE).to(torch.bfloat16)
+    k, v = (torch.randn((2, hkv, sk, d), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    if k_len is not None:
+        for b, n in enumerate(k_len):
+            k[b, :, n:] = 3e4
+            v[b, :, n:] = 3e4
+        k_len = torch.tensor(k_len, dtype=torch.int32, device=cuda)
+    launches = flash_attention.launches
+    res = parity.compare_flash_attention(q, k, v, True, off, k_len)
+    assert flash_attention.launches == launches + 1
+    assert bool(torch.isfinite(res["kernel"]).all())
+    if k_len is not None and int(k_len[0]) == int(k_len[1]):
+        # one key length for every sequence: the int form, same output
+        out = flash_attention.flash_attention(q, k, v, True, off, int(k_len[0]))
+        assert torch.equal(out, res["kernel"])
+
+
+def test_flash_attention_kernel_offset_not_causal(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(77)
+    q = (torch.randn((2, 24, 100, 128), generator=gen, device=cuda)
+         * parity.QSCALE).to(torch.bfloat16)
+    k, v = (torch.randn((2, 8, 700, 128), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    k_len = torch.tensor([700, 333], dtype=torch.int32, device=cuda)
+    parity.compare_flash_attention(q, k, v, False, 300, k_len)
+
+
+@pytest.mark.parametrize("seq", [(16384, 12000, 7001, 1), (5, 16383, 16, 17)],
+                         ids=["ragged", "edges"])
+def test_paged_attention_kernel_identity_table(cuda, seq):
+    """Dense decode's identity page table over 1024 pages at GQA group 4
+    (qwen3-8b's 32 / 8 heads), through the ``"cuda"`` and ``"dense"``
+    backends against the plain oracle ``dense_decode_attention``."""
+    from repro_torch.backends import DenseBackend
+
+    B, n_kv, g, D, n_pages = 4, 8, 4, 128, 1024
+    gen = torch.Generator(device=cuda).manual_seed(sum(seq))
+    kp, vp = (torch.randn((B, n_kv, n_pages, PS, D), generator=gen, device=cuda)
+              .to(torch.bfloat16) for _ in range(2))
+    q = (torch.randn((B, n_kv * g, D), generator=gen, device=cuda)
+         * parity.QSCALE).to(torch.bfloat16)
+    sl = torch.tensor(seq, dtype=torch.int32, device=cuda)
+    tbl, vld = get_backend("cuda").full_page_table(kp, sl)
+    launches = paged_attention.launches
+    res = parity.compare_paged_attention(q, kp, vp, tbl, vld, PS, sl)
+    assert paged_attention.launches == launches + 1
+    sparse = SparseConfig()
+    out = get_backend("dense").decode(q, kp, vp, None, None, sparse, sl)[0]
+    assert torch.equal(out, res["kernel"])
+    # the model's decode step passes the table it built once for the step
+    stepped = get_backend("dense").decode(q, kp, vp, None, None, sparse, sl,
+                                          page_table=(tbl, vld))[0]
+    assert torch.equal(stepped, out)
+    oracle = DenseBackend(plain=True).decode(q, kp, vp, None, None, sparse, sl)[0]
+    keep = torch.ones(oracle.shape[:-1], dtype=torch.bool, device=cuda)
+    parity.check_outputs(out, oracle, keep, "dense decode vs its oracle")

@@ -55,7 +55,10 @@ FLASH_VARIANTS = {
         "    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) rescale(o, alpha);",
         "    rescale(o, alpha);")],
     "mask every tile": [("flash_attention.cu", "    if (causal && j >= diag0) {",
-                         "    if (causal) {")],
+                         "    if (causal) {"),
+                        ("flash_attention.cu",
+                         "    if ((TAIL || causal) && j >= mask_from) {",
+                         "    if (TAIL || causal) {")],
     "one warpgroup per block": [
         ("flash_attention.cu", "constexpr int BQ = 2 * ROWS_WG;", "constexpr int BQ = ROWS_WG;"),
         ("flash_attention.cu", "constexpr int NTHR = 256;", "constexpr int NTHR = 128;"),
@@ -129,7 +132,7 @@ def build_flash_variants(tmp: Path):
         if proc.returncode:
             raise SystemExit(f"variant {name!r} did not build:\n{err}")
         fn = ctypes.CDLL(str(d / "lib.so")).flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                                     ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -146,8 +149,8 @@ def flash_ablation(torch, out):
         def run(fn, q, k, v, causal):
             o = torch.empty_like(q)
             B, Hq, S, D = q.shape
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
-                    k.shape[1], S, D, int(causal), 1.0 / math.sqrt(D),
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, S,
+                    B, Hq, k.shape[1], S, S, D, 0, int(causal), 1.0 / math.sqrt(D),
                     torch.cuda.current_stream(dev).cuda_stream)
             if rc:
                 raise RuntimeError(f"CUDA error {rc} at launch")
