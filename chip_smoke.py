@@ -38,6 +38,19 @@ Phases (each failure is fatal, exit code != 0):
    Then the calibrated assignment of phase 2b is installed and requests 0
    and 3 are served with the fused kernel, then through the plain versions
    fed the same tokens (logit cosine at least 0.9995);
+5. (run after phase 3, on its weights and fused configuration) the
+   degradation ladder and a fault storm: requests 0, 1, 3 and 5 (24 new
+   tokens) served fault-free (run F, no injector), then fed F's tokens
+   under a plan built from F's schedule (run L: a prefill fault on rung
+   0, a decode fault on staged, a NaN row on staged, re-promotion back to
+   fused) and under ``default_storm()`` with request 5 poisoned on every
+   tick and a stuck clock that trips the watchdog (run S).  Every rung
+   must run whole decode ticks that launch its own kernels once per
+   layer and no other rung's, nothing may be lost, the pool must audit
+   clean, request 5 must fail as a sampler anomaly past its budget and
+   every other request end ok, and every committed position's logits
+   must be within a cosine of 0.9995 of F's.  Every serving run without an
+   injector must end on rung 0 with no degradation (no hidden fallback);
 3b. serve full-width qwen3-8b (36 layers, d_model 4096, 32 / 8 heads,
    untied head, bf16, random weights from a seeded generator) through
    ``Engine`` at max_batch 4, chunks of 512, 32 new tokens, temperature 0,
@@ -171,6 +184,20 @@ QWEN_DECODE_LIVE = tuple(PROMPT_LENS[i] + NEW_TOKENS // 2 for i in Q_REQS) + (1,
 QWEN_PREFILL_OFF = PROMPT_LENS[0] // CHUNK * CHUNK
 QWEN_PREFILL_VALID = (PROMPT_LENS[0], QWEN_PREFILL_OFF + CHUNK,
                       QWEN_PREFILL_OFF + CHUNK * 3 // 5, QWEN_PREFILL_OFF + 1)
+
+#: phase 5, the degradation ladder and a fault storm on phase 3's weights
+#: and fused main-path configuration: the requests (0 and 1 share the
+#: prefix), their new tokens, the clean decode ticks per re-promotion in
+#: run L (24 tokens give about 25 decode ticks, too few for three windows
+#: of the default 8), and the request the storm poisons on every tick
+LADDER_REQS, LADDER_NEW, LADDER_REPROMOTE, STORM_VICTIM = (0, 1, 3, 5), 24, 4, 5
+#: the kernels of the rungs' decode steps: (launched per layer, never)
+RUNG_DECODE = {
+    "fused": ({"fused_decode"}, {"centroid_scores_quantized", "paged_attention"}),
+    "staged": ({"centroid_scores_quantized", "paged_attention"}, {"fused_decode"}),
+    "reference": (set(), {"fused_decode", "centroid_scores_quantized",
+                          "paged_attention", "sparse_prefill"}),
+}
 
 LOG = []
 T_START = time.perf_counter()
@@ -1282,39 +1309,31 @@ def check_served(eng, done, n_requests, new_tokens, vocab, prefix_hit=True):
     pins = eng.prefix_cache.pages() if eng.prefix_cache is not None else None
     if eng.pool.assert_consistent(known_pins=pins):
         fail("page pool leaked pages")
-    if prefix_hit and eng.metrics.snapshot()["prefix_hit_tokens"] <= 0:
+    snap = eng.metrics.snapshot()
+    if prefix_hit and snap["prefix_hit_tokens"] <= 0:
         fail("the shared prefix was not served from the prefix cache")
+    if eng._fault is None and (snap["degradations"] or eng._rung):
+        # no hidden fallback: without injected faults the ladder never moves
+        fail(f"a run without faults left rung 0: {snap['degradations_by_rung']}")
+    if eng._fault is None and (snap["sampler_anomalies"] or snap["retries"]):
+        fail(f"a run without faults saw {snap['sampler_anomalies']} non-finite rows "
+             f"and {snap['retries']} retries")
 
 
-def run_engine(torch, model, eng, forced=None, record=False, profile=False):
+def run_engine(torch, eng, forced=None, record=False, profile=False,
+               probe=None):
     """Run ``eng`` to the end with every kernel's counts set to 0 just before
     and read just after -> dict with the finished requests, the counts, the
-    model steps taken, the wall time and, with ``record``, every sampled
-    row's logits and token by (request, position).  With ``forced``
-    ({(request, position): token}) the engine is fed those tokens in place
-    of its own samples."""
+    model steps taken, the wall time, the ``LadderProbe`` (``probe``, or a
+    new one) and, with ``record``, every sampled row's logits and token by
+    (request, position) and the tick it was last sampled at.  With
+    ``forced`` ({(request, position): token}) the engine is fed those tokens
+    in place of its own samples."""
     from repro_torch import kernels
+    from repro_torch.serving.probe import LadderProbe, SampleRecorder
 
-    logits, tokens = {}, {}
-    sample = eng._sample
-
-    def recording(seq_ids, positions, lg):
-        toks, fin = sample(seq_ids, positions, lg)
-        for r, key in enumerate(zip(seq_ids, positions)):
-            logits[key] = lg[r].float().cpu()
-            if forced is not None:
-                toks[r] = forced[key]
-            tokens[key] = int(toks[r])
-        return toks, fin
-
-    if record:
-        eng._sample = recording
-    steps = {"decode_step": 0, "prefill_chunk": 0}
-    for name in steps:
-        def counted(*a, _fn=getattr(model, name), _name=name, **k):
-            steps[_name] += 1
-            return _fn(*a, **k)
-        setattr(model, name, counted)
+    samples = SampleRecorder(eng, forced) if record else None
+    probe = probe or LadderProbe(eng)
     prof = None
     kernels.reset_counts()
     torch.cuda.synchronize()
@@ -1322,19 +1341,24 @@ def run_engine(torch, model, eng, forced=None, record=False, profile=False):
     if profile:
         acts = [torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            done = eng.run_until_done(max_ticks=2000)
+            done = eng.run_until_done(max_ticks=2000, tick_callback=probe)
             torch.cuda.synchronize()
     else:
-        done = eng.run_until_done(max_ticks=2000)
+        done = eng.run_until_done(max_ticks=2000, tick_callback=probe)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.counts()
-    for name in steps:
-        delattr(model, name)
-    if record:
-        del eng._sample         # the recording closure holds the engine
-    return {"done": done, "counts": counts, "steps": steps, "wall": wall,
-            "logits": logits, "tokens": tokens, "prof": prof}
+    probe.detach()
+    run = {"done": done, "counts": counts, "wall": wall, "prof": prof,
+           "probe": probe, "logits": {}, "tokens": {}, "ticks": {},
+           "steps": {name: sum(k == kind for st in probe.steps.values()
+                               for _, k, _ in st)
+                     for name, kind in (("decode_step", "decode"),
+                                        ("prefill_chunk", "chunk"))}}
+    if samples is not None:
+        samples.detach()
+        run.update(logits=samples.logits, tokens=samples.tokens, ticks=samples.ticks)
+    return run
 
 
 def expect_path(what, counts, launched):
@@ -1393,7 +1417,7 @@ def agree_with_plain(torch, model, cfgs, dev):
     ):
         eng = make_engine(cfg, model, dev, AGREE_REQS, AGREE_NEW, telemetry=True)
         forced = runs["fused"]["tokens"] if runs else None
-        run = run_engine(torch, model, eng, forced=forced, record=True)
+        run = run_engine(torch, eng, forced=forced, record=True)
         check_served(eng, run["done"], len(AGREE_REQS), AGREE_NEW, cfg.vocab_size)
         expect_path(f"agreement run '{name}'", run["counts"], launched)
         run["snap"] = eng.metrics.snapshot()
@@ -1444,7 +1468,7 @@ def serve_f32_store(torch, model, cfg, dev):
     ):
         eng = make_engine(c, model, dev, (3,), AGREE_NEW)
         forced = runs["staged f32"]["tokens"] if runs else None
-        run = run_engine(torch, model, eng, forced=forced, record=True)
+        run = run_engine(torch, eng, forced=forced, record=True)
         check_served(eng, run["done"], 1, AGREE_NEW, c.vocab_size, prefix_hit=False)
         expect_path(f"{name} run", run["counts"], launched)
         runs[name] = run
@@ -1476,7 +1500,7 @@ def serve_calibrated(torch, model, cfg, cal_cfg, dev):
                               ("plain", plain, set())):
         eng = make_engine(c, model, dev, CAL_REQS, AGREE_NEW)
         forced = runs["fused"]["tokens"] if runs else None
-        run = run_engine(torch, model, eng, forced=forced, record=True)
+        run = run_engine(torch, eng, forced=forced, record=True)
         check_served(eng, run["done"], len(CAL_REQS), AGREE_NEW, c.vocab_size,
                      prefix_hit=False)
         expect_path(f"calibrated {name} run", run["counts"], launched)
@@ -1497,6 +1521,262 @@ def serve_calibrated(torch, model, cfg, cal_cfg, dev):
         f"{json.dumps({n: c['launches'] for n, c in runs['fused']['counts'].items() if c['launches']})}")
     if not worst >= LOGIT_COS:
         fail(f"calibrated fused logits drift from the plain path: cosine {worst}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the degradation ladder and a fault storm at full width
+# ---------------------------------------------------------------------------
+
+
+def decode_timer(torch, profiled=False):
+    """-> (a ``decode_hook`` for ``LadderProbe``, the times it records by
+    rung).  Each decode step's host time and the CUDA-event time from its
+    start to its end on the stream (stream wall time: idle gaps between
+    its kernels count); with ``profiled``, its device-busy time instead:
+    the summed times of the kernels it launched, from a ``torch.profiler``
+    session around the step (synchronized on both sides)."""
+    times = {}
+
+    def hook(rung, call):
+        if profiled:
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out = call()
+                torch.cuda.synchronize()
+            times.setdefault(rung, []).append(
+                sum(r[0] for r in device_time_rows(torch, prof)))
+            return out
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = call()
+        ev[1].record()
+        times.setdefault(rung, []).append((time.perf_counter() - t0, ev))
+        return out
+
+    return hook, times
+
+
+def step_times(torch, times, ladder):
+    """Mean ms of a decode step by rung name: host and stream wall time
+    (``host_ms``, ``stream_ms``), or device-busy time (``busy_ms``) for a
+    profiled run."""
+    def mean(v):
+        return sum(v) / len(v)
+
+    torch.cuda.synchronize()
+    out = {}
+    for rung, xs in sorted(times.items()):
+        if isinstance(xs[0], float):
+            out[ladder[rung][0]] = {"steps": len(xs), "busy_ms": mean(xs)}
+        else:
+            out[ladder[rung][0]] = {
+                "steps": len(xs), "host_ms": mean([h * 1e3 for h, _ in xs]),
+                "stream_ms": mean([ev[0].elapsed_time(ev[1]) for _, ev in xs])}
+    return out
+
+
+def ladder_plan(probe, repromote):
+    """Run L's plan from run F's schedule (which depends on lengths only, so
+    L, whose faults restore nothing, keeps it): a prefill fault on the last
+    tick with a chunk (rung 0 -> staged; the reference rung prefills dense,
+    so it must see no chunk), a decode fault on the next decode step
+    (staged -> reference); ``repromote`` clean decode ticks later (back on
+    staged) one whole staged tick, then a NaN row of one request (staged
+    -> reference); then two windows of ``repromote`` clean ticks back to
+    fused.  -> (plan, tick of the first fault)."""
+    chunk_ticks = sorted(t for t, st in probe.steps.items()
+                         if any(k == "chunk" for _, k, _ in st))
+    decodes = {t: ids for t, st in probe.steps.items() for _, k, ids in st
+               if k == "decode"}
+    t_p = chunk_ticks[-1]
+    after = sorted(t for t in decodes if t > t_p)
+    if len(after) < 3 * repromote + 4:
+        fail(f"run F has {len(after)} decode ticks from tick {t_p}: too few for "
+             f"the ladder's three windows of {repromote} clean ticks")
+    t_nan = after[repromote + 2]
+    plan = [dict(site="prefill", tick=t_p, count=1),
+            dict(site="decode", tick=after[0], count=1),
+            dict(site="decode_nan", tick=t_nan, seq_id=min(decodes[t_nan]), count=1)]
+    return plan, t_p
+
+
+def check_rung_launches(what, probe, ladder, n_layers):
+    """Every rung ran at least one whole decode tick, and each such tick
+    launched its rung's kernels once per layer and none of the others."""
+    whole = probe.whole_decode_ticks()
+    for rung, (name, _) in enumerate(ladder):
+        if not whole.get(rung):
+            fail(f"{what}: rung {name} ran no whole decode tick")
+        want, never = RUNG_DECODE[name]
+        for t in whole[rung]:
+            got = probe.launches[t]
+            if any(got[k] != n_layers for k in want) or any(got[k] for k in never):
+                fail(f"{what}: tick {t} on rung {name} launched "
+                     f"{ {k: v for k, v in got.items() if v} }")
+    return {ladder[r][0]: len(ts) for r, ts in whole.items()}
+
+
+def committed_logits(torch, what, run, ref, vocab):
+    """The logits at every (request, position) a run committed: finite, of
+    the vocabulary's size, at a cosine of at least ``LOGIT_COS`` to run F's
+    -> (the least cosine, the number of positions)."""
+    keys = [(r.req_id, i) for r in run["reqs"] for i in range(len(r.output))]
+    worst = 1.0
+    for key in keys:
+        lg = run["logits"][key]
+        if lg.shape != (vocab,) or not bool(torch.isfinite(lg).all()):
+            fail(f"{what}: logits at {key} are not finite")
+        worst = min(worst, float(torch.nn.functional.cosine_similarity(
+            lg, ref["logits"][key], dim=0)))
+    if not worst >= LOGIT_COS:
+        fail(f"{what}: logits drift from the fault-free run: cosine {worst}")
+    return worst, len(keys)
+
+
+def serve_ladder(torch, model, cfg, dev):
+    """Phase 5: requests ``LADDER_REQS`` x ``LADDER_NEW`` tokens on phase 3's
+    fused main path (``"cuda"``, fused decode, sparse prefill), one engine
+    per run.  F runs fault-free (no injector) and records logits and
+    tokens.  L, fed F's tokens, runs ``ladder_plan`` (``repromote_after``
+    ``LADDER_REPROMOTE``): the ladder goes fused -> staged -> reference,
+    back to staged, down again on a NaN row, and back to fused (exactly
+    one degradation to staged, two to reference, three re-promotions);
+    every rung must run whole decode ticks with its own launches, every
+    request end ok with no retry.  S, fed F's tokens, runs
+    ``default_storm()`` with a NaN row of ``STORM_VICTIM`` on every tick
+    and a stuck clock of ``watchdog_ticks`` + 2 ticks: the victim must fail
+    (sampler anomaly, past its budget), every other request end ok, the
+    watchdog fire, a checkpoint restore, and the tiered-memory sites fire 0
+    times.  In L and S every non-finite row must be one the plan poisoned.
+    Every committed position's logits must be finite and within
+    ``LOGIT_COS`` of F's; L's logits before its first fault are compared
+    bitwise (reported).  L is run once more free (not fed), its decode
+    steps each under the profiler for their device-busy time by rung, and
+    the streams equal to F's counted."""
+    from repro_torch.config import ResilienceConfig
+    from repro_torch.resilience import FaultInjector, FaultSpec, default_storm
+    from repro_torch.serving.probe import LadderProbe
+
+    vocab, n_layers = cfg.vocab_size, cfg.n_layers
+    prompts = traffic(vocab)
+
+    def one_run(name, plan=None, forced=None, profiled=False, **res_kw):
+        eng = make_engine(cfg, model, dev, LADDER_REQS, LADDER_NEW, prompts=prompts,
+                          resilience=ResilienceConfig(**res_kw))
+        reqs = [s.req for s in eng.scheduler.waiting]
+        inj, poisoned = None, []
+        if plan is not None:
+            inj = FaultInjector([FaultSpec(**d) for d in plan])
+            rows_of = inj.poison_rows
+
+            def poison_rows(*a):
+                rows = rows_of(*a)
+                poisoned.append(len(rows))
+                return rows
+
+            inj.poison_rows = poison_rows
+            eng.set_fault_injector(inj)
+        hook, times = decode_timer(torch, profiled)
+        run = run_engine(torch, eng, forced=forced, record=True,
+                         probe=LadderProbe(eng, decode_hook=hook))
+        run.update(reqs=reqs, snap=eng.metrics.snapshot(), inj=inj,
+                   ladder=eng._ladder, rung=eng._rung,
+                   times=step_times(torch, times, eng._ladder))
+        pins = eng.prefix_cache.pages()
+        if eng.pool.assert_consistent(known_pins=pins):
+            fail(f"run {name}: page pool leaked pages")
+        if any(not r.done for r in reqs):
+            fail(f"run {name}: requests lost")
+        if run["snap"]["sampler_anomalies"] != sum(poisoned):
+            # no hidden fallback: every non-finite row is one the plan poisoned
+            fail(f"run {name}: {run['snap']['sampler_anomalies']} non-finite rows, "
+                 f"{sum(poisoned)} poisoned")
+        log_serving(f"phase 5 run {name}", run, run["snap"])
+        what = ("device-busy ms (profiled)" if profiled
+                else "host ms, stream wall ms from CUDA events")
+        log(f"phase 5 run {name}: mean decode step by rung ({what}): "
+            f"{json.dumps(run['times'])}")
+        keys = ("degradations_by_rung", "repromotions", "retries", "checkpoints_restored",
+                "watchdog_fires", "sampler_anomalies", "requests_failed", "preemptions")
+        log(f"phase 5 run {name}: {json.dumps({k: run['snap'][k] for k in keys})}"
+            + (f", faults fired {json.dumps(inj.fired)}" if inj else ""))
+        log(f"phase 5 run {name}: steps by tick (rung, kind, decoding requests): "
+            + json.dumps({t: [[r, k[0], ids] for r, k, ids in st]
+                          for t, st in sorted(run["probe"].steps.items())}))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run
+
+    f = one_run("F")
+    for r in f["reqs"]:
+        if r.status != "ok" or len(r.output) != LADDER_NEW:
+            fail(f"run F: request {r.req_id} ended {r.status} with {len(r.output)} tokens")
+    if f["snap"]["degradations"] or f["rung"] or f["snap"]["sampler_anomalies"]:
+        fail("run F (no injector) left rung 0 or saw a non-finite row")
+    expect_path("phase 5 run F", f["counts"], {"fused_decode", "sparse_prefill"})
+
+    plan, t_first = ladder_plan(f["probe"], LADDER_REPROMOTE)
+    log(f"phase 5 run L plan: {json.dumps(plan)}")
+    ladder = one_run("L", plan, forced=f["tokens"], repromote_after=LADDER_REPROMOTE)
+    snap = ladder["snap"]
+    if [n for n, _ in ladder["ladder"]] != ["fused", "staged", "reference"]:
+        fail(f"run L: ladder {ladder['ladder']}")
+    # the plan's three faults, each one rung down; three re-promotions back
+    if (snap["degradations_by_rung"] != {"staged": 1, "reference": 2}
+            or snap["repromotions"] != 3 or ladder["rung"] != 0):
+        fail(f"run L: degradations {snap['degradations_by_rung']}, repromotions "
+             f"{snap['repromotions']}, final rung {ladder['rung']}")
+    for r in ladder["reqs"]:
+        if r.status != "ok" or len(r.output) != LADDER_NEW or r.failure is not None:
+            fail(f"run L: request {r.req_id} ended {r.status}")
+    if snap["retries"]:
+        fail(f"run L: {snap['retries']} retries (the ladder absorbs every fault)")
+    whole = check_rung_launches("run L", ladder["probe"], ladder["ladder"], n_layers)
+    worst_l, n_l = committed_logits(torch, "run L", ladder, f, vocab)
+    early = [k for k, t in ladder["ticks"].items() if t < t_first]
+    same = sum(int(torch.equal(ladder["logits"][k], f["logits"][k])) for k in early)
+    log(f"phase 5 run L: whole decode ticks by rung {json.dumps(whole)}; min logit "
+        f"cosine to F {worst_l:.6f} over {n_l} committed positions (>= {LOGIT_COS}); "
+        f"before the first fault (tick {t_first}) logits bitwise equal to F's at "
+        f"{same} of {len(early)} positions")
+
+    storm = [dataclasses.asdict(s) for s in default_storm()]
+    watchdog = ResilienceConfig().watchdog_ticks
+    stuck_from = max(f["ticks"].values()) // 2
+    storm += [dict(site="decode_nan", seq_id=STORM_VICTIM),
+              dict(site="tick_stuck", from_tick=stuck_from,
+                   until_tick=stuck_from + watchdog + 1)]
+    s = one_run("S", storm, forced=f["tokens"])
+    snap = s["snap"]
+    for r in s["reqs"]:
+        if r.req_id == STORM_VICTIM:
+            if (r.status != "failed" or r.failure["reason"] != "sampler_anomaly"
+                    or r.failure["retries"] <= ResilienceConfig().failure_budget):
+                fail(f"run S: request {r.req_id} ended {r.status} {r.failure}")
+        elif r.status != "ok" or len(r.output) != LADDER_NEW:
+            fail(f"run S: request {r.req_id} ended {r.status} with {len(r.output)} tokens")
+    if snap["watchdog_fires"] < 1 or snap["checkpoints_restored"] < 1:
+        fail(f"run S: watchdog fires {snap['watchdog_fires']}, checkpoint restores "
+             f"{snap['checkpoints_restored']}")
+    if s["inj"].fired.get("host_io", 0) or s["inj"].fired.get("promote_delay", 0):
+        fail(f"run S: tiered-memory sites fired {s['inj'].fired}")
+    worst_s, n_s = committed_logits(torch, "run S", s, f, vocab)
+    log(f"phase 5 run S: failure {json.dumps(next(r.failure for r in s['reqs'] if r.req_id == STORM_VICTIM))}; "
+        f"min logit cosine to F {worst_s:.6f} over {n_s} committed positions")
+
+    # L once more, not fed F's tokens, each decode step under the profiler
+    free = one_run("L free", plan, profiled=True, repromote_after=LADDER_REPROMOTE)
+    same_streams = sum(int(list(r.output) == [f["tokens"][(r.req_id, i)]
+                                              for i in range(LADDER_NEW)])
+                       for r in free["reqs"])
+    log(f"phase 5: run L free (not fed F's tokens): {same_streams} of "
+        f"{len(LADDER_REQS)} token streams equal to F's; wall F {f['wall']:.2f}s, "
+        f"L {ladder['wall']:.2f}s, S {s['wall']:.2f}s, L free {free['wall']:.2f}s "
+        f"(profiler sessions included)")
+    return {"counts": ladder["counts"]}
 
 
 def time_decode_steps(torch, model, cfgs, dev, rounds=15):
@@ -1596,7 +1876,7 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
 
     paths = {}
     eng = make_engine(fused_cfg, model, dev, range(len(PROMPT_LENS)), NEW_TOKENS)
-    run = run_engine(torch, model, eng, profile=profile)
+    run = run_engine(torch, eng, profile=profile)
     if profile:
         profile_summary(torch, run["prof"], run["wall"])
     check_served(eng, run["done"], len(PROMPT_LENS), NEW_TOKENS, fused_cfg.vocab_size)
@@ -1608,7 +1888,7 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
 
     eng = make_engine(cfgs["staged"], model, dev, STAGED_REQS, NEW_TOKENS,
                       telemetry=True)
-    run = run_engine(torch, model, eng, profile=profile)
+    run = run_engine(torch, eng, profile=profile)
     if profile:
         profile_summary(torch, run["prof"], run["wall"])
     check_served(eng, run["done"], len(STAGED_REQS), NEW_TOKENS, fused_cfg.vocab_size)
@@ -1624,6 +1904,9 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
     agree_with_plain(torch, model, cfgs, dev)
     paths["f32"] = {"counts": serve_f32_store(torch, model, cfgs["staged"], dev)}
     serve_calibrated(torch, model, fused_cfg, cal_cfg, dev)
+    log(f"phase 3 done at {time.perf_counter() - T_START:.1f}s")
+    paths["ladder"] = serve_ladder(torch, model, fused_cfg, dev)
+    log(f"phase 5 done at {time.perf_counter() - T_START:.1f}s")
     if profile:
         log(f"decode_step ms: {json.dumps(time_decode_steps(torch, model, cfgs, dev))}")
     del model
@@ -1701,7 +1984,7 @@ def serve_qwen(torch, dev):
     for name, (cfg, reqs, prompts, serve_kw, launched, hit) in runs_cfg.items():
         prompts = q3_traffic(vocab) if prompts == "q3" else None
         eng = make_engine(cfg, model, dev, reqs, NEW_TOKENS, prompts=prompts, **serve_kw)
-        run = run_engine(torch, model, eng, record=name in QWEN_PLAIN)
+        run = run_engine(torch, eng, record=name in QWEN_PLAIN)
         check_served(eng, run["done"], len(reqs), NEW_TOKENS, vocab, prefix_hit=hit)
         expect_path(f"{QWEN} run {name}", run["counts"], launched)
         active = model.use_sparse(eng.max_context)
@@ -1720,7 +2003,7 @@ def serve_qwen(torch, dev):
             cfg, sparse=dataclasses.replace(cfg.sparse, backend="reference"))
         eng = make_engine(plain_cfg, model, dev, reqs, AGREE_NEW, backend=backend,
                           **serve_kw)
-        run = run_engine(torch, model, eng, forced=runs[name]["tokens"], record=True)
+        run = run_engine(torch, eng, forced=runs[name]["tokens"], record=True)
         check_served(eng, run["done"], len(reqs), AGREE_NEW, vocab, prefix_hit=hit)
         expect_path(f"{QWEN} run {name}, plain", run["counts"], set())
         del eng
@@ -1822,7 +2105,6 @@ def main() -> int:
     log(f"phase 4 done at {time.perf_counter() - T_START:.1f}s")
 
     paths = serve(torch, dev, cal["cfg"], profile=args.profile)
-    log(f"phase 3 done at {time.perf_counter() - T_START:.1f}s")
     qwen = serve_qwen(torch, dev)
     log(f"phase 3b done at {time.perf_counter() - T_START:.1f}s")
     fused, staged = paths["fused"], paths["staged"]
@@ -1871,10 +2153,14 @@ def main() -> int:
          **{f"sxs_{k}": v for k, v in t_flash.items()}},
     ]
     for k in kernels_line:
+        # the launches of phase 5's ladder run (L: all three rungs)
+        k["ladder_launches"] = paths["ladder"]["counts"][k["name"]]["launches"]
+    for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library {lib}, "
-            f"launches while serving {k['launches']}")
+            f"launches while serving {k['launches']}, in phase 5's run L "
+            f"{k['ladder_launches']}")
     f_steps, s_steps = fused["steps"], staged["steps"]
     log(f"launches per decode step: fused path "
         f"{fused['counts']['fused_decode']['launches'] / f_steps['decode_step']:.1f} "

@@ -78,6 +78,11 @@ class PagePool:
         #: hides transient overcommit (e.g. during preemption storms), so
         #: benches report this instead.
         self.peak_used_pages = 0
+        #: optional ``callable(reason, need)`` fault-injection hook
+        #: (:mod:`repro_torch.resilience`): raises :class:`PoolExhausted`
+        #: before any allocation state mutates.  ``None`` (the default)
+        #: leaves the allocator untouched.
+        self.fault_hook = None
 
     # -- capacity ------------------------------------------------------------
 
@@ -108,6 +113,8 @@ class PagePool:
 
     def _take(self, need: int, reason: str) -> List[int]:
         """Pop ``need`` fresh pages (refcount 0 -> 1), all-or-nothing."""
+        if self.fault_hook is not None and need > 0:
+            self.fault_hook(reason, need)
         if need > len(self._free):
             raise PoolExhausted(
                 f"{reason} needs {need} pages, only {len(self._free)} free"

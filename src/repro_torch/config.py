@@ -1,8 +1,9 @@
 """Configuration schema of the PyTorch port (counterpart of ``repro.config``).
 
 Only what the serving path of a dense decoder reads: the AB-Sparse knobs
-(:class:`SparseConfig`), the architecture (:class:`ModelConfig`) and the
-serving engine's knobs (:class:`ServeConfig`).  Field names and defaults
+(:class:`SparseConfig`), the architecture (:class:`ModelConfig`), the
+serving engine's knobs (:class:`ServeConfig`) and its failure-domain
+policy (:class:`ResilienceConfig`).  Field names and defaults
 match the JAX package so one set of values configures both.
 """
 from __future__ import annotations
@@ -95,6 +96,31 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
 
+@dataclass(frozen=True)
+class ResilienceConfig:
+    """Failure-domain policy of the serving engine (:mod:`repro_torch.resilience`).
+
+    Step faults (injected device errors, non-finite logits) re-run down the
+    degradation ladder; faults at the ladder's floor restore the implicated
+    sequences from their last checkpoint under a per-request retry budget;
+    a tick watchdog turns silent no-progress into a forced preemption.
+    """
+
+    #: step faults tolerated per request before it retires as FAILED.
+    failure_budget: int = 3
+    #: base re-admission backoff in ticks after a checkpoint restore;
+    #: doubles with each accumulated failure.
+    retry_backoff_ticks: int = 2
+    #: committed decode tokens between per-sequence checkpoints (the
+    #: checkpoint on entering decode is always taken).
+    checkpoint_interval: int = 16
+    #: consecutive no-progress ticks (with work pending) before the
+    #: watchdog preempts the scheduler's victim.
+    watchdog_ticks: int = 8
+    #: clean decode ticks at a degraded rung before re-promoting one rung
+    #: back toward the configured backend.
+    repromote_after: int = 8
+
 
 @dataclass(frozen=True)
 class ServeConfig:
@@ -113,6 +139,7 @@ class ServeConfig:
     interactive_ttft_slo: float = 1.0
     batch_ttft_slo: float = 60.0
     prefix_wait_ticks: int = 8
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
 
     def slo_target(self, slo_class: str) -> float:
         if slo_class == "interactive":

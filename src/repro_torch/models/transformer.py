@@ -26,6 +26,8 @@ bytes are the same).
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -74,6 +76,20 @@ class Transformer(nn.Module):
             DecoderLayer(cfg, self.dtype, self.device) for _ in range(cfg.n_layers)
         )
         self.backend = get_backend(cfg.sparse.backend)
+
+    def with_sparse(self, **overrides) -> "Transformer":
+        """This model under another :class:`SparseConfig` (``overrides`` of
+        its fields): a shallow copy with its own ``cfg`` and ``backend``
+        and the same parameter tensors and submodules (no weight is
+        copied).  The serving engine's degradation
+        ladder runs its lower rungs through such views; caches are shared
+        too, as long as the overrides keep the cache layout (backend,
+        fused or staged decode, sparse prefill)."""
+        cfg = dataclasses.replace(
+            self.cfg, sparse=dataclasses.replace(self.cfg.sparse, **overrides))
+        view = copy.copy(self)
+        view.cfg, view.backend = cfg, get_backend(cfg.sparse.backend)
+        return view
 
     # ------------------------------------------------------------------ init
 
@@ -170,8 +186,15 @@ class Transformer(nn.Module):
         return cache["la"][0] is not None
 
     @staticmethod
-    def _sparse_prefill(cache: Cache) -> bool:
+    def _has_score_segment(cache: Cache) -> bool:
         return "pcodes" in cache["layers"][0]
+
+    def _sparse_prefill(self, cache: Cache) -> bool:
+        """Prefill runs query-block sparse when this model's config asks for
+        it and the cache holds the score segment (a model with
+        ``sparse_prefill`` off runs dense chunks on a cache built with it
+        on, and leaves the segment untouched)."""
+        return self.cfg.sparse.sparse_prefill and self._has_score_segment(cache)
 
     def _store(self, e) -> CentroidStore:
         quant = self.cfg.sparse.quant
@@ -313,7 +336,7 @@ class Transformer(nn.Module):
         """Rebuild one slot's prefill score segment from its K cache, in
         place (after a prefix-cache install, whose KV never ran a chunk);
         no-op without sparse prefill (no score segment)."""
-        if not self._sparse_prefill(cache):
+        if not self._has_score_segment(cache):
             return cache
         for e, la in zip(cache["layers"], cache["la"]):
             st = self.backend.prefill_score_rows(e["k"][slot][None], la,

@@ -1,7 +1,8 @@
-"""Request-lifecycle metrics (``repro.serving.metrics`` trimmed to what the
-port's scheduler and engine call: no trace spans, tiering or failure
-counters), plus the sparsity telemetry the engine folds in when it runs
-with ``telemetry=True``.
+"""Request-lifecycle metrics (``repro.serving.metrics`` without trace spans
+or tiering counters): per-request timelines, fleet counters, the SLO
+aggregates, the failure-domain counters of :mod:`repro_torch.resilience`
+(always in the snapshot), plus the sparsity telemetry the engine folds in
+when it runs with ``telemetry=True``.
 
 - TTFT  = first-token time - submit time (includes queueing),
 - TPOT  = (finish - first token) / (output tokens - 1),
@@ -23,6 +24,8 @@ class RequestMetrics:
     deadline: Optional[float] = None
     prefix_hit_tokens: int = 0
     preemptions: int = 0
+    #: step-fault retries charged against this request's failure budget.
+    retries: int = 0
     t_submit: Optional[float] = None
     t_admit: Optional[float] = None
     t_first_token: Optional[float] = None
@@ -47,6 +50,20 @@ class RequestMetrics:
         if self.output_tokens <= 1:
             return 0.0
         return (self.t_finish - self.t_first_token) / (self.output_tokens - 1)
+
+    @property
+    def deadline_missed(self) -> bool:
+        """``interactive`` / ``batch`` miss on first-token time, the
+        ``deadline`` class on completion time; unfinished requests never
+        count as misses."""
+        if self.deadline is None:
+            return False
+        if self.slo_class == "deadline":
+            return self.t_finish is not None and self.t_finish > self.deadline
+        return (
+            self.t_first_token is not None
+            and self.t_first_token > self.deadline
+        )
 
 
 def _pct(xs: List[float], q: float) -> float:
@@ -79,6 +96,18 @@ class ServingMetrics:
         #: :meth:`on_sparsity` / :meth:`on_prefill_sparsity` and surface in
         #: :meth:`snapshot`.
         self.sparsity = None
+        # -- failure domains (repro_torch.resilience); always present so
+        # the snapshot carries the counters whether or not faults fire --
+        self.retries = 0
+        self.replayed_tokens = 0
+        self.checkpoints_taken = 0
+        self.checkpoints_restored = 0
+        self.degradations: Dict[str, int] = {}      # rung name -> count
+        self.repromotions = 0
+        self.watchdog_fires = 0
+        self.sampler_anomalies = 0
+        self.host_io_errors = 0
+        self.requests_failed: Dict[int, str] = {}   # req_id -> reason
 
     def _req(self, req_id: int) -> RequestMetrics:
         return self.requests.setdefault(req_id, RequestMetrics(req_id))
@@ -123,6 +152,48 @@ class ServingMetrics:
         if r.t_finish is None:
             r.t_finish = self.clock()
 
+    # -- failure domains (repro_torch.resilience) ----------------------------
+
+    def on_retry(self, req_id: int, reason: str):
+        self._req(req_id).retries += 1
+        self.retries += 1
+
+    def on_checkpoint(self, req_id: int):
+        self.checkpoints_taken += 1
+
+    def on_replay_token(self, req_id: int):
+        """A resumed sequence rebuilt one committed token's KV through the
+        decode path (forced input, sample discarded)."""
+        self.replayed_tokens += 1
+
+    def on_restore(self, req_id: int):
+        """Checkpoint restore: the request re-queues (backoff) with its
+        output truncated to the last checkpoint's watermark."""
+        self.checkpoints_restored += 1
+
+    def on_degrade(self, rung: str, reason: str):
+        self.degradations[rung] = self.degradations.get(rung, 0) + 1
+
+    def on_repromote(self, rung: str):
+        self.repromotions += 1
+
+    def on_watchdog(self, idle_ticks: int):
+        self.watchdog_fires += 1
+
+    def on_sampler_anomaly(self, n: int = 1):
+        self.sampler_anomalies += n
+
+    def on_host_io_error(self, op: str):
+        self.host_io_errors += 1
+
+    def on_request_failed(self, req_id: int, reason: str):
+        """Failure budget exhausted: terminal, with a structured reason.
+        The request is not counted as finished (``t_finish`` stays unset),
+        so latency aggregates cover completed requests only."""
+        self.requests_failed[req_id] = reason
+
+    # -- device-side sparsity telemetry --------------------------------------
+
     def on_sparsity(self, tel, slots):
         """Fold one decode tick's ``[n_layers, B, 4]`` counter array (a
         fresh host copy, kept until the next snapshot)."""
@@ -155,10 +226,49 @@ class ServingMetrics:
             "ttft_mean": _mean(ttfts),
             "ttft_p50": _pct(ttfts, 0.50),
             "ttft_p95": _pct(ttfts, 0.95),
+            "ttft_p99": _pct(ttfts, 0.99),
             "tpot_mean": _mean(tpots),
             "tpot_p50": _pct(tpots, 0.50),
+            "tpot_p95": _pct(tpots, 0.95),
+            "tpot_p99": _pct(tpots, 0.99),
             "queue_time_mean": _mean(queues),
         }
+        misses = sum(1 for r in done if r.deadline_missed)
+        snap["deadline_misses"] = misses
+        snap["deadline_miss_rate"] = misses / len(done) if done else 0.0
+        per_class: Dict[str, Dict[str, float]] = {}
+        for cls in sorted({r.slo_class for r in done}):
+            cdone = [r for r in done if r.slo_class == cls]
+            cttft = [r.ttft for r in cdone if r.ttft is not None]
+            ctpot = [r.tpot for r in cdone if r.tpot is not None]
+            cmiss = sum(1 for r in cdone if r.deadline_missed)
+            per_class[cls] = {
+                "finished": len(cdone),
+                "ttft_p50": _pct(cttft, 0.50),
+                "ttft_p95": _pct(cttft, 0.95),
+                "ttft_p99": _pct(cttft, 0.99),
+                "tpot_p50": _pct(ctpot, 0.50),
+                "tpot_p95": _pct(ctpot, 0.95),
+                "tpot_p99": _pct(ctpot, 0.99),
+                "deadline_misses": cmiss,
+                "deadline_miss_rate": cmiss / len(cdone) if cdone else 0.0,
+            }
+        snap["per_class"] = per_class
+        failed_by_reason: Dict[str, int] = {}
+        for reason in self.requests_failed.values():
+            failed_by_reason[reason] = failed_by_reason.get(reason, 0) + 1
+        snap["retries"] = self.retries
+        snap["replayed_tokens"] = self.replayed_tokens
+        snap["checkpoints_taken"] = self.checkpoints_taken
+        snap["checkpoints_restored"] = self.checkpoints_restored
+        snap["degradations"] = sum(self.degradations.values())
+        snap["degradations_by_rung"] = dict(self.degradations)
+        snap["repromotions"] = self.repromotions
+        snap["watchdog_fires"] = self.watchdog_fires
+        snap["sampler_anomalies"] = self.sampler_anomalies
+        snap["host_io_errors"] = self.host_io_errors
+        snap["requests_failed"] = len(self.requests_failed)
+        snap["failed_by_reason"] = failed_by_reason
         if self.sparsity is not None:
             snap.update(self.sparsity.snapshot())
         return snap

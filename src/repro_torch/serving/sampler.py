@@ -7,6 +7,13 @@ from its own ``torch.Generator`` seeded from ``(seed, seq_id, position)``,
 so a token depends only on its sequence and position, never on the batch
 or the tick schedule (JAX's ``fold_in`` key stream cannot be reproduced in
 PyTorch; the distributions agree, the draws do not).
+
+Hardened against non-finite logits: :func:`finite_mask` is the detector
+and :func:`guarded_sample` raises a typed :class:`SamplerAnomaly` (which the
+engine catches) instead of sampling.  A NaN row must
+never reach :func:`sample` at ``temperature > 0``: ``torch.multinomial``
+raises a bare ``RuntimeError`` on it (JAX's ``categorical`` returns a
+token), so the engine samples only the finite rows.
 """
 from __future__ import annotations
 
@@ -16,10 +23,15 @@ import torch
 
 
 class SamplerAnomaly(RuntimeError):
-    """Non-finite logits reached the sampler."""
+    """Non-finite logits reached the sampler.  Carries the implicated
+    ``seq_ids`` so the engine restores exactly the poisoned sequences and
+    commits the rest of the batch.  ``injected`` marks rows that a fault
+    injector poisoned: only those may move the degradation ladder."""
 
-    def __init__(self, seq_ids: Sequence[int], detail: str = ""):
+    def __init__(self, seq_ids: Sequence[int], detail: str = "",
+                 injected: bool = False):
         self.seq_ids = list(seq_ids)
+        self.injected = injected
         msg = f"non-finite logits for sequences {self.seq_ids}"
         super().__init__(f"{msg} ({detail})" if detail else msg)
 
@@ -27,6 +39,24 @@ class SamplerAnomaly(RuntimeError):
 def finite_mask(logits: torch.Tensor) -> torch.Tensor:
     """Per-row all-finite mask: ``[B, V] -> [B]`` bool."""
     return torch.isfinite(logits).all(dim=-1)
+
+
+def guarded_sample(
+    logits: torch.Tensor,          # [B, V]
+    seq_ids: Sequence[int],
+    positions: Sequence[int],
+    temperature: float = 0.6,
+    top_k: int = 20,
+    top_p: float = 0.95,
+    seed: int = 0,
+) -> torch.Tensor:
+    """:func:`sample`, but raise :class:`SamplerAnomaly` naming the
+    sequences of the non-finite rows instead of sampling them."""
+    bad = torch.nonzero(~finite_mask(logits)).flatten().tolist()
+    if bad:
+        raise SamplerAnomaly([seq_ids[i] for i in bad],
+                             detail=f"{len(bad)} poisoned rows")
+    return sample(logits, seq_ids, positions, temperature, top_k, top_p, seed)
 
 
 def _row_seed(seed: int, seq_id: int, pos: int) -> int:

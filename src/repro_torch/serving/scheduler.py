@@ -1,7 +1,11 @@
 """Serving scheduler: SLO-aware admission, chunked prefill, preemption.
 
-A copy of ``repro.serving.scheduler`` without the failure-domain paths
-(checkpoint restore, failure budgets), which the port does not have.
+A copy of ``repro.serving.scheduler``, failure-domain paths included
+(checkpoint restore with backoff, failure budgets, forced preemption).
+The ``tier_bound`` branch of the decode-page reservation (a
+:class:`~repro_torch.resilience.HostIOError` out of the pool) cannot be
+reached in the port: only tiered KV memory, which is not ported, raises
+one.
 
 The :class:`Scheduler` owns the request lifecycle
 (``queued -> prefill -> decode -> finished``, with ``preempted`` looping
@@ -73,9 +77,16 @@ class Request:
     # filled by the engine:
     output: List[int] = field(default_factory=list)
     done: bool = False
+    #: "ok" | "failed" — "failed" when the request exhausted its failure
+    #: budget and was retired without completing (see repro_torch.resilience).
+    status: str = "ok"
+    #: structured failure record (reason / detail / tick / retries).
+    failure: Optional[Dict[str, Any]] = None
 
 
 QUEUED, PREFILL, DECODE, FINISHED = "queued", "prefill", "decode", "finished"
+#: terminal state for a request retired by the failure budget.
+FAILED = "failed"
 
 
 @dataclass
@@ -106,13 +117,21 @@ class SeqState:
     #: prefix-cache tokens installed at this admission (skipped compute).
     prefix_tokens: int = 0
     #: committed output tokens to replay through the DECODE path after a
-    #: resume (preemption): fed as forced inputs
+    #: resume (preemption or failure-domain restore): fed as forced inputs
     #: one per tick, samples discarded, so the regenerated KV is
     #: byte-identical to the original decode-time KV.  Recomputing them via
     #: chunked prefill instead is NOT exact when sparse decode is active —
     #: dense prefill and sparse decode see different hidden states for the
     #: same token, and the drift can flip later samples.
     replay: List[int] = field(default_factory=list)
+    #: last checkpoint (:class:`repro_torch.resilience.Checkpoint`) — the
+    #: committed-output watermark a failure-domain restore truncates to.
+    checkpoint: Optional[Any] = None
+    #: step-fault retries consumed (counts toward the failure budget).
+    retries: int = 0
+    #: earliest tick this sequence may be re-admitted after a restore
+    #: (exponential backoff); admission skips it without blocking peers.
+    retry_after: int = 0
 
     def __post_init__(self):
         if self.prefill_tokens is None:
@@ -282,6 +301,11 @@ class Scheduler:
         idx = 0
         while idx < len(self.waiting) and free_slots:
             seq = self.waiting[idx]
+            if seq.retry_after > self.metrics.ticks:
+                # restore backoff: not eligible yet — skip it instead of
+                # head-of-line blocking the queue behind a failing request.
+                idx += 1
+                continue
             tokens = seq.prefill_tokens
             matched, pages, kvs = 0, [], []
             if self.prefix_cache is not None and self._seq_chunkable(seq):
@@ -398,7 +422,12 @@ class Scheduler:
                     self.pool.extend(seq.seq_id, 1)
                     break
                 except PoolExhausted as exc:
-                    if (
+                    # tier-bound exhaustion (an injected ``HostIOError``)
+                    # cannot be fixed by unpinning cached pages —
+                    # ``evict_for`` would report success off the free-page
+                    # count without freeing anything and this loop would
+                    # spin; go straight to preemption.
+                    if not getattr(exc, "tier_bound", False) and (
                         self.prefix_cache is not None
                         and self.prefix_cache.evict_for(1)
                     ):
@@ -410,13 +439,20 @@ class Scheduler:
                         break
         return preempted
 
+    def preempt(self, seq: SeqState):
+        """Forced preemption — the engine's watchdog calls this for the
+        victim when ticks stop making progress; freeing its table is the
+        way to restore progress."""
+        self._preempt(seq)
+
     def _preempt(self, seq: SeqState):
         self._release(seq)
         self.metrics.on_preempt(seq.seq_id)
 
     def _release(self, seq: SeqState):
         """Free the sequence's pages and re-queue it with its generated
-        output preserved.  Only the PROMPT re-prefills on resume (and typically
+        output preserved (shared with preemption and the failure-domain
+        restore).  Only the PROMPT re-prefills on resume (and typically
         re-matches the prefix cache, whose snapshots are the original
         bytes); the committed output replays through the decode path —
         see ``SeqState.replay`` for why prefill recompute would not be
@@ -430,6 +466,34 @@ class Scheduler:
         seq.prefix_tokens = 0
         seq.prefix_deferred = 0
         self._requeue(seq)
+
+    # -- failure domains (repro_torch.resilience) ----------------------------
+
+    def restore(self, seq: SeqState, eligible_tick: int = 0):
+        """Failure-domain restore: truncate the output to the last
+        checkpoint's watermark and re-queue the request, not eligible for
+        re-admission before ``eligible_tick`` (exponential backoff).  The
+        truncated tokens regenerate byte-identically on re-admission —
+        sampling is keyed by (seq_id, position), and the resume prefill
+        rebuilds KV exactly."""
+        ck = seq.checkpoint
+        out = seq.req.output
+        if ck is not None and len(out) > ck.n_output:
+            del out[ck.n_output:]
+        seq.retry_after = eligible_tick
+        self._release(seq)
+        self.metrics.on_restore(seq.seq_id)
+
+    def fail(self, seq: SeqState, reason: str):
+        """Retire a request as FAILED (failure budget exhausted): free its
+        pages and drop it from the running set with a structured reason —
+        the tick loop keeps serving everyone else."""
+        self.pool.free(seq.seq_id)
+        self.running.pop(seq.seq_id, None)
+        if seq in self.waiting:
+            self.waiting.remove(seq)
+        seq.state = FAILED
+        self.metrics.on_request_failed(seq.seq_id, reason)
 
     # -- retirement ----------------------------------------------------------
 

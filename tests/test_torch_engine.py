@@ -167,7 +167,6 @@ def test_unported_engine_options_raise():
 
     model = Transformer(cfg, device="cpu")
     for kw, serve in (({"mesh": object()}, SERVE), ({"trace": object()}, SERVE),
-                      ({"fault_injector": object()}, SERVE),
                       ({}, dict(SERVE, hbm_pages=64))):
         with pytest.raises(NotImplementedError):
             TEngine(cfg, model, TServe(**serve), device="cpu", **kw)

@@ -44,7 +44,10 @@ sequence, 32/8 and 24/8 heads, head_dim 64/128.  The paged-attention
 kernel also runs over the identity page table of dense decode (the
 ``"dense"`` backend, an inactive plan) at GQA group 4 over 1024 pages, and
 the staged scoring and paged-attention kernels at GQA group 4 with
-head_dim 128 (qwen3-8b's shape).
+head_dim 128 (qwen3-8b's shape).  Last, the serving engine's degradation
+ladder at smoke width: each rung's whole decode ticks launch its own
+kernels, and the degraded run's logits stay within a cosine of 0.9995 of
+a fault-free run fed the same tokens.
 """
 import pytest
 import torch
@@ -484,3 +487,96 @@ def test_paged_attention_kernel_identity_table(cuda, seq):
     oracle = DenseBackend(plain=True).decode(q, kp, vp, None, None, sparse, sl)[0]
     keep = torch.ones(oracle.shape[:-1], dtype=torch.bool, device=cuda)
     parity.check_outputs(out, oracle, keep, "dense decode vs its oracle")
+
+
+# -- the degradation ladder on the card ------------------------------------------
+
+
+def _ladder_serve(dev, model, plan=None, forced=None):
+    """Two requests (200 and 150 tokens, 16 new) through ``Engine`` on the
+    ``"cuda"`` backend with the fused decode and sparse prefill, chunks of
+    128, ``repromote_after`` 3, ``plan`` injected, ``forced`` tokens fed in
+    place of the samples.  -> (engine, requests, the run's
+    ``SampleRecorder`` and ``LadderProbe``)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.config import ResilienceConfig, ServeConfig
+    from repro_torch.resilience import FaultInjector, FaultSpec
+    from repro_torch.serving import Engine, Request
+    from repro_torch.serving.probe import LadderProbe, SampleRecorder
+
+    eng = Engine(model.cfg, model, ServeConfig(
+        max_batch=2, max_context=512, prefill_chunk=128, prefill_tokens_per_tick=192,
+        temperature=0.0, resilience=ResilienceConfig(repromote_after=3)), device=dev)
+    if plan is not None:
+        eng.set_fault_injector(FaultInjector([FaultSpec(**d) for d in plan]))
+    samples, probe = SampleRecorder(eng, forced), LadderProbe(eng)
+    rng = np.random.default_rng(9)
+    reqs = [Request(i, rng.integers(0, model.cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate((200, 150))]
+    for r in reqs:
+        eng.submit(r)
+    kernels.reset_counts()
+    eng.run_until_done(max_ticks=200, tick_callback=probe)
+    samples.detach()
+    probe.detach()
+    return eng, reqs, samples, probe
+
+
+def test_ladder_rungs_launch_their_kernels(cuda):
+    """The three-rung ladder at smoke width (2 layers, 4 / 2 heads of 64,
+    bf16): a prefill fault on the last chunk tick (fused -> staged), a
+    decode fault (-> reference), a NaN row on the staged rung (->
+    reference), re-promotion back to fused.  Each rung runs a whole decode
+    tick that launches its kernels once per layer and no other rung's, the
+    reference rung sees no chunk (it prefills dense), no request is charged
+    a retry, and every committed position's logits are within cosine 0.9995
+    of a fault-free run fed the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import Transformer
+
+    base = smoke_variant(get_config("llama3.2-3b"))
+    cfg = dataclasses.replace(
+        base, d_model=256, n_heads=4, n_kv_heads=2, dtype="bfloat16",
+        sparse=dataclasses.replace(
+            base.sparse, backend="cuda", fused_decode=True, sparse_prefill=True,
+            token_budget=128, block_sizes=((16, 32), (64, 16)), prefill_block_q=64))
+    model = Transformer(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    _, _, rec_f, probe_f = _ladder_serve(cuda, model)
+    last_chunk = max(t for t, st in probe_f.steps.items()
+                     if any(k == "chunk" for _, k, _ in st))
+    after = sorted(t for t, st in probe_f.steps.items() if t > last_chunk
+                   and any(k == "decode" for _, k, _ in st))
+    plan = [dict(site="prefill", tick=last_chunk, count=1),
+            dict(site="decode", tick=after[0], count=1),
+            dict(site="decode_nan", tick=after[5], seq_id=0, count=1)]
+    eng, reqs, rec, probe = _ladder_serve(cuda, model, plan, rec_f.tokens)
+    snap = eng.metrics.snapshot()
+    assert snap["degradations_by_rung"] == {"staged": 1, "reference": 2}
+    assert snap["repromotions"] == 3 and eng._rung == 0 and snap["retries"] == 0
+    assert snap["sampler_anomalies"] == eng._fault.fired["decode_nan"] == 1
+    assert all(r.status == "ok" and len(r.output) == 16 for r in reqs)
+    assert not any(r == 2 and k == "chunk" for st in probe.steps.values() for r, k, _ in st)
+    want = {"fused": {"fused_decode"},
+            "staged": {"centroid_scores_quantized", "paged_attention"},
+            "reference": set()}
+    whole = probe.whole_decode_ticks()
+    for rung, (name, _) in enumerate(eng._ladder):
+        assert whole.get(rung), name
+        for t in whole[rung]:
+            for kernel in ("fused_decode", "centroid_scores_quantized",
+                           "paged_attention"):
+                n = cfg.n_layers if kernel in want[name] else 0
+                assert probe.launches[t][kernel] == n, (name, t, kernel)
+            if name == "reference":
+                assert probe.launches[t]["sparse_prefill"] == 0
+    for r in reqs:
+        for i in range(len(r.output)):
+            key = (r.req_id, i)
+            assert bool(torch.isfinite(rec.logits[key]).all())
+            cos = torch.nn.functional.cosine_similarity(rec.logits[key], rec_f.logits[key],
+                                                        dim=0)
+            assert float(cos) >= 0.9995, key
