@@ -110,15 +110,33 @@ backend and again on ``"reference"`` from the same seed: the assignments
 must be identical, the recall within 1e-4, and the cuda run must have
 launched the pooling and scoring kernels and called no plain version.
 
+6. (after phase 5 on llama3.2-3b, after phase 3b on qwen3-8b) the
+   compiled decode step: every serving engine of phases 3, 3b and 5
+   captures each kernel rung's ``decode_step`` once as a CUDA graph
+   (``repro_torch.serving.graphs``) and replays it every tick.  a) On a
+   cache of random K/V at B 4 and ragged lengths near 16384, the eager and
+   the graphed step run from the same state (fused and staged, each with
+   and without telemetry; on qwen3-8b also the ``"dense"`` backend, the
+   inactive plan at max_context 4096, and fused and dense near 9k tokens):
+   logits and every written cache tensor (k, v, codes, seq_len,
+   telemetry) must be bitwise equal, or else agree at a logit cosine of
+   0.99999 with the same argmax (max |diff| per tensor printed).  b) Phase
+   3's fused run and Q1 are served again under ``step_graphs_disabled()``,
+   fed the graphed run's tokens: the eager run's greedy tokens must be the
+   graphed run's.  c) Each variant's step is timed eager and graphed over
+   15 rounds in turns (CUDA events), its device-busy ms per step printed
+   (``torch.profiler``), and one profiled replay's launches of each decode
+   kernel must equal the bookkeeping's for one step.  d) Every served run
+   prints its decode steps and graph replays by rung; a kernel rung's
+   decode step that is not a replay fails the script.
+
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
 result.  Long output goes to ``chiprun_out/chip_smoke.log``.  With
 ``--profile`` the fused and the staged serving runs go under
 ``torch.profiler`` (device activity) and the device time by kernel is
-printed; then ``decode_step`` is timed fused / staged, with and without
-telemetry, over 15 rounds, and each variant's device busy time per step is
-printed beside its step time.
+printed.
 """
 from __future__ import annotations
 
@@ -246,6 +264,13 @@ def device_ms(torch, fn, iters: int) -> float:
     return sum(r[0] for r in device_time_rows(torch, prof)) / iters
 
 
+def short(name: str) -> str:
+    """A kernel's name as the profiler gives it, without its namespace,
+    template arguments and parameters."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip() or name[:40]
+
+
 def kernel_breakdown(torch, fn, iters: int) -> str:
     """Device ms per call of ``fn`` by kernel (``torch.profiler``), as text."""
     fn()
@@ -255,10 +280,6 @@ def kernel_breakdown(torch, fn, iters: int) -> str:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    def short(name):
-        name = name.replace("(anonymous namespace)::", "").replace("void ", "")
-        return name.split("(")[0].split("<")[0].split("::")[-1].strip() or name[:40]
-
     return ", ".join(f"{short(name)} {ms / iters:.4f}"
                      for ms, _, name in device_time_rows(torch, prof))
 
@@ -1351,6 +1372,7 @@ def run_engine(torch, eng, forced=None, record=False, profile=False,
     probe.detach()
     run = {"done": done, "counts": counts, "wall": wall, "prof": prof,
            "probe": probe, "logits": {}, "tokens": {}, "ticks": {},
+           "graph_steps": graph_steps(eng, probe),
            "steps": {name: sum(k == kind for st in probe.steps.values()
                                for _, k, _ in st)
                      for name, kind in (("decode_step", "decode"),
@@ -1359,6 +1381,25 @@ def run_engine(torch, eng, forced=None, record=False, profile=False,
         samples.detach()
         run.update(logits=samples.logits, tokens=samples.tokens, ticks=samples.ticks)
     return run
+
+
+def graph_steps(eng, probe):
+    """Phase 6 d): decode steps and graph replays by rung of a served run
+    -> {rung: {"decode_steps": n, "replays": m}}.  Fails if a kernel rung
+    of an engine built with graphs took an eager decode step."""
+    steps = {}
+    for st in probe.steps.values():
+        for rung, kind, _ in st:
+            steps[rung] = steps.get(rung, 0) + (kind == "decode")
+    out = {}
+    for rung, n in sorted(steps.items()):
+        graph = eng._step_graphs.get(rung)
+        replays = graph.replays if graph is not None else 0
+        name = eng._ladder[rung][0]
+        if eng._graphed and not eng._rung_models[rung].backend.plain and replays != n:
+            fail(f"rung {name} took {n} decode steps and {replays} graph replays")
+        out[name] = {"decode_steps": n, "replays": replays}
+    return out
 
 
 def expect_path(what, counts, launched):
@@ -1384,7 +1425,8 @@ def log_serving(what, run, snap):
         f"{dec_tok / max(wall, 1e-9):.1f} (over the whole run)")
     launched = {n: c["launches"] for n, c in run["counts"].items() if c["launches"]}
     log(f"{what}: launches {json.dumps(launched)}; decode steps "
-        f"{run['steps']['decode_step']}, prefill chunks {run['steps']['prefill_chunk']}")
+        f"{run['steps']['decode_step']}, prefill chunks {run['steps']['prefill_chunk']}; "
+        f"decode steps and graph replays by rung {json.dumps(run['graph_steps'])}")
 
 
 #: the sparsity counters of ``Engine(telemetry=True)`` that must agree
@@ -1779,82 +1821,233 @@ def serve_ladder(torch, model, cfg, dev):
     return {"counts": ladder["counts"]}
 
 
-def time_decode_steps(torch, model, cfgs, dev, rounds=15):
-    """``decode_step`` of the full model at B = MAX_BATCH on a cache filled
-    with random K/V (stores rebuilt from it) at ragged lengths near the
-    context's end, through the fused and the staged decode, each with and
-    without telemetry -> median ms per step over ``rounds`` rounds that take
-    the four variants in turn (CUDA events over 5 steps after 2 warm-up
-    steps; seq_len reset before every step, so every step sees the same
-    lengths).  Each variant then runs 5 more steps under torch.profiler,
-    and the device's busy time per step is set beside the step's time: the
-    difference is time the device waited for the host."""
-    import statistics
+# ---------------------------------------------------------------------------
+# phase 6: the compiled decode step
+# ---------------------------------------------------------------------------
 
+#: the CUDA kernels of a decode step, as the profiler names them -> the
+#: wrappers that launch each of them once per call (``combine_kernel``
+#: follows a split launch only when it has more than one run: left out)
+DECODE_KERNELS = {
+    "score_rows_kernel": ("fused_decode", "centroid_scores_quantized",
+                          "centroid_scores_f32"),
+    "fused_select_kernel": ("fused_decode",),
+    "split_attention_kernel": ("fused_decode", "paged_attention"),
+}
+#: the step's timing: rounds (the variants in turns, eager and graphed),
+#: and per round the warm-up and timed steps of each (CUDA events)
+STEP_ROUNDS, STEP_WARMUP, STEP_ITERS = 15, 1, 2
+#: least logit cosine of a graphed step to the eager one when they are not
+#: bitwise equal
+GRAPH_COS = 0.99999
+#: qwen3-8b's sparse (Q1) and dense (Q2) decode step near 9k tokens
+QWEN_9K_LENS = (9216, 9000, 8800, 8600)
+
+
+def step_lens(torch, ctx, dev):
+    """Ragged lengths near the end of a ``ctx``-token context."""
+    return torch.tensor([ctx - 1 - i * (ctx // 16) for i in range(MAX_BATCH)],
+                        dtype=torch.int32, device=dev)
+
+
+def random_cache(torch, model, ctx, dev):
+    """A ``MAX_BATCH`` x ``ctx`` cache of random K/V (generator seed 7) with
+    the stores rebuilt from it."""
     gen = torch.Generator(device=dev).manual_seed(7)
-    use_config(model, cfgs["fused"])
-    cache = model.init_cache(MAX_BATCH, CTX)
+    cache = model.init_cache(MAX_BATCH, ctx)
     for e in cache["layers"]:
         for name in ("k", "v"):
             e[name].copy_(torch.randn(e[name].shape, generator=gen, device=dev))
     for slot in range(MAX_BATCH):
         model.refresh_slot_store(cache, slot)
-    lens = torch.tensor([CTX - 1 - i * (CTX // 16) for i in range(MAX_BATCH)],
-                        dtype=torch.int32, device=dev)
+    return cache
+
+
+def written_state(cache):
+    """Clones of every cache tensor a decode step writes."""
+    out = {"seq_len": cache["seq_len"].clone()}
+    if "_telemetry" in cache:
+        out["_telemetry"] = cache["_telemetry"].clone()
+    for l, e in enumerate(cache["layers"]):
+        for name in ("k", "v", "codes"):
+            if name in e:
+                out[f"{name}[{l}]"] = e[name].clone()
+    return out
+
+
+def state_diff(torch, want, cache) -> dict:
+    """-> {tensor: max |diff|} of the written tensors that are not bitwise
+    equal to ``want``'s."""
+    got = {"seq_len": cache["seq_len"], "_telemetry": cache.get("_telemetry")}
+    for l, e in enumerate(cache["layers"]):
+        got.update({f"{n}[{l}]": t for n, t in e.items()})
+    return {k: float((w.float() - got[k].float()).abs().max())
+            for k, w in want.items() if not torch.equal(w, got[k])}
+
+
+def step_variants(torch, model, cfgs, dev, qwen: bool):
+    """Phase 6's decode steps: name -> (model view, cache dict, lengths).
+    fused and staged, each with and without telemetry (one cache, the
+    telemetry variants a dict of the same tensors plus ``_telemetry``), at
+    ragged lengths near CTX; on qwen3-8b also the ``"dense"`` backend on
+    the same cache, the inactive plan (a ``Q3_CTX`` cache, lengths near its
+    end), and fused and dense near 9k tokens."""
+    def view(cfg):
+        return model.with_sparse(**dataclasses.asdict(cfg.sparse))
+
+    cache = random_cache(torch, view(cfgs["fused"]), CTX, dev)
+    tel = dict(cache, _telemetry=torch.zeros((model.cfg.n_layers, MAX_BATCH, 4),
+                                             dtype=torch.int32, device=dev))
+    lens = step_lens(torch, CTX, dev)
+    out = {}
+    for path in ("fused", "staged"):
+        out[path] = (view(cfgs[path]), cache, lens)
+        out[f"{path}+telemetry"] = (view(cfgs[path]), tel, lens)
+    if qwen:
+        lens9k = torch.tensor(QWEN_9K_LENS, dtype=torch.int32, device=dev)
+        out["dense"] = (view(cfgs["dense"]), cache, lens)
+        out["inactive"] = (view(cfgs["fused"]),
+                           random_cache(torch, view(cfgs["fused"]), Q3_CTX, dev),
+                           step_lens(torch, Q3_CTX, dev))
+        out["fused@9k"] = (view(cfgs["fused"]), dict(cache), lens9k)
+        out["dense@9k"] = (view(cfgs["dense"]), dict(cache), lens9k)
+    return out
+
+
+def compiled_step(torch, label, variants, dev):
+    """Phase 6 a) and c) for one model: each variant's ``decode_step`` run
+    eagerly and through a ``DecodeGraph`` from the same state (first call:
+    warm-up, capture, replay; then one more replay), logits and every
+    written cache tensor compared (bitwise; else max |diff| per tensor is
+    printed and the logits must reach cosine ``GRAPH_COS`` with the same
+    argmax); then ``STEP_ROUNDS`` rounds in turns of ``STEP_WARMUP`` +
+    ``STEP_ITERS`` steps, eager and graphed (CUDA events, lengths reset
+    before every step), the device-busy ms per step of each under
+    ``torch.profiler`` (5 steps), and one profiled replay whose launches of
+    each decode kernel must equal the bookkeeping's for one step."""
+    import statistics
+
+    from repro_torch.serving import DecodeGraph
+
     tokens = torch.arange(MAX_BATCH, device=dev)
-    tel = torch.zeros((model.cfg.n_layers, MAX_BATCH, 4), dtype=torch.int32, device=dev)
-
-    def variant(path, with_tel):
-        use_config(model, cfgs[path])
-        if with_tel:
-            cache["_telemetry"] = tel
-        else:
-            cache.pop("_telemetry", None)
-
-        def step():
+    graphs, out = {}, {}
+    for name, (view, cache, lens) in variants.items():
+        cache["seq_len"].copy_(lens)
+        want_logits = view.decode_step(cache, tokens)[0].clone()
+        want = written_state(cache)
+        graph = graphs[name] = DecodeGraph(view.decode_step, cache)
+        for call in ("first call", "replay"):
             cache["seq_len"].copy_(lens)
-            model.decode_step(cache, tokens)
-        return step
-
-    variants = {f"{p}{'+telemetry' if t else ''}": (p, t)
-                for p in ("fused", "staged") for t in (False, True)}
-    times = {k: [] for k in variants}
-    for _ in range(rounds):
-        for key, (path, with_tel) in variants.items():
-            times[key].append(cuda_time_ms(torch, variant(path, with_tel), 2, 5))
-    out = {k: statistics.median(v) for k, v in times.items()}
-    log("decode_step at B = %d, lengths %s, ms per step over %d rounds "
-        "(CUDA events): %s" % (MAX_BATCH, lens.tolist(), rounds, json.dumps(
-            {k: [round(x, 3) for x in v] for k, v in times.items()})))
-    log("decode_step ms per step, min / median / max over the rounds: %s" % json.dumps(
-        {k: [round(min(v), 3), round(out[k], 3), round(max(v), 3)]
-         for k, v in times.items()}))
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    for key, (path, with_tel) in variants.items():
-        step = variant(path, with_tel)
-        step()
-        step()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(5):
-                step()
             torch.cuda.synchronize()
-        rows = device_time_rows(torch, prof)
-        busy = sum(r[0] for r in rows) / 5
-        log(f"decode_step {key}: device busy {busy:.3f} ms per step (profiled), "
-            f"step {out[key]:.3f} ms (median, unprofiled), so the device waits "
-            f"{out[key] - busy:.3f} ms; {sum(r[1] for r in rows) / 5:.0f} "
-            f"kernel launches per step")
-        for ms, n, name in rows[:8]:
-            log(f"decode_step {key}: {ms / 5:8.3f} ms/step x{n // 5:5d}  {name[:80]}")
-    del cache
+            t0 = time.perf_counter()
+            logits = graph(cache, tokens)[0]
+            torch.cuda.synchronize()
+            out.setdefault(name, {})[f"{call.split()[0]}_ms"] = (
+                time.perf_counter() - t0) * 1e3
+            diff = state_diff(torch, want, cache)
+            if not torch.equal(logits, want_logits):
+                diff["logits"] = float((logits.float() - want_logits.float()).abs().max())
+            cos = float(torch.nn.functional.cosine_similarity(
+                logits.float(), want_logits.float(), dim=-1).min())
+            same_argmax = torch.equal(logits.argmax(-1), want_logits.argmax(-1))
+            log(f"phase 6 {label} {name}, graphed ({call}) vs eager decode_step: "
+                + ("logits and every written cache tensor bitwise equal" if not diff
+                   else f"max |diff| {json.dumps(diff)}, logit cosine {cos:.7f}, "
+                        f"argmax {'equal' if same_argmax else 'DIFFERENT'}"))
+            if diff and not (cos >= GRAPH_COS and same_argmax):
+                fail(f"phase 6 {label} {name}: graphed step disagrees with eager")
+            out[name][f"bitwise_{call.split()[0]}"] = not diff
+        log(f"phase 6 {label} {name}: host ms of the first call (two warm-up steps, "
+            f"the capture, a replay) {out[name]['first_ms']:.1f}, of a replay "
+            f"{out[name]['replay_ms']:.2f}")
+        del want
+
+    def eager(view, cache, lens):
+        def fn():
+            cache["seq_len"].copy_(lens)
+            view.decode_step(cache, tokens)
+        return fn
+
+    def replay(graph, cache, lens):
+        def fn():
+            cache["seq_len"].copy_(lens)
+            graph(cache, tokens)
+        return fn
+
+    fns = {name: {"eager": eager(*v), "graphed": replay(graphs[name], v[1], v[2])}
+           for name, v in variants.items()}
+    times = {name: {"eager": [], "graphed": []} for name in variants}
+    for _ in range(STEP_ROUNDS):
+        for name, pair in fns.items():
+            for how, fn in pair.items():
+                times[name][how].append(cuda_time_ms(torch, fn, STEP_WARMUP, STEP_ITERS))
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for name, pair in fns.items():
+        rec = out[name]
+        for how, fn in pair.items():
+            v = times[name][how]
+            rec[how] = [min(v), statistics.median(v), max(v)]
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            rows = device_time_rows(torch, prof)
+            rec[f"busy_{how}"] = sum(r[0] for r in rows) / 5
+            rec[f"kernels_{how}"] = sum(r[1] for r in rows) / 5
+        with torch.profiler.profile(activities=acts) as prof:
+            pair["graphed"]()
+            torch.cuda.synchronize()
+        seen = {}
+        for _, n, key in device_time_rows(torch, prof):
+            seen[short(key)] = seen.get(short(key), 0) + n
+        book = {k: c["launches"] for k, c in graphs[name].step_counts.items()
+                if c["launches"]}
+        launches = {k: [seen.get(k, 0), sum(book.get(w, 0) for w in ws)]
+                    for k, ws in DECODE_KERNELS.items()}
+        log(f"phase 6 {label} {name}: one profiled replay, launches by kernel "
+            f"[profiler, bookkeeping] {json.dumps(launches)}; bookkeeping of one step "
+            f"{json.dumps(book)}; all kernels of the replay {json.dumps(seen)}")
+        if any(a != b for a, b in launches.values()):
+            fail(f"phase 6 {label} {name}: the profiler's launches differ from the "
+                 f"bookkeeping's")
+        log(f"phase 6 {label} {name}: decode_step ms min / median / max over "
+            f"{STEP_ROUNDS} rounds, eager {fmt_rounds(rec['eager'])}, graphed "
+            f"{fmt_rounds(rec['graphed'])}; device busy per step (profiled) eager "
+            f"{rec['busy_eager']:.4f}, graphed {rec['busy_graphed']:.4f}; device "
+            f"kernels per step {rec['kernels_eager']:.0f} / {rec['kernels_graphed']:.0f}; "
+            f"busy share of the median step eager "
+            f"{rec['busy_eager'] / rec['eager'][1]:.3f}, graphed "
+            f"{rec['busy_graphed'] / rec['graphed'][1]:.3f}")
+    del graphs, fns
     torch.cuda.empty_cache()
     return out
+
+
+def graphed_vs_eager(torch, what, graphed, eager):
+    """Phase 6 b): a served run through the graphed engine and again under
+    ``step_graphs_disabled()``, fed its tokens.  At every sampled position
+    the eager run's own greedy token must be the graphed run's (identical
+    commits); the logits are compared bitwise, their max |diff| printed."""
+    lg, le = graphed["logits"], eager["logits"]
+    if lg.keys() != le.keys():
+        fail(f"{what}: the eager run sampled at other positions than the graphed one")
+    same = sum(int(torch.equal(lg[k], le[k])) for k in lg)
+    worst = max(float((lg[k] - le[k]).abs().max()) for k in lg)
+    other = [k for k in lg if int(le[k].argmax()) != graphed["tokens"][k]]
+    log(f"phase 6 {what}: graphed vs eager decode step, fed the graphed run's tokens: "
+        f"logits bitwise equal at {same} of {len(lg)} sampled positions (max |diff| "
+        f"{worst:.3g}); the eager run's greedy tokens equal the graphed run's at "
+        f"{len(lg) - len(other)} of {len(lg)}")
+    if other:
+        fail(f"{what}: the eager engine would commit other tokens at {other[:4]}")
 
 
 def serve(torch, dev, cal_cfg, profile: bool = False):
     from repro_torch.configs import get_config
     from repro_torch.models import Transformer
+    from repro_torch.serving import step_graphs_disabled
 
     base = get_config(ARCH)
     pattern = tuple(
@@ -1876,7 +2069,7 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
 
     paths = {}
     eng = make_engine(fused_cfg, model, dev, range(len(PROMPT_LENS)), NEW_TOKENS)
-    run = run_engine(torch, eng, profile=profile)
+    run = run_engine(torch, eng, profile=profile, record=True)
     if profile:
         profile_summary(torch, run["prof"], run["wall"])
     check_served(eng, run["done"], len(PROMPT_LENS), NEW_TOKENS, fused_cfg.vocab_size)
@@ -1884,6 +2077,17 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
     log_serving("serving (fused)", run, eng.metrics.snapshot())
     paths["fused"] = run
     del eng
+    torch.cuda.empty_cache()
+    # phase 6 b): the same run with the eager decode step, fed its tokens
+    with step_graphs_disabled():
+        eng = make_engine(fused_cfg, model, dev, range(len(PROMPT_LENS)), NEW_TOKENS)
+    eager = run_engine(torch, eng, forced=run["tokens"], record=True)
+    check_served(eng, eager["done"], len(PROMPT_LENS), NEW_TOKENS, fused_cfg.vocab_size)
+    expect_path("fused serving, eager step", eager["counts"],
+                {"fused_decode", "sparse_prefill"})
+    log_serving("serving (fused, eager decode step)", eager, eng.metrics.snapshot())
+    graphed_vs_eager(torch, "phase 3 fused run", run, eager)
+    del eng, eager
     torch.cuda.empty_cache()
 
     eng = make_engine(cfgs["staged"], model, dev, STAGED_REQS, NEW_TOKENS,
@@ -1907,9 +2111,11 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
     log(f"phase 3 done at {time.perf_counter() - T_START:.1f}s")
     paths["ladder"] = serve_ladder(torch, model, fused_cfg, dev)
     log(f"phase 5 done at {time.perf_counter() - T_START:.1f}s")
-    if profile:
-        log(f"decode_step ms: {json.dumps(time_decode_steps(torch, model, cfgs, dev))}")
+    paths["step"] = compiled_step(torch, ARCH, step_variants(torch, model, cfgs, dev,
+                                                             qwen=False), dev)
+    log(f"phase 6 ({ARCH}) done at {time.perf_counter() - T_START:.1f}s")
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     return paths
 
@@ -1968,6 +2174,7 @@ def serve_qwen(torch, dev):
     a cosine of at least ``LOGIT_COS`` to the kernel run's."""
     from repro_torch.backends import DenseBackend
     from repro_torch.models import Transformer
+    from repro_torch.serving import step_graphs_disabled
 
     runs_cfg = qwen_runs()
     gc.collect()                # engines of earlier phases
@@ -2025,7 +2232,24 @@ def serve_qwen(torch, dev):
             f"{len(lp)}")
         if not worst >= LOGIT_COS:
             fail(f"{QWEN} {name}: kernel and plain logits drift apart: cosine {worst}")
+    # phase 6 b): Q1 again with the eager decode step, fed Q1's tokens
+    cfg, reqs = runs_cfg["Q1"][:2]
+    with step_graphs_disabled():
+        eng = make_engine(cfg, model, dev, reqs, NEW_TOKENS)
+    eager = run_engine(torch, eng, forced=runs["Q1"]["tokens"], record=True)
+    check_served(eng, eager["done"], len(reqs), NEW_TOKENS, vocab)
+    expect_path(f"{QWEN} run Q1, eager step", eager["counts"], runs_cfg["Q1"][4])
+    log_serving(f"{QWEN} Q1 (eager decode step)", eager, eng.metrics.snapshot())
+    graphed_vs_eager(torch, f"{QWEN} run Q1", runs["Q1"], eager)
+    del eng, eager
+    gc.collect()
+    torch.cuda.empty_cache()
     use_config(model, runs_cfg["Q1"][0])
+    cfgs = {"fused": runs_cfg["Q1"][0], "dense": runs_cfg["Q2"][0],
+            "staged": dataclasses.replace(runs_cfg["Q1"][0], sparse=dataclasses.replace(
+                runs_cfg["Q1"][0].sparse, fused_decode=False))}
+    runs["step"] = compiled_step(torch, QWEN, step_variants(torch, model, cfgs, dev,
+                                                            qwen=True), dev)
     del model
     torch.cuda.empty_cache()
     return runs
@@ -2039,8 +2263,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="run the fused and staged serving runs under torch.profiler "
                          "and print device time by kernel (serving numbers then "
-                         "include the profiler's overhead); time decode_step "
-                         "over 15 rounds and profile its device busy time")
+                         "include the profiler's overhead)")
     args = ap.parse_args()
 
     import torch
@@ -2104,9 +2327,25 @@ def main() -> int:
     t_ident = time_paged_identity(torch, ident)
     log(f"phase 4 done at {time.perf_counter() - T_START:.1f}s")
 
+    mem0 = torch.cuda.memory_allocated()
     paths = serve(torch, dev, cal["cfg"], profile=args.profile)
+    gc.collect()
+    mem1 = torch.cuda.memory_allocated()
+    log(f"device memory allocated before phase 3: {mem0 / 2**30:.3f} GiB, after phase "
+        f"6 ({ARCH}'s engines, graphs and weights dropped): {mem1 / 2**30:.3f} GiB")
+    if mem1 > mem0 + 2**28:
+        blocks = {}
+        for seg in torch.cuda.memory_snapshot():
+            for b in seg["blocks"]:
+                if b["state"] == "active_allocated":
+                    key = f"{b['size']} B on stream {seg['stream']}"
+                    blocks[key] = blocks.get(key, 0) + 1
+        log(f"live blocks by size and stream: {json.dumps(blocks)}")
+        fail("an engine, its decode graphs or the weights outlived phase 3")
     qwen = serve_qwen(torch, dev)
-    log(f"phase 3b done at {time.perf_counter() - T_START:.1f}s")
+    log(f"phase 3b and phase 6 ({QWEN}) done at {time.perf_counter() - T_START:.1f}s")
+    log(f"phase 6 summary (ms; busy = device-busy ms per step): "
+        f"{json.dumps({ARCH: paths['step'], QWEN: qwen['step']})}")
     fused, staged = paths["fused"], paths["staged"]
     q1, q2 = qwen["Q1"], qwen["Q2"]
     kernels_line = [

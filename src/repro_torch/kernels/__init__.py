@@ -34,10 +34,28 @@ def reset_counts():
 
 
 def counts():
-    """-> {kernel: {"launches": n, "plain_calls": m}}, one entry per wrapper."""
+    """-> {kernel: {"launches": n, "plain_calls": m}}, one entry per wrapper.
+
+    ``launches`` counts kernel launches executed, those inside a replayed
+    CUDA graph included: a replay runs no Python, so the graph's owner adds
+    its captured step's counts per replay (:func:`add_counts`, done by
+    :class:`repro_torch.serving.graphs.DecodeGraph`)."""
     out = {name: {"launches": m.launches, "plain_calls": m.plain_calls}
            for name, m in _SINGLE.items()}
     for name in centroid_score.NAMES:
         out[name] = {"launches": centroid_score.launches[name],
                      "plain_calls": centroid_score.plain_calls[name]}
     return out
+
+
+def add_counts(delta):
+    """Add ``delta`` ({kernel: {"launches": n, "plain_calls": m}}, as
+    :func:`counts` gives it; kernels left out add nothing) to the counters."""
+    for name, d in delta.items():
+        if name in _SINGLE:
+            m = _SINGLE[name]
+            m.launches += d["launches"]
+            m.plain_calls += d["plain_calls"]
+        else:
+            centroid_score.launches[name] += d["launches"]
+            centroid_score.plain_calls[name] += d["plain_calls"]

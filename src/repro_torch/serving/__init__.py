@@ -1,5 +1,6 @@
 """Serving stack of the port: engine, scheduler, sampler, metrics."""
 from repro_torch.serving.engine import Engine, EngineStalled
+from repro_torch.serving.graphs import DecodeGraph, step_graphs_disabled
 from repro_torch.serving.metrics import RequestMetrics, ServingMetrics
 from repro_torch.serving.scheduler import (
     SLO_BATCH,
@@ -12,6 +13,7 @@ from repro_torch.serving.scheduler import (
 )
 
 __all__ = [
+    "DecodeGraph",
     "Engine",
     "EngineStalled",
     "Request",
@@ -23,4 +25,5 @@ __all__ = [
     "SLO_CLASSES",
     "SLO_DEADLINE",
     "SLO_INTERACTIVE",
+    "step_graphs_disabled",
 ]

@@ -55,7 +55,11 @@ The port's cache is updated in place (JAX donates and replaces it).  A
 re-run is still safe: every decode attempt first copies the host-side
 lengths into ``cache["seq_len"]``, and a decode step or chunk rewrites the
 same KV rows and re-derives the same store rows from them, so a degraded
-re-run leaves the bytes a clean run on that rung leaves.
+re-run leaves the bytes a clean run on that rung leaves.  The same
+idempotence lets each kernel rung's decode step be captured once over the
+live cache as a CUDA graph and replayed every tick
+(:mod:`repro_torch.serving.graphs`, the counterpart of JAX's jitted,
+cache-donating step; ``step_graphs_disabled()`` builds eager engines).
 
 Not ported (each raises ``NotImplementedError`` when asked for): tiered KV
 memory (``ServeConfig.hbm_pages``), a device mesh and tracing.
@@ -86,6 +90,7 @@ from repro_torch.resilience import (
     FaultInjector,
     InjectedFault,
 )
+from repro_torch.serving import graphs
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.sampler import SamplerAnomaly, finite_mask, sample
 from repro_torch.serving.scheduler import (
@@ -211,6 +216,12 @@ class Engine:
         #: model views are built lazily (``_rung_step_fns``).
         self._ladder = self._build_ladder()
         self._rung_models: Dict[int, Transformer] = {0: model}
+        #: rung -> its captured decode step (``_rung_step_fns``); on CUDA
+        #: only, and not for engines built under ``step_graphs_disabled()``
+        self._step_graphs: Dict[int, graphs.DecodeGraph] = {}
+        self._graph_pool = None
+        self._graphed = (graphs.graph_device(self.device)
+                         and graphs.step_graphs_enabled())
         self._rung = 0              # current (sticky) operating rung
         self._clean_ticks = 0       # clean decode ticks since a degradation
         self._tick_had_fault = False
@@ -261,12 +272,26 @@ class Engine:
         lazily.  Every rung shares the engine's weights and cache: the
         paged KV and store layout is the same on every backend (their
         stores are byte-identical), so a degraded re-run reads the device
-        state the failed attempt would have read."""
+        state the failed attempt would have read.
+
+        On CUDA the decode step of a rung whose backend launches kernels
+        is a :class:`~repro_torch.serving.graphs.DecodeGraph` over the
+        engine's cache, captured at its first call (as JAX jits each rung's
+        step lazily); the graphs share one memory pool.  The plain
+        ``"reference"`` rung, the floor every kernel is held against, stays
+        eager, and so does every prefill chunk."""
         if rung not in self._rung_models:
             self._rung_models[rung] = self.model.with_sparse(
                 **self._ladder[rung][1])
         m = self._rung_models[rung]
-        return m.decode_step, m.prefill_chunk
+        if not self._graphed or m.backend.plain:
+            return m.decode_step, m.prefill_chunk
+        if rung not in self._step_graphs:
+            if self._graph_pool is None:
+                self._graph_pool = graphs.new_pool()
+            self._step_graphs[rung] = graphs.DecodeGraph(
+                m.decode_step, self.cache, self._graph_pool)
+        return self._step_graphs[rung], m.prefill_chunk
 
     def _with_ladder(self, seqs_of, attempt) -> bool:
         """Run ``attempt(rung)`` under the degradation ladder: a step fault

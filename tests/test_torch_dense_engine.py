@@ -66,9 +66,11 @@ def prompts(vocab=256):
     ]
 
 
-def serve_both(arch, t_backend, fused, j_backend, serve_kw, new_tokens, seed=3):
+def serve_both(arch, t_backend, fused, j_backend, serve_kw, new_tokens, seed=3,
+               attach=None):
     """Serve ``prompts()`` through the JAX and the port engine -> (JAX
-    engine, port engine, JAX outputs, port outputs) by request id."""
+    engine, port engine, JAX outputs, port outputs) by request id;
+    ``attach(port engine)`` runs before the engines do."""
     jb, tb = j_smoke(j_get_config(arch)), t_smoke(t_get_config(arch))
     jcfg = dataclasses.replace(
         jb, sparse=dataclasses.replace(jb.sparse, backend=j_backend, **SPARSE))
@@ -84,6 +86,8 @@ def serve_both(arch, t_backend, fused, j_backend, serve_kw, new_tokens, seed=3):
         for i, p in enumerate(prompts(tcfg.vocab_size)):
             eng.submit(Req(req_id=i, prompt=p.astype(np.int32),
                            max_new_tokens=new_tokens))
+    if attach is not None:
+        attach(teng)
     jout = {r.req_id: list(r.output) for r in jeng.run_until_done()}
     tout = {r.req_id: list(r.output) for r in teng.run_until_done()}
     return jeng, teng, jout, tout

@@ -492,23 +492,46 @@ def test_paged_attention_kernel_identity_table(cuda, seq):
 # -- the degradation ladder on the card ------------------------------------------
 
 
-def _ladder_serve(dev, model, plan=None, forced=None):
+def _smoke_model(dev, **sparse_kw):
+    """llama3.2-3b's smoke variant at 2 layers, d_model 256, 4 / 2 heads of
+    64, bf16, block sizes ((16, 32), (64, 16)), T 128, ``sparse_kw`` on
+    top; random weights (generator seed 0)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import Transformer
+
+    base = smoke_variant(get_config("llama3.2-3b"))
+    cfg = dataclasses.replace(
+        base, d_model=256, n_heads=4, n_kv_heads=2, dtype="bfloat16",
+        sparse=dataclasses.replace(
+            base.sparse, token_budget=128, block_sizes=((16, 32), (64, 16)),
+            prefill_block_q=64, **sparse_kw))
+    return Transformer(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+
+
+def _ladder_serve(dev, model, plan=None, forced=None, eager=False):
     """Two requests (200 and 150 tokens, 16 new) through ``Engine`` on the
     ``"cuda"`` backend with the fused decode and sparse prefill, chunks of
     128, ``repromote_after`` 3, ``plan`` injected, ``forced`` tokens fed in
-    place of the samples.  -> (engine, requests, the run's
+    place of the samples; with ``eager`` the engine is built under
+    ``step_graphs_disabled()``.  -> (engine, requests, the run's
     ``SampleRecorder`` and ``LadderProbe``)."""
+    import contextlib
+
     import numpy as np
 
     from repro_torch import kernels
     from repro_torch.config import ResilienceConfig, ServeConfig
     from repro_torch.resilience import FaultInjector, FaultSpec
-    from repro_torch.serving import Engine, Request
+    from repro_torch.serving import Engine, Request, step_graphs_disabled
     from repro_torch.serving.probe import LadderProbe, SampleRecorder
 
-    eng = Engine(model.cfg, model, ServeConfig(
-        max_batch=2, max_context=512, prefill_chunk=128, prefill_tokens_per_tick=192,
-        temperature=0.0, resilience=ResilienceConfig(repromote_after=3)), device=dev)
+    with step_graphs_disabled() if eager else contextlib.nullcontext():
+        eng = Engine(model.cfg, model, ServeConfig(
+            max_batch=2, max_context=512, prefill_chunk=128,
+            prefill_tokens_per_tick=192, temperature=0.0,
+            resilience=ResilienceConfig(repromote_after=3)), device=dev)
     if plan is not None:
         eng.set_fault_injector(FaultInjector([FaultSpec(**d) for d in plan]))
     samples, probe = SampleRecorder(eng, forced), LadderProbe(eng)
@@ -524,6 +547,19 @@ def _ladder_serve(dev, model, plan=None, forced=None):
     return eng, reqs, samples, probe
 
 
+def _ladder_plan(probe):
+    """A prefill fault on the last chunk tick of a fault-free run, a decode
+    fault on the next decode tick, a NaN row of request 0 five decode
+    ticks later."""
+    last_chunk = max(t for t, st in probe.steps.items()
+                     if any(k == "chunk" for _, k, _ in st))
+    after = sorted(t for t, st in probe.steps.items() if t > last_chunk
+                   and any(k == "decode" for _, k, _ in st))
+    return [dict(site="prefill", tick=last_chunk, count=1),
+            dict(site="decode", tick=after[0], count=1),
+            dict(site="decode_nan", tick=after[5], seq_id=0, count=1)]
+
+
 def test_ladder_rungs_launch_their_kernels(cuda):
     """The three-rung ladder at smoke width (2 layers, 4 / 2 heads of 64,
     bf16): a prefill fault on the last chunk tick (fused -> staged), a
@@ -533,26 +569,10 @@ def test_ladder_rungs_launch_their_kernels(cuda):
     reference rung sees no chunk (it prefills dense), no request is charged
     a retry, and every committed position's logits are within cosine 0.9995
     of a fault-free run fed the same tokens."""
-    import dataclasses
-
-    from repro_torch.configs import get_config, smoke_variant
-    from repro_torch.models import Transformer
-
-    base = smoke_variant(get_config("llama3.2-3b"))
-    cfg = dataclasses.replace(
-        base, d_model=256, n_heads=4, n_kv_heads=2, dtype="bfloat16",
-        sparse=dataclasses.replace(
-            base.sparse, backend="cuda", fused_decode=True, sparse_prefill=True,
-            token_budget=128, block_sizes=((16, 32), (64, 16)), prefill_block_q=64))
-    model = Transformer(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    model = _smoke_model(cuda, backend="cuda", fused_decode=True, sparse_prefill=True)
+    cfg = model.cfg
     _, _, rec_f, probe_f = _ladder_serve(cuda, model)
-    last_chunk = max(t for t, st in probe_f.steps.items()
-                     if any(k == "chunk" for _, k, _ in st))
-    after = sorted(t for t, st in probe_f.steps.items() if t > last_chunk
-                   and any(k == "decode" for _, k, _ in st))
-    plan = [dict(site="prefill", tick=last_chunk, count=1),
-            dict(site="decode", tick=after[0], count=1),
-            dict(site="decode_nan", tick=after[5], seq_id=0, count=1)]
+    plan = _ladder_plan(probe_f)
     eng, reqs, rec, probe = _ladder_serve(cuda, model, plan, rec_f.tokens)
     snap = eng.metrics.snapshot()
     assert snap["degradations_by_rung"] == {"staged": 1, "reference": 2}
@@ -580,3 +600,117 @@ def test_ladder_rungs_launch_their_kernels(cuda):
             cos = torch.nn.functional.cosine_similarity(rec.logits[key], rec_f.logits[key],
                                                         dim=0)
             assert float(cos) >= 0.9995, key
+
+
+# -- the compiled decode step (repro_torch.serving.graphs) -------------------------
+
+#: capturable decodes -> (sparse overrides, max_context, lengths): an
+#: inactive plan at 200 (under twice the budget, a padded last page)
+GRAPH_KINDS = {
+    "fused": (dict(backend="cuda", fused_decode=True), 512, (500, 301)),
+    "staged": (dict(backend="cuda", fused_decode=False), 512, (500, 301)),
+    "dense": (dict(backend="dense", fused_decode=False), 512, (500, 301)),
+    "inactive": (dict(backend="cuda", fused_decode=True), 200, (190, 77)),
+}
+
+
+def _graph_case(dev, kind, telemetry):
+    """-> (model, cache of random K/V with rebuilt stores, lengths)."""
+    overrides, ctx, lens = GRAPH_KINDS[kind]
+    model = _smoke_model(dev, **overrides)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cache = model.init_cache(2, ctx)
+    for e in cache["layers"]:
+        for name in ("k", "v"):
+            e[name].copy_(torch.randn(e[name].shape, generator=gen, device=dev))
+    for slot in range(2):
+        model.refresh_slot_store(cache, slot)
+    if telemetry:
+        cache["_telemetry"] = torch.zeros((model.cfg.n_layers, 2, 4),
+                                          dtype=torch.int32, device=dev)
+    return model, cache, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def _written(cache):
+    out = {"seq_len": cache["seq_len"].clone()}
+    if "_telemetry" in cache:
+        out["_telemetry"] = cache["_telemetry"].clone()
+    for l, e in enumerate(cache["layers"]):
+        out.update({f"{k}[{l}]": v.clone() for k, v in e.items()})
+    return out
+
+
+@pytest.mark.parametrize("telemetry", [False, True], ids=["plain", "telemetry"])
+@pytest.mark.parametrize("kind", list(GRAPH_KINDS))
+def test_graphed_decode_step_matches_eager(cuda, kind, telemetry):
+    """A ``DecodeGraph``'s first call (warm-up, capture, replay) and a later
+    replay give the eager step's logits and cache bytes, bitwise, and the
+    bookkeeping counts one eager step's launches per replay."""
+    from repro_torch import kernels
+    from repro_torch.serving import DecodeGraph
+
+    model, cache, lens = _graph_case(cuda, kind, telemetry)
+    tokens = torch.tensor([7, 100], device=cuda)
+    cache["seq_len"].copy_(lens)
+    kernels.reset_counts()
+    want = model.decode_step(cache, tokens)[0].clone()
+    one_step = kernels.counts()
+    assert any(c["launches"] for c in one_step.values())
+    state = _written(cache)
+    graph = DecodeGraph(model.decode_step, cache)
+    for calls in (1, 2):
+        cache["seq_len"].copy_(lens)
+        kernels.reset_counts()
+        logits, _ = graph(cache, tokens)
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want)
+        got = _written(cache)
+        for k, v in state.items():
+            assert torch.equal(v, got[k]), k
+        assert kernels.counts() == one_step and graph.replays == calls
+
+
+def test_ladder_graphs_count_as_eager(cuda):
+    """The three-rung ladder served on graphs and under
+    ``step_graphs_disabled()``, fed the same tokens: the same launches tick
+    by tick, logits at cosine 0.9995 or closer at every sampled position,
+    and on the graphed engine every decode step of a kernel rung a replay
+    (the reference rung stays eager)."""
+    model = _smoke_model(cuda, backend="cuda", fused_decode=True, sparse_prefill=True)
+    _, _, rec_f, probe_f = _ladder_serve(cuda, model)
+    plan = _ladder_plan(probe_f)
+    runs = {eager: _ladder_serve(cuda, model, plan, rec_f.tokens, eager=eager)
+            for eager in (False, True)}
+    (g_eng, _, g_rec, g_probe), (e_eng, _, e_rec, e_probe) = runs[False], runs[True]
+    assert g_probe.launches == e_probe.launches
+    assert g_probe.steps == e_probe.steps
+    assert g_rec.logits.keys() == e_rec.logits.keys()
+    for key, lg in g_rec.logits.items():
+        cos = torch.nn.functional.cosine_similarity(lg, e_rec.logits[key], dim=0)
+        assert float(cos) >= 0.9995, key
+    assert not e_eng._step_graphs and set(g_eng._step_graphs) == {0, 1}
+    for rung, graph in g_eng._step_graphs.items():
+        steps = sum(k == "decode" for st in g_probe.steps.values()
+                    for r, k, _ in st if r == rung)
+        assert graph.replays == steps > 0
+
+
+def test_host_sync_fails_the_capture(cuda):
+    """A step that reads device memory on the host (``.item()``) cannot be
+    captured: the call raises, and a clean capture still works after it."""
+    from repro_torch.serving import DecodeGraph
+
+    model, cache, lens = _graph_case(cuda, "fused", False)
+    tokens = torch.tensor([7, 100], device=cuda)
+
+    def step(cache, tokens):
+        int(cache["seq_len"][0].item())
+        return model.decode_step(cache, tokens)
+
+    cache["seq_len"].copy_(lens)
+    with pytest.raises(RuntimeError):
+        DecodeGraph(step, cache)(cache, tokens)
+    torch.cuda.synchronize()
+    cache["seq_len"].copy_(lens)
+    logits, _ = DecodeGraph(model.decode_step, cache)(cache, tokens)
+    assert bool(torch.isfinite(logits).all())
