@@ -130,6 +130,29 @@ launched the pooling and scoring kernels and called no plain version.
    prints its decode steps and graph replays by rung; a kernel rung's
    decode step that is not a replay fails the script.
 
+7. (after phase 6 on llama3.2-3b, on phase 3's weights and fused
+   configuration, graphed) tiered KV memory: requests 0, 1, 3 and 5 (24
+   new tokens, every prompt prefilled in its first ticks) served on a flat
+   pool (run F) and on a tiered pool of 1552 device pages (the 1548 they
+   hold and one a slot) and 1024 pinned host pages (run T), where request
+   3's sink page is demoted around the shield once it decodes: T's tokens
+   must equal F's, T must move bytes and keep its budget, the pool audit
+   clean, and the forced miss stall request 3 with a finite row while the
+   others commit.  Run O serves them on 1280 device pages (overcommitted;
+   at full depth a decoding sequence's working set is every page it holds,
+   so O holds admissions back: its tokens are counted against F's, its
+   budget checked).  Run S serves them on T's pool under
+   ``default_storm()`` seed 7, fed T's tokens, with one sink page demoted
+   after every tick so that page I/O runs on the storm's ticks:
+   ``host_io`` and ``promote_delay`` must fire, nothing be lost, every
+   non-finite row be one the storm poisoned and every committed position's
+   logits be within a cosine of 0.9995 of T's.  It prints the tiering
+   counters, each request's working set against its pages, ms per page
+   demotion and promotion (CUDA events) beside the PCIe Gen5 x16 bound,
+   TTFT and TPOT p50 of F, T and O, the scoring launches the page masks
+   add, and the graphed decode step with and without the masks (phase 6's
+   method).
+
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
@@ -1342,19 +1365,25 @@ def check_served(eng, done, n_requests, new_tokens, vocab, prefix_hit=True):
 
 
 def run_engine(torch, eng, forced=None, record=False, profile=False,
-               probe=None):
+               probe=None, tick_hook=None):
     """Run ``eng`` to the end with every kernel's counts set to 0 just before
     and read just after -> dict with the finished requests, the counts, the
     model steps taken, the wall time, the ``LadderProbe`` (``probe``, or a
     new one) and, with ``record``, every sampled row's logits and token by
     (request, position) and the tick it was last sampled at.  With
     ``forced`` ({(request, position): token}) the engine is fed those tokens
-    in place of its own samples."""
+    in place of its own samples.  ``tick_hook(engine, tick, samples)`` runs
+    after every tick, after the probe."""
     from repro_torch import kernels
     from repro_torch.serving.probe import LadderProbe, SampleRecorder
 
     samples = SampleRecorder(eng, forced) if record else None
     probe = probe or LadderProbe(eng)
+    callback = probe
+    if tick_hook is not None:
+        def callback(e, tick):
+            probe(e, tick)
+            tick_hook(e, tick, samples)
     prof = None
     kernels.reset_counts()
     torch.cuda.synchronize()
@@ -1362,10 +1391,10 @@ def run_engine(torch, eng, forced=None, record=False, profile=False,
     if profile:
         acts = [torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            done = eng.run_until_done(max_ticks=2000, tick_callback=probe)
+            done = eng.run_until_done(max_ticks=2000, tick_callback=callback)
             torch.cuda.synchronize()
     else:
-        done = eng.run_until_done(max_ticks=2000, tick_callback=probe)
+        done = eng.run_until_done(max_ticks=2000, tick_callback=callback)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.counts()
@@ -1865,9 +1894,12 @@ def random_cache(torch, model, ctx, dev):
 
 def written_state(cache):
     """Clones of every cache tensor a decode step writes."""
+    from repro_torch.serving.graphs import _PLANTED
+
     out = {"seq_len": cache["seq_len"].clone()}
-    if "_telemetry" in cache:
-        out["_telemetry"] = cache["_telemetry"].clone()
+    for key in _PLANTED:
+        if key in cache:
+            out[key] = cache[key].clone()
     for l, e in enumerate(cache["layers"]):
         for name in ("k", "v", "codes"):
             if name in e:
@@ -1878,7 +1910,9 @@ def written_state(cache):
 def state_diff(torch, want, cache) -> dict:
     """-> {tensor: max |diff|} of the written tensors that are not bitwise
     equal to ``want``'s."""
-    got = {"seq_len": cache["seq_len"], "_telemetry": cache.get("_telemetry")}
+    from repro_torch.serving.graphs import _PLANTED
+
+    got = {"seq_len": cache["seq_len"], **{k: cache.get(k) for k in _PLANTED}}
     for l, e in enumerate(cache["layers"]):
         got.update({f"{n}[{l}]": t for n, t in e.items()})
     return {k: float((w.float() - got[k].float()).abs().max())
@@ -2114,10 +2148,295 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
     paths["step"] = compiled_step(torch, ARCH, step_variants(torch, model, cfgs, dev,
                                                              qwen=False), dev)
     log(f"phase 6 ({ARCH}) done at {time.perf_counter() - T_START:.1f}s")
+    paths["tiered"] = serve_tiered(torch, model, fused_cfg, dev)
+    paths["tiered"]["step"] = compiled_step(
+        torch, f"{ARCH} tiered", mask_step_variants(torch, model, fused_cfg, dev), dev)
+    log(f"phase 7 done at {time.perf_counter() - T_START:.1f}s")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 7: tiered KV memory at full width
+# ---------------------------------------------------------------------------
+
+#: the pages requests ``LADDER_REQS`` hold at their end (prompt and new
+#: tokens; requests 0 and 1 share the ``PREFIX`` pages): 1548
+TIER_LIVE = sum(-(-(PROMPT_LENS[i] + LADDER_NEW) // PS) for i in LADDER_REQS) - PREFIX // PS
+#: device and host budgets of runs T and S: 1280 device pages, under the
+#: live pages, as the working-set estimate T / 16 + 2 = 258 pages a sequence
+#: allows (``max_live_seqs`` 4).  At full depth a decoding sequence's
+#: working set (the union of the pages its 28 x 8 (layer, kv head)
+#: selections take, each T / 16 = 256 of them) is every page it holds, so
+#: the budget holds admissions back until a request retires, and the late
+#: request takes a used slot (cleared on install: ``Transformer.clear_slot``)
+TIER_HBM, TIER_HOST = 1280, 1024
+#: the prefill budget per tick: every prompt at once, so every chunk but a
+#: prompt's last is a whole ``CHUNK`` and a request's chunk bounds do not
+#: depend on what else prefills with it
+TIER_PREFILL_BUDGET = 32768
+#: the request whose sink page (pinned into every selection) run T demotes
+#: around the shield once it decodes (3 shares no page with another)
+TIER_MISS_REQ = 3
+#: rounds of the migration timing; the bound's host link: PCIe Gen5 x16,
+#: 64 GB/s per direction
+MIGRATION_ROUNDS, PCIE_BPS = 20, 64e9
+TIER_POOL_KEYS = ("demotions", "promotions", "peak_hbm_pages")
+
+
+def demote_sink(eng, rid):
+    """Demote request ``rid``'s sink page (logical 0, pinned into every
+    selection) around the shield, if it decodes, is not stalled and the
+    page is on the device -> the page, or None.  A host-I/O fault the
+    injector raises on the gather leaves the page where it was (None)."""
+    from repro_torch.resilience import HostIOError
+    from repro_torch.serving.probe import demote_around_shield
+
+    seq = eng.scheduler.running.get(rid)
+    if seq is None or seq.state != "decode" or rid in eng.memory.stalled:
+        return None
+    try:
+        return demote_around_shield(eng, rid)
+    except HostIOError:
+        return None
+
+
+def force_miss(torch, state, flat):
+    """Run T's forced miss as a ``run_engine`` tick hook: once request
+    ``TIER_MISS_REQ`` decodes with two tokens out, demote its sink page;
+    after the next tick it must be stalled on that page (and any of its
+    own that were host-resident), its token uncommitted, its sampled row
+    finite (the poisoned read, kept with its cosine to the flat run's
+    logits there), and the other decoding requests must have committed
+    unless they stalled on pages of their own.  Each decoding request's
+    working set against the pages it holds is kept from that tick."""
+    def hook(eng, tick, samples):
+        if "page" in state and "checked" not in state:
+            reqs, n_out = state.pop("reqs"), state["n_out"]
+            pos = n_out[TIER_MISS_REQ]
+            row = samples.logits[(TIER_MISS_REQ, pos)]
+            state.update(
+                checked=True,
+                stalled_on=sorted(eng.memory.stalled.get(TIER_MISS_REQ, ())),
+                committed=len(reqs[TIER_MISS_REQ].output) != pos,
+                row_finite=bool(torch.isfinite(row).all()),
+                row_cos=float(torch.nn.functional.cosine_similarity(
+                    row, flat["logits"][(TIER_MISS_REQ, pos)], dim=0)),
+                others={sid: [len(reqs[sid].output) - n, sid in eng.memory.stalled]
+                        for sid, n in n_out.items() if sid != TIER_MISS_REQ})
+        seq = eng.scheduler.running.get(TIER_MISS_REQ)
+        if "page" in state or seq is None or len(seq.req.output) < 2:
+            return
+        live = {sid: s.req for sid, s in eng.scheduler.running.items()
+                if s.state == "decode" and sid not in eng.memory.stalled}
+        n_out = {sid: len(r.output) for sid, r in live.items()}
+        working = {sid: [len(eng.memory.working.get(sid, ())),
+                         len(eng.pool.table(sid).physical)] for sid in live}
+        page = demote_sink(eng, TIER_MISS_REQ)
+        if page is not None:
+            state.update(page=page, tick=tick, reqs=live, n_out=n_out, working=working)
+
+    return hook
+
+
+def storm_misses(state):
+    """Run S's tick hook: after every tick, demote the sink page of one
+    decoding request (the first of ``LADDER_REQS`` rotated by the tick
+    that can be), so that page I/O runs on the storm's ticks; counts the
+    demotions."""
+    def hook(eng, tick, samples):
+        n = len(LADDER_REQS)
+        for i in range(n):
+            if demote_sink(eng, LADDER_REQS[(tick + i) % n]) is not None:
+                state["forced"] = state.get("forced", 0) + 1
+                return
+
+    return hook
+
+
+def time_migrations(torch, eng):
+    """ms per page demotion (gather to pinned host memory + poison of the
+    rows) and per page promotion (restore), by CUDA events over
+    ``MIGRATION_ROUNDS`` rounds on the engine's cache (slot 0, page 0,
+    restored to its bytes after each round) -> (demote, promote) medians."""
+    import statistics
+
+    from repro_torch.memory import CachePageIO
+
+    layers = eng.cache["layers"]
+    io = CachePageIO()
+    times = {"demote": [], "promote": []}
+    for _ in range(MIGRATION_ROUNDS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        kb, vb = io.gather(layers, 0, 0)
+        io.poison(layers, 0, 0)
+        ev[1].record()
+        io.restore(layers, 0, 0, kb, vb)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if not (kb.is_pinned() and vb.is_pinned()):
+            fail("phase 7: a demoted page's host copy is not in pinned memory")
+        times["demote"].append(ev[0].elapsed_time(ev[1]))
+        times["promote"].append(ev[1].elapsed_time(ev[2]))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def serve_tiered(torch, model, cfg, dev):
+    """Phase 7: requests ``LADDER_REQS`` x ``LADDER_NEW`` tokens on phase 3's
+    weights and fused main path, graphed, one engine a run: F on a flat pool
+    of ``TIER_HBM + TIER_HOST`` pages; T on the tiered pool (``TIER_HBM``
+    device pages, under the ``TIER_LIVE`` live pages, and ``TIER_HOST``
+    pinned host pages) with one forced miss (``force_miss``); S, fed T's
+    tokens, on T's pool under ``default_storm()`` seed 7 with a sink page
+    demoted every tick (``storm_misses``).  T's tokens must be F's, T must
+    move bytes and keep at most ``TIER_HBM`` pages resident, every run
+    audit clean and lose nothing; in S the host-tier sites must fire, every non-finite row be one the storm poisoned and
+    every committed position's logits be within ``LOGIT_COS`` of T's.
+    Then the migration times and the graphed decode step with and without
+    the page masks (phase 6's method)."""
+    from repro_torch.resilience import FaultInjector, default_storm
+    from repro_torch.serving.probe import TIER_COUNTERS
+
+    vocab = cfg.vocab_size
+    prompts = traffic(vocab)
+    pools = {"flat": dict(pool_pages=TIER_HBM + TIER_HOST),
+             "tiered": dict(hbm_pages=TIER_HBM, host_pages=TIER_HOST)}
+
+    def one_run(name, pool, forced=None, storm=False, hook=None):
+        eng = make_engine(cfg, model, dev, LADDER_REQS, LADDER_NEW, prompts=prompts,
+                          prefill_tokens_per_tick=TIER_PREFILL_BUDGET, **pools[pool])
+        reqs = [s.req for s in eng.scheduler.waiting]
+        poisoned = []
+        if storm:
+            inj = FaultInjector(default_storm(), seed=7)
+            rows_of = inj.poison_rows
+
+            def poison_rows(*a):
+                rows = rows_of(*a)
+                poisoned.append(len(rows))
+                return rows
+
+            inj.poison_rows = poison_rows
+            eng.set_fault_injector(inj)
+        run = run_engine(torch, eng, forced=forced, record=True, tick_hook=hook)
+        snap = eng.metrics.snapshot()
+        run.update(reqs=reqs, snap=snap, fired=dict(eng._fault.fired) if storm else {})
+        pins = eng.prefix_cache.pages()
+        if eng.pool.assert_consistent(known_pins=pins):
+            fail(f"phase 7 run {name}: page pool leaked pages")
+        if any(not r.done for r in reqs):
+            fail(f"phase 7 run {name}: requests lost")
+        if snap["sampler_anomalies"] != sum(poisoned):
+            fail(f"phase 7 run {name}: {snap['sampler_anomalies']} non-finite rows, "
+                 f"{sum(poisoned)} poisoned")
+        log_serving(f"phase 7 run {name}", run, snap)
+        first = {}
+        for t, st in sorted(run["probe"].steps.items()):
+            for _, kind, ids in st:
+                for rid in ids if kind == "decode" else ():
+                    first.setdefault(rid, t)
+        run["first_decode_tick"] = first
+        if eng.memory is not None:
+            run["pool"] = {k: getattr(eng.pool, k) for k in TIER_POOL_KEYS}
+            run["tier"] = {k: snap[k] for k in TIER_COUNTERS + (
+                "hbm_resident_pages", "host_resident_pages")}
+            log(f"phase 7 run {name}: pool {json.dumps(run['pool'])} (budget "
+                f"{eng.pool.hbm_pages} + {eng.pool.host_pages}), max_live_seqs "
+                f"{eng.pool.max_live_seqs}; {json.dumps(run['tier'])}; first decode tick "
+                f"by request {json.dumps(first)}"
+                + (f"; faults fired {json.dumps(run['fired'])}" if storm else ""))
+            if run["pool"]["peak_hbm_pages"] > eng.pool.hbm_pages:
+                fail(f"phase 7 run {name}: {run['pool']['peak_hbm_pages']} pages "
+                     f"resident over a budget of {eng.pool.hbm_pages}")
+            if name == "T":
+                run["migration_ms"] = time_migrations(torch, eng)
+                run["page_nbytes"] = eng.memory.io.page_nbytes(eng.cache["layers"])
+        if not storm:
+            check_served(eng, run["done"], len(LADDER_REQS), LADDER_NEW, vocab)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run
+
+    f = one_run("F", "flat")
+    expect_path("phase 7 run F", f["counts"], {"fused_decode", "sparse_prefill"})
+    miss = {}
+    t = one_run("T", "tiered", hook=force_miss(torch, miss, f))
+    expect_path("phase 7 run T", t["counts"],
+                {"fused_decode", "sparse_prefill", "centroid_scores_quantized"})
+    if f["tokens"] != t["tokens"]:
+        diff = [k for k in f["tokens"] if f["tokens"][k] != t["tokens"].get(k)]
+        fail(f"phase 7: the tiered run's tokens differ from the flat run's at {diff[:6]}")
+    same = sum(int(torch.equal(t["logits"][k], f["logits"][k])) for k in f["logits"])
+    worst = max(float((t["logits"][k] - f["logits"][k]).abs().max()) for k in f["logits"])
+    pool, tier = t["pool"], t["tier"]
+    if not (pool["demotions"] > 0 and tier["migration_bytes"] > 0):
+        fail(f"phase 7 run T: pool {pool}, migration bytes {tier['migration_bytes']}")
+    if (miss.get("page") not in miss.get("stalled_on", ()) or miss.get("committed")
+            or not miss.get("row_finite")):
+        fail(f"phase 7 run T: the forced miss did not stall request {TIER_MISS_REQ} "
+             f"on its sink page with a finite row: {miss}")
+    if any(grew != 1 and not stalled for grew, stalled in miss["others"].values()):
+        fail(f"phase 7 run T: a request neither committed nor stalled on its own "
+             f"pages at the forced miss: {miss['others']}")
+    log(f"phase 7: run T's tokens equal run F's at all {len(f['tokens'])} positions; "
+        f"logits bitwise equal at {same} of {len(f['logits'])} (max |diff| {worst:.3g})")
+    log(f"phase 7: forced miss at tick {miss['tick']} on request {TIER_MISS_REQ}'s sink "
+        f"page {miss['page']}: stalled on {miss['stalled_on']}, token not committed, "
+        f"the poisoned row finite with cosine {miss['row_cos']:.4f} to run F's logits "
+        f"there; the other requests that tick [tokens committed, stalled]: "
+        f"{json.dumps(miss['others'])}; working-set pages against pages held, by "
+        f"request: {json.dumps(miss['working'])}")
+    steps_t = t["steps"]["decode_step"]
+    launches = {k: t["counts"][k]["launches"] for k in ("fused_decode",
+                                                          "centroid_scores_quantized")}
+    log(f"phase 7: run T launches {json.dumps(launches)} over {steps_t} decode steps "
+        f"({launches['centroid_scores_quantized'] / max(steps_t, 1):.1f} scoring launches "
+        f"a step for the page masks; run F 0 over {f['steps']['decode_step']} steps)")
+    mig = t["migration_ms"]
+    bound = t["page_nbytes"] / PCIE_BPS * 1e3
+    log(f"phase 7: page migration ({t['page_nbytes']} bytes a page) by CUDA events, "
+        f"median of {MIGRATION_ROUNDS}: demotion (gather to pinned host + poison) "
+        f"{mig['demote']:.4f} ms, promotion (restore) {mig['promote']:.4f} ms; bound "
+        f"{bound:.4f} ms a direction at 64 GB/s (PCIe Gen5 x16)")
+
+    log(f"phase 7 run T ({TIER_HBM} device pages, {TIER_LIVE} live): first decode "
+        f"tick by request {json.dumps(t['first_decode_tick'])} against F's "
+        f"{json.dumps(f['first_decode_tick'])}")
+    for name, run in (("F", f), ("T", t)):
+        snap = run["snap"]
+        log(f"phase 7 run {name}: TTFT p50 {snap['ttft_p50']:.3f}s, TPOT p50 "
+            f"{snap['tpot_p50'] * 1e3:.1f}ms, wall {run['wall']:.2f}s")
+
+    forced = {}
+    s = one_run("S", "tiered", forced=t["tokens"], storm=True, hook=storm_misses(forced))
+    fired = s["fired"]
+    if fired.get("host_io", 0) < 1 or fired.get("promote_delay", 0) < 1:
+        fail(f"phase 7 run S: the host-tier sites did not fire: {fired}")
+    worst_s, n_s = committed_logits(torch, "phase 7 run S", s, t, vocab)
+    status = {r.req_id: r.status for r in s["reqs"]}
+    log(f"phase 7 run S: {forced.get('forced', 0)} sink pages demoted by the hook; "
+        f"statuses {json.dumps(status)}; min logit cosine to T {worst_s:.6f} over "
+        f"{n_s} committed positions (>= {LOGIT_COS})")
+    return {"F": f, "T": t, "S": s, "migration_ms": mig,
+            "migration_bound_ms": bound}
+
+
+def mask_step_variants(torch, model, cfg, dev):
+    """The fused decode step with and without tiered memory's page masks,
+    on one cache of random K/V at ragged lengths near CTX (phase 6's)."""
+    view = model.with_sparse(**dataclasses.asdict(cfg.sparse))
+    cache = random_cache(torch, view, CTX, dev)
+    n_pages = CTX // PS
+    masks = dict(cache, **{k: torch.zeros((MAX_BATCH, n_pages), dtype=torch.bool,
+                                          device=dev)
+                           for k in ("_sel_pages", "_pre_pages")})
+    lens = step_lens(torch, CTX, dev)
+    return {"fused": (view, cache, lens), "fused+masks": (view, masks, lens)}
 
 
 # ---------------------------------------------------------------------------
@@ -2346,6 +2665,14 @@ def main() -> int:
     log(f"phase 3b and phase 6 ({QWEN}) done at {time.perf_counter() - T_START:.1f}s")
     log(f"phase 6 summary (ms; busy = device-busy ms per step): "
         f"{json.dumps({ARCH: paths['step'], QWEN: qwen['step']})}")
+    tiered = paths["tiered"]
+    log(f"phase 7 summary ({card}): " + json.dumps({
+        "migration_ms": tiered["migration_ms"],
+        "migration_bound_ms": tiered["migration_bound_ms"],
+        "pool": tiered["T"]["pool"], "tier": tiered["T"]["tier"],
+        "ttft_tpot_p50": {n: [tiered[n]["snap"]["ttft_p50"], tiered[n]["snap"]["tpot_p50"]]
+                          for n in ("F", "T")},
+        "step": tiered["step"], "storm_fired": tiered["S"]["fired"]}))
     fused, staged = paths["fused"], paths["staged"]
     q1, q2 = qwen["Q1"], qwen["Q2"]
     kernels_line = [
@@ -2392,14 +2719,16 @@ def main() -> int:
          **{f"sxs_{k}": v for k, v in t_flash.items()}},
     ]
     for k in kernels_line:
-        # the launches of phase 5's ladder run (L: all three rungs)
+        # the launches of phase 5's ladder run (L: all three rungs) and of
+        # phase 7's tiered run (T: fused, plus the page masks' scoring)
         k["ladder_launches"] = paths["ladder"]["counts"][k["name"]]["launches"]
+        k["tiered_launches"] = paths["tiered"]["T"]["counts"][k["name"]]["launches"]
     for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library {lib}, "
             f"launches while serving {k['launches']}, in phase 5's run L "
-            f"{k['ladder_launches']}")
+            f"{k['ladder_launches']}, in phase 7's run T {k['tiered_launches']}")
     f_steps, s_steps = fused["steps"], staged["steps"]
     log(f"launches per decode step: fused path "
         f"{fused['counts']['fused_decode']['launches'] / f_steps['decode_step']:.1f} "

@@ -2,8 +2,8 @@
 
 Only what the serving path of a dense decoder reads: the AB-Sparse knobs
 (:class:`SparseConfig`), the architecture (:class:`ModelConfig`), the
-serving engine's knobs (:class:`ServeConfig`) and its failure-domain
-policy (:class:`ResilienceConfig`).  Field names and defaults
+serving engine's knobs (:class:`ServeConfig`, tiered KV memory included)
+and its failure-domain policy (:class:`ResilienceConfig`).  Field names and defaults
 match the JAX package so one set of values configures both.
 """
 from __future__ import annotations
@@ -48,6 +48,11 @@ class SparseConfig:
     #: per-(layer, kv head) block sizes; None -> uniform_block_size.
     block_sizes: Optional[Tuple[Tuple[int, ...], ...]] = None
     uniform_block_size: int = 32
+    #: tiered KV memory (:mod:`repro_torch.memory`) prefetch predictor
+    #: width: blocks ranked within this margin below each head's top-K
+    #: cutoff are emitted as the next step's predicted selection and staged
+    #: host -> device.  Fixed for a captured decode step.
+    prefetch_margin_blocks: int = 2
 
     def layer_block_sizes(self, layer: int, n_kv_heads: int) -> Tuple[int, ...]:
         if self.block_sizes is None:
@@ -131,8 +136,18 @@ class ServeConfig:
     top_k: int = 20
     top_p: float = 0.95
     pool_pages: Optional[int] = None
-    #: tiered KV memory is not ported; the engine raises when it is set.
+    # -- tiered KV memory (:mod:`repro_torch.memory`) ------------------------
+    #: device-resident KV page budget.  ``None`` -> single-tier pool
+    #: (``pool_pages`` semantics, everything on the device).  When set, full
+    #: KV pages migrate between this budget and a ``host_pages`` spill tier
+    #: (LRU by last-selected decode step); the quantized centroid store and
+    #: the page tables stay on the device.  Mutually exclusive with
+    #: ``pool_pages``; requires the sparse decode path to be active at
+    #: ``max_context`` (dense decode reads every row).
     hbm_pages: Optional[int] = None
+    #: host (pinned memory) spill-tier capacity in pages; admission control
+    #: sees ``hbm_pages + host_pages`` total capacity.
+    host_pages: int = 0
     prefill_tokens_per_tick: int = 8192
     prefill_chunk: int = 256
     enable_prefix_cache: bool = True

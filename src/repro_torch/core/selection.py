@@ -1,6 +1,7 @@
 """Adaptive Top-K block selection + page-table expansion (counterpart of
 ``repro.core.selection``); the plain version of the fused decode kernel's
-selection stage.
+selection stage, and the selected / predicted page masks tiered KV memory
+reads (:func:`selected_page_masks`).
 
 Head h selects ``K_h = T / B_h`` blocks; block ``b`` of a head with
 ``s = B_h / page`` pages per block covers pages ``[b*s, b*s + s)``, so the
@@ -78,6 +79,56 @@ def select_page_table(
     table = sel_blocks * la.pages_per_block[None, :, None] + la.within_map[None]
     table = torch.clamp(table, 0, la.n_pages - 1)
     return table.to(torch.int32), sel_vals > NEG_INF / 2
+
+
+def selected_page_masks(
+    scores: torch.Tensor,          # [B, H, M]
+    la: LayoutArrays,
+    seq_len: torch.Tensor,         # [B] int32 live tokens
+    sink_pages: int = 1,
+    local_pages: int = 4,
+    margin_blocks: int = 0,
+    max_pages_per_block: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scores ``[B, H, max_blocks]`` -> ``(selected, predicted)`` bool page
+    masks, each ``[B, n_pages]`` (OR over heads).
+
+    ``selected`` is exactly the page set :func:`select_page_table` sends to
+    the attention stage: tiered KV memory compares it with the host-resident
+    pages to detect misses.  ``predicted`` widens each head's cutoff to
+    ``K_h + margin_blocks`` in the same stable descending order as
+    :func:`rank_blocks` (lower index first on ties, as ``lax.top_k``): its
+    extra pages are the ranks just below the cutoff, the likely targets when
+    selection drifts next step (the prefetch predictor).  ``predicted``
+    always contains ``selected``.  ``max_pages_per_block`` must bound
+    ``B_h / page_size`` over heads (callers pass ``max_block_size //
+    page_size``).  No host sync and no data-dependent shape, so it runs
+    inside a captured decode step."""
+    B, H, M = scores.shape
+    n_pages = la.n_pages
+    masked = mask_and_pin_scores(scores, la, seq_len, sink_pages, local_pages)
+    vals, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
+    kmax = la.max_top_k
+    table, valid = select_page_table(
+        scores, la, seq_len, sink_pages, local_pages,
+        ranked=(vals[..., :kmax], idx[..., :kmax].to(torch.int32)))
+    selected = torch.zeros((B, n_pages), dtype=torch.int32, device=scores.device)
+    selected.scatter_add_(1, table.long().reshape(B, -1),
+                          valid.to(torch.int32).reshape(B, -1))
+    k_wide = min(kmax + margin_blocks, M)
+    vals, idx = vals[..., :k_wide], idx[..., :k_wide]
+    cutoff = la.top_k[None, :, None] + margin_blocks                # [1, H, 1]
+    ok = ((torch.arange(k_wide, device=scores.device)[None, None, :] < cutoff)
+          & (vals > NEG_INF / 2))
+    ppb = la.pages_per_block[None, :, None]                         # [1, H, 1]
+    predicted = torch.zeros((B, n_pages), dtype=torch.int32, device=scores.device)
+    for j in range(max_pages_per_block):
+        page = torch.clamp(idx * ppb + j, 0, n_pages - 1)
+        hit = ok & (j < ppb)
+        predicted.scatter_add_(1, page.long().reshape(B, -1),
+                               hit.to(torch.int32).reshape(B, -1))
+    selected = selected > 0
+    return selected, (predicted > 0) | selected
 
 
 def selection_telemetry(

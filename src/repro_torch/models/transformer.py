@@ -35,7 +35,9 @@ from torch import nn
 
 from repro_torch.backends import AttentionPlan, CentroidStore, build_plan, get_backend
 from repro_torch.config import ModelConfig
+from repro_torch.core.centroids import rank_query
 from repro_torch.core.quantization import store_bits, store_symmetric
+from repro_torch.core.selection import selected_page_masks
 from repro_torch.models import layers
 from repro_torch.models.layers import DecoderLayer
 
@@ -179,6 +181,19 @@ class Transformer(nn.Module):
                    else [None] * cfg.n_layers),
             "max_context": max_context,
         }
+        return cache
+
+    @staticmethod
+    @torch.no_grad()
+    def clear_slot(cache: Cache, slot: int) -> Cache:
+        """Reset batch slot ``slot``'s rows to :meth:`init_cache`'s values,
+        in place: zero K/V, codes and offsets, unit scales.  The decode
+        store's affine params span every block of the slot, the rows past
+        the live length included, so a reused slot would otherwise quantize
+        against its previous occupant's rows (or tiered memory's poison)."""
+        for e in cache["layers"]:
+            for name, t in e.items():
+                t[slot].fill_(1.0 if name in ("scale", "pscale") else 0)
         return cache
 
     @staticmethod
@@ -356,8 +371,14 @@ class Transformer(nn.Module):
         int32), each sparse layer's slice is set to the decode's sparsity
         counters (:func:`~repro_torch.core.selection.selection_telemetry`);
         dense decode (inactive plan, ``"dense"`` backend) sets nothing.
-        An inactive plan decodes through ``AttentionBackend.dense_decode``,
-        an active one through the backend's ``append`` and ``decode``."""
+        When it carries ``"_sel_pages"`` and ``"_pre_pages"`` (``[B,
+        n_pages]`` bool, planted by tiered KV memory) and the plan is
+        active, every layer re-runs the estimation on its store after the
+        append and the two are set to the selected and margin-predicted
+        pages of the step, OR-ed over heads and layers (on the ``"dense"``
+        backend too, as in JAX).  An inactive plan decodes through
+        ``AttentionBackend.dense_decode``, an active one through the
+        backend's ``append`` and ``decode``."""
         cfg, sp = self.cfg, self.cfg.sparse
         tok = torch.as_tensor(tokens, device=self.device).long()
         B = tok.shape[0]
@@ -381,6 +402,10 @@ class Transformer(nn.Module):
             table = self.backend.full_page_table(k0, live)
         x = self.embed[tok][:, None]                        # [B, 1, d]
         tel = cache.get("_telemetry")
+        # tiered KV memory plants "_sel_pages" / "_pre_pages" [B, n_pages]:
+        # every sparse layer then reports its selected and margin-predicted
+        # pages, OR-ed over layers
+        masks = [None, None] if not dense and "_sel_pages" in cache else None
         for l, (layer, e, la) in enumerate(
                 zip(self.layers, cache["layers"], cache["la"])):
             h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
@@ -401,9 +426,28 @@ class Transformer(nn.Module):
                 out = res[0]
                 if tel is not None and res[3] is not None:
                     tel[l] = res[3]
+                if masks is not None:
+                    for i, m in enumerate(self._page_masks(q[:, 0], e, la,
+                                                           seq_len + 1)):
+                        masks[i] = m if masks[i] is None else masks[i] | m
             x = x + layers.out_project(layer, out[:, None])
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
             x = x + layers.mlp(layer, h, cfg.activation)
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
+        if masks is not None:
+            cache["_sel_pages"].copy_(masks[0])
+            cache["_pre_pages"].copy_(masks[1])
         seq_len += 1
         return self.unembed(x[:, 0]), cache
+
+    def _page_masks(self, q, e, la, live):
+        """(selected, predicted) page masks ``[B, n_pages]`` of one sparse
+        layer's decode: the estimation re-run on the store after the append
+        (the scores the decode just selected from), then
+        :func:`~repro_torch.core.selection.selected_page_masks`."""
+        sp = self.cfg.sparse
+        rq = rank_query(q, sp.centroid_method, q.shape[-1])
+        est = self.backend.scores(rq, self._store(e), la, e["k"].shape[1])
+        return selected_page_masks(
+            est, la, live, sp.sink_pages, sp.local_pages,
+            sp.prefetch_margin_blocks, sp.max_block_size // sp.page_size)

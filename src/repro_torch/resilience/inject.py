@@ -24,10 +24,15 @@ Injection sites (the failure domains of the serving stack):
     Raise :class:`~repro_torch.cache.paged_kv.PoolExhausted` out of
     ``PagePool._take`` — transient allocation failure.  Absorbed by the
     scheduler's existing admission-control / preemption paths.
-``host_io`` / ``promote_delay``
-    Host-tier page I/O failure and a delayed host->HBM promotion.  They
-    belong to tiered KV memory, which the port does not have: the engine
-    never consults them, so they fire 0 times.
+``host_io``
+    Raise :class:`HostIOError` from tiered KV memory's page I/O (a demotion's
+    gather or a promotion's restore), before any migration state mutates —
+    the page's bytes stay where they were.  Absorbed by the scheduler
+    (``tier_bound``: preempt instead of evicting) and the memory manager
+    (the staged promotion retries next tick).
+``promote_delay``
+    A staged host->HBM promotion sits out the tick (requeued): a slow host
+    link.  The stalled sequence waits one more tick.
 ``tick_stuck``
     The whole scheduler tick elapses without running any phase — a stuck
     clock.  Detected by the engine's no-progress watchdog.

@@ -61,8 +61,20 @@ live cache as a CUDA graph and replayed every tick
 (:mod:`repro_torch.serving.graphs`, the counterpart of JAX's jitted,
 cache-donating step; ``step_graphs_disabled()`` builds eager engines).
 
-Not ported (each raises ``NotImplementedError`` when asked for): tiered KV
-memory (``ServeConfig.hbm_pages``), a device mesh and tracing.
+Tiered KV memory (:mod:`repro_torch.memory`, ``ServeConfig.hbm_pages`` /
+``host_pages``), as in the JAX engine: the page pool is a
+:class:`~repro_torch.memory.TieredPagePool` whose cold pages are demoted to
+pinned host memory (their device rows poisoned in place) and promoted back
+by the :class:`~repro_torch.memory.MemoryManager`.  The decode step then
+also emits each slot's selected and margin-predicted pages
+(``cache["_sel_pages"]`` / ``["_pre_pages"]``); a sequence whose selection
+touched a page that was host-resident at launch discards its token and
+stalls until the page is back, and its step re-runs (the rest of the batch
+commits).  The device cache keeps its full size: the budget is accounting,
+as in JAX.
+
+Not ported (each raises ``NotImplementedError`` when asked for): a device
+mesh and tracing.
 """
 from __future__ import annotations
 
@@ -75,6 +87,7 @@ import torch
 from repro_torch.cache.paged_kv import PagePool
 from repro_torch.cache.prefix_cache import PrefixCache
 from repro_torch.config import ModelConfig, ServeConfig
+from repro_torch.memory import MemoryManager, TieredPagePool
 from repro_torch.models import Transformer, resolve_device
 from repro_torch.obs.telemetry import (
     N_COUNTERS,
@@ -154,8 +167,7 @@ class Engine:
         ``device``); batch capacity and context length come from
         ``serve_cfg``.  ``telemetry`` turns on the sparsity counters;
         ``fault_injector`` is attached as by :meth:`set_fault_injector`."""
-        for name, val in (("mesh", mesh), ("trace", trace),
-                          ("ServeConfig.hbm_pages", serve_cfg.hbm_pages)):
+        for name, val in (("mesh", mesh), ("trace", trace)):
             if val is not None:
                 raise NotImplementedError(f"{name} is not ported")
         self.device = resolve_device(device)
@@ -165,15 +177,27 @@ class Engine:
         self.serve = serve_cfg
         self.model = model
         self.seed = seed
-        self.pool = PagePool(
-            total_pages=serve_cfg.pool_pages
-            or self.max_batch * (self.max_context // serve_cfg.page_size),
-            page_size=serve_cfg.page_size,
-        )
+        if serve_cfg.hbm_pages is not None:
+            self.pool: PagePool = self._tiered_pool(model_cfg, model, serve_cfg)
+        else:
+            self.pool = PagePool(
+                total_pages=serve_cfg.pool_pages
+                or self.max_batch * (self.max_context // serve_cfg.page_size),
+                page_size=serve_cfg.page_size,
+            )
         self.cache = model.init_cache(self.max_batch, self.max_context)
         self.slots: List[Optional[SeqState]] = [None] * self.max_batch
         self.finished: List[Request] = []
         self.metrics = ServingMetrics(clock=clock)
+        self.memory: Optional[MemoryManager] = None
+        if isinstance(self.pool, TieredPagePool):
+            # every decode step reports the per-slot selected and
+            # margin-predicted page masks into these
+            nP = self.max_context // serve_cfg.page_size
+            for key in ("_sel_pages", "_pre_pages"):
+                self.cache[key] = torch.zeros((self.max_batch, nP),
+                                              dtype=torch.bool, device=self.device)
+            self.memory = MemoryManager(self, self.pool)
         self._chunk_len = min(serve_cfg.prefill_chunk, self.max_context)
         self._chunkable = serve_cfg.prefill_chunk > 0
         self.prefix_cache = (
@@ -229,6 +253,42 @@ class Engine:
         if fault_injector is not None:
             self.set_fault_injector(fault_injector)
 
+    def _tiered_pool(self, model_cfg: ModelConfig, model: Transformer,
+                     serve_cfg: ServeConfig) -> TieredPagePool:
+        """Tiered KV memory's pool: ``hbm_pages`` on the device, ``host_pages``
+        spilled to the host, and the admission cap ``max_live_seqs``."""
+        if serve_cfg.pool_pages is not None:
+            raise ValueError(
+                "hbm_pages and pool_pages are mutually exclusive: the "
+                "tiered pool's capacity is hbm_pages + host_pages"
+            )
+        if not model.use_sparse(self.max_context):
+            raise ValueError(
+                "tiered KV memory requires the sparse decode path to be "
+                f"active at max_context={self.max_context}: dense decode "
+                "reads every KV row, so host-resident pages would corrupt it"
+            )
+        if model_cfg.layer_pattern != ("attn",):
+            raise ValueError(
+                "tiered KV memory needs idempotent decode steps (a host-tier "
+                "miss re-runs the owning sequence's step): layer pattern "
+                f"{model_cfg.layer_pattern} carries cross-step state"
+            )
+        pool = TieredPagePool(hbm_pages=serve_cfg.hbm_pages,
+                              host_pages=serve_cfg.host_pages,
+                              page_size=serve_cfg.page_size)
+        # admission cap: each decoding sequence shields its selected pages
+        # + tail page + next-token reservation, estimated as one head's
+        # selection (the union over layers and heads the shield really
+        # holds can be the whole context).  Past hbm_pages // ws concurrent
+        # sequences the combined shields can cover the whole budget,
+        # leaving no demotion victim for anyone (a livelock preemption only
+        # breaks after the fact); refuse the admission up front instead.
+        ws_est = (model_cfg.sparse.budget_for(self.max_context)
+                  // serve_cfg.page_size + 2)
+        pool.max_live_seqs = max(1, serve_cfg.hbm_pages // ws_est)
+        return pool
+
     @property
     def max_batch(self) -> int:
         return self.serve.max_batch
@@ -242,10 +302,13 @@ class Engine:
     def set_fault_injector(self, injector: Optional[FaultInjector]):
         """Attach/detach a :class:`~repro_torch.resilience.FaultInjector` on
         a live engine.  It threads through the page pool's allocator, the
-        decode / prefill dispatch and the tick clock; with ``None`` every
-        one of those points is a single ``is not None`` check."""
+        memory manager's host-tier I/O, the decode / prefill dispatch and
+        the tick clock; with ``None`` every one of those points is a single
+        ``is not None`` check."""
         self._fault = injector
         self.pool.fault_hook = None if injector is None else self._pool_fault
+        if self.memory is not None:
+            self.memory.fault = injector
 
     def _pool_fault(self, reason: str, need: int):
         self._fault.check_raise(
@@ -338,6 +401,10 @@ class Engine:
                 self._restore_seq(seq)
 
     def _free_slot(self, seq: SeqState):
+        """``seq`` left the running set (retired, preempted, restored or
+        failed): release its slot and its memory-manager state."""
+        if self.memory is not None:
+            self.memory.forget(seq.seq_id)
         if seq.slot >= 0:
             self.slots[seq.slot] = None
             self._seq_len[seq.slot] = 0
@@ -381,17 +448,22 @@ class Engine:
     def diagnostics(self) -> Dict:
         """Post-mortem state dump (attached to :class:`EngineStalled`,
         callable any time): queue depths, per-sequence phase / slot /
-        retries, pool occupancy, ladder rung, metrics snapshot."""
-        seqs = {
-            sid: {
+        retries / tier residency, pool occupancy, ladder rung, metrics
+        snapshot."""
+        seqs = {}
+        for sid, seq in self.scheduler.running.items():
+            d = {
                 "phase": seq.state,
                 "slot": seq.slot,
                 "prefilled": int(seq.prefilled),
                 "output_tokens": len(seq.req.output),
                 "retries": seq.retries,
             }
-            for sid, seq in self.scheduler.running.items()
-        }
+            if self.memory is not None:
+                d["stalled"] = sid in self.memory.stalled
+                d["host_resident_pages"] = len(
+                    self.pool.host_resident_logical(sid))
+            seqs[sid] = d
         diag = {
             "tick": self.metrics.ticks,
             "waiting": len(self.scheduler.waiting),
@@ -445,10 +517,12 @@ class Engine:
         self.scheduler.submit(req)
 
     def _install(self, adm: AdmitDecision):
-        """Occupy the slot; copy prefix-cache KV pages into its rows and,
-        under sparse prefill, rebuild its score segment (the installed span
-        never ran a chunk)."""
+        """Occupy the slot, cleared to a fresh cache's rows (no stale rows
+        nor poison of an earlier occupant reach its store); copy prefix-cache
+        KV pages into its rows and, under sparse prefill, rebuild its score
+        segment (the installed span never ran a chunk)."""
         seq = adm.seq
+        self.model.clear_slot(self.cache, adm.slot)
         self.slots[adm.slot] = seq
         self._seq_len[adm.slot] = adm.prefix_tokens
         self._tokens_buf[adm.slot] = 0
@@ -636,6 +710,13 @@ class Engine:
         active = [s for s in self.slots if s is not None and s.state == DECODE]
         if not active:
             return 0
+        mem = self.memory
+        if mem is not None:
+            # {logical: physical} pages whose bytes sit in the host tier at
+            # step launch; a selection overlapping them read poison, and the
+            # sequence must stall and re-run
+            host_before = {s.seq_id: mem.pool.host_resident_logical(s.seq_id)
+                           for s in active}
         res: Dict[str, np.ndarray] = {}
         self._with_ladder(
             lambda exc: (
@@ -651,12 +732,23 @@ class Engine:
                 # one fresh host copy per tick, after the token transfer
                 tel = self.cache["_telemetry"].to("cpu", copy=True).numpy()
                 self.metrics.on_sparsity(tel, [s.slot for s in active])
+            if mem is not None:
+                sel = self.cache["_sel_pages"].cpu().numpy()
+                pre = self.cache["_pre_pages"].cpu().numpy()
             for seq, tok, ok in zip(active, toks, fin):
                 slot = seq.slot
                 if self.scheduler.running.get(seq.seq_id) is not seq or slot < 0:
                     continue    # restored / failed at the ladder floor
                 if not ok:
                     continue    # anomalous row (already charged)
+                if mem is not None and not mem.on_step(
+                        seq, np.flatnonzero(sel[slot]), np.flatnonzero(pre[slot]),
+                        host_before[seq.seq_id]):
+                    # host-tier miss: the token is discarded and nothing
+                    # advances; the next tick re-runs this slot's step once
+                    # the missing pages are promoted (the rest of the batch
+                    # commits)
+                    continue
                 if seq.replay:
                     # resume replay: the committed token is forced as input
                     self._tokens_buf[slot] = seq.replay.pop(0)
@@ -724,6 +816,7 @@ class Engine:
             m.checkpoints_restored,
             m.replayed_tokens,
             len(m.requests_failed),
+            self.memory.queue.applied if self.memory is not None else 0,
         )
 
     def _watchdog_break(self):
@@ -741,6 +834,24 @@ class Engine:
     def _tick_work(self) -> int:
         """admit -> prefill chunks -> decode -> retire (one tick's work);
         -> the number of decoding slots stepped."""
+        if self.memory is not None:
+            # apply staged host -> device promotions (stall targets first,
+            # then predictions into free headroom) and rebuild the demotion
+            # shield before anything allocates or reads the cache
+            self.memory.begin_tick()
+            # starvation breaker: a stalled sequence whose miss-promotes
+            # have failed for consecutive ticks is starved (the others'
+            # working-set shields cover the whole budget), and
+            # prepare_decode cannot help (stalled sequences hold their
+            # reservation and are left out of it): preempt the scheduler's
+            # victim among the starved, whose freed pages make room
+            starved = [self.scheduler.running[sid]
+                       for sid in self.memory.starved_seqs()
+                       if sid in self.scheduler.running]
+            if starved:
+                victim = self.scheduler.choose_victim(starved)
+                self.scheduler.preempt(victim)
+                self._free_slot(victim)
         free = [i for i, s in enumerate(self.slots) if s is None]
         plan = self.scheduler.plan_tick(free)
         for adm in plan.admitted:
@@ -748,9 +859,16 @@ class Engine:
         for ch in plan.chunks:
             self._run_chunk(ch)
         decoding = [s for s in self.slots if s is not None and s.state == DECODE]
+        if self.memory is not None:
+            # a stalled sequence already holds its next-token reservation
+            # from the tick it missed on; reserving again would leak span
+            decoding = [s for s in decoding if s.seq_id not in self.memory.stalled]
         for seq in self.scheduler.prepare_decode(decoding):
             self._free_slot(seq)
-        return self._decode_tick()
+        decoded = self._decode_tick()
+        if self.memory is not None:
+            self.memory.end_tick()
+        return decoded
 
     def run_until_done(
         self,

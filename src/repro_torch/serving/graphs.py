@@ -15,10 +15,12 @@ restores after each warm-up step.  The graph reads its tokens from a
 static ``[max_batch]`` int64 device buffer and its lengths from
 ``cache["seq_len"]``; every other cache tensor is read and written at the
 address it had at capture.  So a graph is bound to one cache dict, to the
-tensors it held at capture and to whether it carried ``"_telemetry"``, and
-a call that breaks any of these raises instead of replaying over stale
-pointers.  A capture that fails raises too: nothing falls back to the
-eager step.
+tensors it held at capture and to which of the engine's planted outputs it
+carried (``"_telemetry"``; tiered KV memory's ``"_sel_pages"`` and
+``"_pre_pages"``), and a call that breaks any of these raises instead of
+replaying over stale pointers.  Tiered memory moves page bytes in place on
+those tensors between replays, so a graph keeps reading what it must.  A
+capture that fails raises too: nothing falls back to the eager step.
 
 A replay runs no Python, so it counts no kernel launches by itself: the
 graph keeps the counts its captured step made (warm-up and capture leave
@@ -31,6 +33,7 @@ makes engines built inside it hand out the eager step.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -88,10 +91,19 @@ def _on_side_stream(fn: Callable[[], None], device: torch.device):
 
 def _capture(fn: Callable[[], torch.Tensor], pool, device: torch.device):
     """Capture ``fn()`` on ``device``'s side stream -> (graph, its output
-    tensor)."""
+    tensor).  The garbage collector is off during the capture (``torch.cuda
+    .graph`` collects just before it): a collection there could destroy
+    another graph or free device memory, CUDA calls that invalidate a
+    capture in progress."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, stream=_side_stream(device)):
-        out = fn()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=_side_stream(device)):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
     return graph, out
 
 
@@ -99,9 +111,15 @@ def _delta(after: Dict, before: Dict) -> Dict:
     return {n: {k: after[n][k] - before[n][k] for k in after[n]} for n in after}
 
 
+#: the step's optional outputs, planted in the cache by the engine: the
+#: sparsity counters and tiered KV memory's page masks
+_PLANTED = ("_telemetry", "_sel_pages", "_pre_pages")
+
+
 def _tensors(cache) -> Tuple:
-    """Every tensor of ``cache`` the step may read or write, by identity."""
-    out = [cache["seq_len"], cache.get("_telemetry")]
+    """Every tensor of ``cache`` the step may read or write, by identity:
+    ``seq_len``, the planted outputs (None where absent), the layers'."""
+    out = [cache["seq_len"]] + [cache.get(k) for k in _PLANTED]
     for e in cache["layers"]:
         out.extend(e.values())
     return tuple(out)
@@ -135,8 +153,9 @@ class DecodeGraph:
     def _check(self, cache):
         if cache is not self._cache:
             raise RuntimeError("this decode graph was captured over another cache")
-        if ("_telemetry" in cache) != (self._tensors[1] is not None):
-            raise RuntimeError("telemetry was turned on or off after the capture")
+        for i, key in enumerate(_PLANTED, 1):
+            if (key in cache) != (self._tensors[i] is not None):
+                raise RuntimeError(f"{key} was planted or removed after the capture")
         now = _tensors(cache)
         if len(now) != len(self._tensors) or any(
                 a is not b for a, b in zip(now, self._tensors)):

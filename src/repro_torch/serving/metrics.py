@@ -1,8 +1,9 @@
-"""Request-lifecycle metrics (``repro.serving.metrics`` without trace spans
-or tiering counters): per-request timelines, fleet counters, the SLO
-aggregates, the failure-domain counters of :mod:`repro_torch.resilience`
-(always in the snapshot), plus the sparsity telemetry the engine folds in
-when it runs with ``telemetry=True``.
+"""Request-lifecycle metrics (``repro.serving.metrics`` without trace
+spans): per-request timelines, fleet counters, the SLO aggregates, the
+failure-domain counters of :mod:`repro_torch.resilience` (always in the
+snapshot), the tiering counters of :mod:`repro_torch.memory` (in the
+snapshot once a tiered engine has reported residency), plus the sparsity
+telemetry the engine folds in when it runs with ``telemetry=True``.
 
 - TTFT  = first-token time - submit time (includes queueing),
 - TPOT  = (finish - first token) / (output tokens - 1),
@@ -24,6 +25,10 @@ class RequestMetrics:
     deadline: Optional[float] = None
     prefix_hit_tokens: int = 0
     preemptions: int = 0
+    #: host-tier misses: stalls waiting for page promotion and their time
+    #: (tiered KV memory only; see :mod:`repro_torch.memory`).
+    stalls: int = 0
+    stall_time: float = 0.0
     #: step-fault retries charged against this request's failure budget.
     retries: int = 0
     t_submit: Optional[float] = None
@@ -96,6 +101,18 @@ class ServingMetrics:
         #: :meth:`on_sparsity` / :meth:`on_prefill_sparsity` and surface in
         #: :meth:`snapshot`.
         self.sparsity = None
+        # -- memory tiering (populated only when the engine runs a
+        # TieredPagePool; ``tiering`` gates the snapshot fields) --
+        self.tiering = False
+        self.hbm_resident_pages = 0
+        self.host_resident_pages = 0
+        self.prefetch_hits = 0
+        self.prefetch_misses = 0
+        self.prefetch_staged = 0
+        self.migrations = 0
+        self.migration_bytes = 0
+        self.stalls = 0
+        self._stall_start: Dict[int, float] = {}
         # -- failure domains (repro_torch.resilience); always present so
         # the snapshot carries the counters whether or not faults fire --
         self.retries = 0
@@ -151,6 +168,37 @@ class ServingMetrics:
         r = self._req(req_id)
         if r.t_finish is None:
             r.t_finish = self.clock()
+
+    # -- memory tiering events -----------------------------------------------
+
+    def set_residency(self, hbm_pages: int, host_pages: int):
+        self.tiering = True
+        self.hbm_resident_pages = hbm_pages
+        self.host_resident_pages = host_pages
+
+    def on_prefetch_hit(self, n: int = 1):
+        self.prefetch_hits += n
+
+    def on_prefetch_miss(self, n: int = 1):
+        self.prefetch_misses += n
+
+    def on_prefetch_staged(self, n: int = 1):
+        self.prefetch_staged += n
+
+    def on_migration(self, nbytes: int, demote: bool):
+        self.migrations += 1
+        self.migration_bytes += nbytes
+
+    def on_stall_begin(self, req_id: int):
+        r = self._req(req_id)
+        r.stalls += 1
+        self.stalls += 1
+        self._stall_start.setdefault(req_id, self.clock())
+
+    def on_stall_end(self, req_id: int):
+        t0 = self._stall_start.pop(req_id, None)
+        if t0 is not None:
+            self._req(req_id).stall_time += self.clock() - t0
 
     # -- failure domains (repro_torch.resilience) ----------------------------
 
@@ -271,4 +319,24 @@ class ServingMetrics:
         snap["failed_by_reason"] = failed_by_reason
         if self.sparsity is not None:
             snap.update(self.sparsity.snapshot())
+        if self.tiering:
+            lookups = self.prefetch_hits + self.prefetch_misses
+            stall_times = [r.stall_time for r in done]
+            snap["hbm_resident_pages"] = self.hbm_resident_pages
+            snap["host_resident_pages"] = self.host_resident_pages
+            snap["prefetch_hits"] = self.prefetch_hits
+            snap["prefetch_misses"] = self.prefetch_misses
+            snap["prefetch_staged"] = self.prefetch_staged
+            snap["prefetch_hit_rate"] = (
+                self.prefetch_hits / lookups if lookups else 0.0
+            )
+            snap["migrations"] = self.migrations
+            snap["migration_bytes"] = self.migration_bytes
+            snap["stalls"] = self.stalls
+            snap["stall_time_total"] = sum(
+                r.stall_time for r in self.requests.values()
+            )
+            if stall_times:
+                snap["stall_time_mean"] = sum(stall_times) / len(stall_times)
+                snap["stall_time_max"] = max(stall_times)
         return snap

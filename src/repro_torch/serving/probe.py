@@ -10,12 +10,15 @@ row's logits, token and tick by (request, position), optionally feeding
 given tokens in place of the samples.  Detach both after the run
 (``detach()``): that restores the engine and drops every reference to it,
 so a kept record does not keep the engine's cache alive.
+:func:`demote_around_shield` forces a tiered engine's page to the host
+tier, for checks of the miss path.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch import kernels
+from repro_torch.memory import HBM
 from repro_torch.serving.scheduler import DECODE
 
 
@@ -125,3 +128,24 @@ class SampleRecorder(_Patch):
             return toks, fin
 
         self._patch(engine, "_sample", recording)
+
+
+#: the tiering counters of ``ServingMetrics.snapshot()`` that two runs of
+#: one traffic on one pool must share (graphed and eager, say)
+TIER_COUNTERS = ("stalls", "prefetch_hits", "prefetch_misses", "prefetch_staged",
+                 "migrations", "migration_bytes")
+
+
+def demote_around_shield(engine, seq_id: int) -> Optional[int]:
+    """Demote ``seq_id``'s sink page (its first, pinned into every
+    selection) to the host tier past the demotion shield, when it is
+    device-resident -> the page, else None.  The next step misses on it.
+    A host-I/O error of the copy propagates."""
+    pool = engine.pool
+    page = pool.table(seq_id).physical[0]
+    if pool.tier_of(page) != HBM:
+        return None
+    pool._protected.discard(page)
+    pool._auto_protected.discard(page)
+    pool._demote(page)
+    return page

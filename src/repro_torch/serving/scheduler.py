@@ -2,10 +2,12 @@
 
 A copy of ``repro.serving.scheduler``, failure-domain paths included
 (checkpoint restore with backoff, failure budgets, forced preemption).
-The ``tier_bound`` branch of the decode-page reservation (a
-:class:`~repro_torch.resilience.HostIOError` out of the pool) cannot be
-reached in the port: only tiered KV memory, which is not ported, raises
-one.
+Tiered KV memory (:mod:`repro_torch.memory`) reaches its tier paths: a
+:class:`~repro_torch.memory.TieredPagePool` refuses admission past its
+``max_live_seqs`` or when its tiers are full, and the ``tier_bound`` branch
+of the decode-page reservation (tier exhaustion or an injected
+:class:`~repro_torch.resilience.HostIOError`) preempts without trying
+prefix-cache eviction.
 
 The :class:`Scheduler` owns the request lifecycle
 (``queued -> prefill -> decode -> finished``, with ``preempted`` looping
@@ -343,6 +345,10 @@ class Scheduler:
             try:
                 self.pool.fork(seq.seq_id, pages, len(tokens))
             except PoolExhausted:
+                # tiered pools can refuse beyond the free-page check: the
+                # HBM budget may be fully covered by protected working sets
+                # or the host spill tier may be full.  Head-of-line block;
+                # decode progress (or retirement) frees tier room.
                 break
             self.waiting.pop(idx)
             seq.state = PREFILL
@@ -422,11 +428,12 @@ class Scheduler:
                     self.pool.extend(seq.seq_id, 1)
                     break
                 except PoolExhausted as exc:
-                    # tier-bound exhaustion (an injected ``HostIOError``)
+                    # tier-bound exhaustion (tiered pool: HBM shield or
+                    # host tier full, or an injected ``HostIOError``)
                     # cannot be fixed by unpinning cached pages —
                     # ``evict_for`` would report success off the free-page
-                    # count without freeing anything and this loop would
-                    # spin; go straight to preemption.
+                    # count without freeing any tier room and this loop
+                    # would spin; go straight to preemption.
                     if not getattr(exc, "tier_bound", False) and (
                         self.prefix_cache is not None
                         and self.prefix_cache.evict_for(1)
@@ -440,9 +447,12 @@ class Scheduler:
         return preempted
 
     def preempt(self, seq: SeqState):
-        """Forced preemption — the engine's watchdog calls this for the
-        victim when ticks stop making progress; freeing its table is the
-        way to restore progress."""
+        """Forced preemption — the tiered-memory starvation breaker calls
+        this for a sequence whose host-tier miss could not be promoted for
+        consecutive ticks (every resident page shielded by other sequences'
+        working sets), and the watchdog for its victim when ticks stop
+        making progress; freeing its table is the way to restore
+        progress."""
         self._preempt(seq)
 
     def _preempt(self, seq: SeqState):

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_slot_reset import clear_slots_on_install
 from repro.backends import get_backend as jax_backend
 from repro.config import ServeConfig as JServe
 from repro.configs import get_config as j_get_config
@@ -294,7 +295,7 @@ def test_calibrate_for_config_serves_token_identical_to_jax():
     model = params_from_jax(jax.tree.map(np.asarray, params), new_cfg, device="cpu")
     rng = np.random.default_rng(9)
     prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (300, 170)]
-    jeng = JEngine(jcfg, params, JServe(**SERVE), seed=0)
+    jeng = clear_slots_on_install(JEngine(jcfg, params, JServe(**SERVE), seed=0))
     teng = TEngine(new_cfg, model, TServe(**SERVE), seed=0, device="cpu")
     for eng, Req in ((jeng, JRequest), (teng, TRequest)):
         for i, p in enumerate(prompts):

@@ -25,6 +25,7 @@ import jax
 import numpy as np
 import pytest
 
+from _jax_slot_reset import clear_slots_on_install
 from repro.config import ServeConfig as JServe
 from repro.configs import get_config as j_get_config
 from repro.configs import smoke_variant as j_smoke
@@ -80,7 +81,7 @@ def serve_both(arch, t_backend, fused, j_backend, serve_kw, new_tokens, seed=3,
     params = JTransformer(jcfg).init(jax.random.PRNGKey(seed))
     model = params_from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
     serve = dict(SERVE, **serve_kw)
-    jeng = JEngine(jcfg, params, JServe(**serve), seed=0)
+    jeng = clear_slots_on_install(JEngine(jcfg, params, JServe(**serve), seed=0))
     teng = TEngine(tcfg, model, TServe(**serve), seed=0, device="cpu")
     for eng, Req in ((jeng, JRequest), (teng, TRequest)):
         for i, p in enumerate(prompts(tcfg.vocab_size)):

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_slot_reset import clear_slots_on_install
 from repro.config import ServeConfig as JServe
 from repro.configs import get_config as j_get_config
 from repro.configs import smoke_variant as j_smoke
@@ -72,7 +73,7 @@ def test_engine_token_streams_match_jax(new_tokens, pool_pages, fused_decode):
     model = params_from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
 
     serve = dict(SERVE, pool_pages=pool_pages)
-    jeng = JEngine(jcfg, params, JServe(**serve), seed=0)
+    jeng = clear_slots_on_install(JEngine(jcfg, params, JServe(**serve), seed=0))
     teng = TEngine(tcfg, model, TServe(**serve), seed=0, device="cpu")
     for eng, Req in ((jeng, JRequest), (teng, TRequest)):
         for i, p in enumerate(_prompts()):
@@ -126,7 +127,8 @@ def _port_modules():
 def test_port_imports_no_jax_and_nothing_of_repro():
     mods = list(_port_modules())
     for m in ("kernels.fused_decode", "kernels.block_centroid", "kernels.topk_threshold",
-              "kernels.flash_attention", "core.calibration", "core.recall"):
+              "kernels.flash_attention", "core.calibration", "core.recall",
+              "memory.manager", "memory.page_io"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -166,7 +168,6 @@ def test_unported_engine_options_raise():
     from repro_torch.models import Transformer
 
     model = Transformer(cfg, device="cpu")
-    for kw, serve in (({"mesh": object()}, SERVE), ({"trace": object()}, SERVE),
-                      ({}, dict(SERVE, hbm_pages=64))):
+    for kw in ({"mesh": object()}, {"trace": object()}):
         with pytest.raises(NotImplementedError):
-            TEngine(cfg, model, TServe(**serve), device="cpu", **kw)
+            TEngine(cfg, model, TServe(**SERVE), device="cpu", **kw)

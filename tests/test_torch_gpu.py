@@ -47,7 +47,11 @@ the staged scoring and paged-attention kernels at GQA group 4 with
 head_dim 128 (qwen3-8b's shape).  Last, the serving engine's degradation
 ladder at smoke width: each rung's whole decode ticks launch its own
 kernels, and the degraded run's logits stay within a cosine of 0.9995 of
-a fault-free run fed the same tokens.
+a fault-free run fed the same tokens.  Then tiered KV memory at smoke
+width: a graphed tiered engine against an eager one (tokens, pool and
+tiering counters, a forced miss re-run on the graph), ``CachePageIO``'s
+pinned, in-place, bitwise round trip, and a poisoned selected page that
+stalls its sequence without a non-finite row.
 """
 import pytest
 import torch
@@ -714,3 +718,172 @@ def test_host_sync_fails_the_capture(cuda):
     cache["seq_len"].copy_(lens)
     logits, _ = DecodeGraph(model.decode_step, cache)(cache, tokens)
     assert bool(torch.isfinite(logits).all())
+
+
+def test_capture_survives_a_collection_of_another_graph(cuda):
+    """Another captured graph becomes cyclic garbage during a capture and a
+    collection would run at the next allocation (threshold 1): the capture
+    still succeeds, since destroying that graph mid-capture is a CUDA call
+    that invalidates the capture; the cycle is collected after."""
+    import gc
+    import weakref
+
+    from repro_torch.serving import DecodeGraph
+
+    model, cache, lens = _graph_case(cuda, "fused", False)
+    tokens = torch.tensor([7, 100], device=cuda)
+    x = torch.zeros(8, device=cuda)
+    other = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(other):
+        x.add_(1)
+    held, dropped = [other], []
+    del other
+
+    class Cycle:
+        pass
+
+    def step(cache, tokens):
+        if held and torch.cuda.is_current_stream_capturing():
+            cycle = Cycle()
+            cycle.graph, cycle.self = held.pop(), cycle
+            dropped.append(weakref.ref(cycle))
+            del cycle
+        return model.decode_step(cache, tokens)
+
+    threshold = gc.get_threshold()
+    cache["seq_len"].copy_(lens)
+    gc.set_threshold(1)
+    try:
+        logits, _ = DecodeGraph(step, cache)(cache, tokens)
+    finally:
+        gc.set_threshold(*threshold)
+    assert bool(torch.isfinite(logits).all())
+    gc.collect()
+    assert len(dropped) == 1 and dropped[0]() is None
+
+
+# -- tiered KV memory (repro_torch.memory) -----------------------------------------
+
+def _tiered_serve(dev, model, eager=False, pool=None, force_miss=True):
+    """Three requests of 300 tokens (12 new) at max_batch 4, max_context 512,
+    on 28 device + 72 host pages (``pool`` overrides the pool settings): the
+    requests hold 60 pages, so the pool is overcommitted; with
+    ``force_miss``, request 1's sink page is demoted around the shield once
+    it decodes with two tokens out.  -> (engine, requests, the forced
+    miss: {"tick", "page", "n_out", "stalled_on", "n_out_after"} or {}, the
+    number of decode steps)."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.config import ServeConfig
+    from repro_torch.serving import Engine, Request, step_graphs_disabled
+    from repro_torch.serving.probe import LadderProbe, demote_around_shield
+
+    pool = pool or dict(hbm_pages=28, host_pages=72)
+    with step_graphs_disabled() if eager else contextlib.nullcontext():
+        eng = Engine(model.cfg, model, ServeConfig(
+            max_batch=4, max_context=512, prefill_chunk=128,
+            prefill_tokens_per_tick=1024, temperature=0.0, **pool), device=dev)
+    rng = np.random.default_rng(7)
+    reqs = [Request(i, rng.integers(0, model.cfg.vocab_size, 300).astype(np.int32),
+                    max_new_tokens=12) for i in range(3)]
+    for r in reqs:
+        eng.submit(r)
+    probe = LadderProbe(eng)
+    miss = {}
+    for _ in range(300):
+        if not eng.scheduler.has_work:
+            break
+        seq = eng.scheduler.running.get(1)
+        if (force_miss and not miss and eng.memory is not None and seq is not None
+                and seq.state == "decode" and len(seq.req.output) >= 2
+                and 1 not in eng.memory.stalled):
+            sink = demote_around_shield(eng, 1)
+            if sink is not None:
+                miss = {"tick": eng.metrics.ticks, "page": sink,
+                        "n_out": len(seq.req.output)}
+        eng.step()
+        probe(eng, eng.metrics.ticks)
+        if miss.get("tick") == eng.metrics.ticks - 1:
+            miss["stalled_on"] = sorted(eng.memory.stalled.get(1, ()))
+            miss["n_out_after"] = len(seq.req.output)
+    probe.detach()
+    assert all(r.done for r in reqs)
+    assert eng.pool.assert_consistent(known_pins=eng.prefix_cache.pages()) == []
+    steps = sum(k == "decode" for st in probe.steps.values() for _, k, _ in st)
+    return eng, reqs, miss, steps
+
+
+def test_tiered_engine_graphed_matches_eager(cuda):
+    """A tiered engine whose decode step is a CUDA graph and one built under
+    ``step_graphs_disabled()``: the same tokens, pool and tiering counters,
+    with migrations, a forced miss and the stalled step re-run on the graph
+    (every decode step a replay); the tokens equal a flat pool's."""
+    model = _smoke_model(cuda, backend="cuda", fused_decode=True, sparse_prefill=True)
+    from repro_torch.serving.probe import TIER_COUNTERS
+
+    g_eng, g_reqs, g_miss, g_steps = _tiered_serve(cuda, model)
+    e_eng, e_reqs, e_miss, _ = _tiered_serve(cuda, model, eager=True)
+    _, f_reqs, _, _ = _tiered_serve(cuda, model, pool=dict(pool_pages=100))
+    assert [r.output for r in g_reqs] == [r.output for r in e_reqs]
+    assert [r.output for r in g_reqs] == [r.output for r in f_reqs]
+    g, e = g_eng.metrics.snapshot(), e_eng.metrics.snapshot()
+    assert {k: g[k] for k in TIER_COUNTERS} == {k: e[k] for k in TIER_COUNTERS}
+    assert g_eng.pool.stats() == e_eng.pool.stats()
+    assert g_eng.pool.demotions > 0 and g["stalls"] >= 1 and g_miss == e_miss
+    assert not e_eng._step_graphs and set(g_eng._step_graphs) == {0}
+    assert g_eng._step_graphs[0].replays == g_steps > 0
+
+
+def test_page_io_restore_is_bitwise(cuda):
+    """``CachePageIO`` on a bf16 engine-shaped cache on the card: the host
+    copy is pinned, poison writes 9984 (1e4 in bf16) to that slot's page in
+    every layer and nothing else, restore brings every byte back, and no
+    cache tensor moves."""
+    from repro_torch.memory import POISON, CachePageIO
+
+    model = _smoke_model(cuda, backend="cuda", fused_decode=True)
+    cache = model.init_cache(3, 512)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for e in cache["layers"]:
+        for n in ("k", "v"):
+            e[n].copy_(torch.randn(e[n].shape, generator=gen, device=cuda))
+    layers = cache["layers"]
+    before = [{n: e[n].clone() for n in ("k", "v")} for e in layers]
+    ptrs = [(e["k"].data_ptr(), e["v"].data_ptr()) for e in layers]
+    io = CachePageIO()
+    kb, vb = io.gather(layers, 2, 7)
+    assert kb.is_pinned() and vb.is_pinned() and kb.device.type == "cpu"
+    io.poison(layers, 2, 7)
+    torch.cuda.synchronize()
+    assert float(torch.tensor(POISON, dtype=torch.bfloat16)) == 9984.0
+    for e, b in zip(layers, before):
+        for n in ("k", "v"):
+            assert bool((e[n][2, :, 7] == 9984).all())
+            mask = torch.ones(e[n].shape[:3], dtype=torch.bool, device=cuda)
+            mask[2, :, 7] = False
+            assert torch.equal(e[n][mask], b[n][mask])
+    io.restore(layers, 2, 7, kb, vb)
+    torch.cuda.synchronize()
+    for e, b in zip(layers, before):
+        for n in ("k", "v"):
+            assert torch.equal(e[n], b[n])
+    assert [(e["k"].data_ptr(), e["v"].data_ptr()) for e in layers] == ptrs
+    assert io.page_nbytes(layers) == 2 * model.cfg.n_layers * 2 * 16 * 64 * 2
+
+
+def test_poisoned_selected_page_stalls_with_finite_rows(cuda):
+    """A page the next selection needs, demoted around the shield: the
+    owning sequence stalls on it (its token not committed), no row of the
+    step is non-finite (no sampler anomaly, no retry, no degradation), and
+    its stream equals a flat pool's."""
+    model = _smoke_model(cuda, backend="cuda", fused_decode=True, sparse_prefill=True)
+    eng, reqs, miss, _ = _tiered_serve(cuda, model)
+    _, flat, _, _ = _tiered_serve(cuda, model, pool=dict(pool_pages=100))
+    assert miss["page"] in miss["stalled_on"]
+    assert miss["n_out_after"] == miss["n_out"]
+    snap = eng.metrics.snapshot()
+    assert snap["sampler_anomalies"] == 0 and snap["retries"] == 0
+    assert snap["degradations"] == 0 and snap["prefetch_misses"] >= 1
+    assert [r.output for r in reqs] == [r.output for r in flat]

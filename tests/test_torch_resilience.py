@@ -12,7 +12,8 @@ ladder (fused -> staged -> reference on the ``"cuda"`` backend, the
 kernels' plain versions here) is driven down and back up, and a degraded
 re-run must leave the cache bytes a clean run on that rung leaves.  The
 chaos twin serves ``benchmarks/chaos_bench.py``'s traffic under
-``default_storm()`` on a flat page pool.  The repair of the sparse-prefill
+``default_storm()`` on a flat page pool, and again on the bench's tiered
+pool, where the host-tier sites fire.  The repair of the sparse-prefill
 gate (the config decides, not the cache alone) is held to JAX's chunk.
 """
 import dataclasses
@@ -23,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_slot_reset import clear_slots_on_install
 from repro import resilience as jres
 from repro.cache.paged_kv import PoolExhausted as JPoolExhausted
 from repro.config import ServeConfig as JServe
@@ -72,7 +74,7 @@ def _engine(pkg, cfg, weights, **serve_kw):
     serve_kw.setdefault("max_batch", 2)
     serve_kw.setdefault("max_context", 512)
     if pkg == "jax":
-        return JEngine(cfg, weights, JServe(**serve_kw))
+        return clear_slots_on_install(JEngine(cfg, weights, JServe(**serve_kw)))
     return TEngine(cfg, weights, TServe(**serve_kw), device="cpu")
 
 
@@ -636,3 +638,50 @@ def test_chaos_twin_matches_jax(setup):
     assert sum(fired.values()) >= 5
     p99_base = float(np.percentile(ttft["base"], 99))
     assert float(np.percentile(ttft["torch"], 99)) <= 8.0 * p99_base + 40.0
+
+
+#: the tiering counters of ``snapshot()`` that depend on no clock
+TIER_KEYS = ("hbm_resident_pages", "host_resident_pages", "prefetch_hits",
+             "prefetch_misses", "prefetch_staged", "migrations", "migration_bytes",
+             "stalls")
+
+
+def test_tiered_chaos_twin_matches_jax(setup):
+    """``chaos_bench``'s traffic and storm (``default_storm()`` seed 7) on
+    the bench's tiered pool of 30 HBM + 70 host pages: nothing lost, every
+    ``ok`` request equal to the fault-free tiered run, the pool clean; the
+    JAX engine on the same traffic and plan gives the same outputs,
+    statuses, counters (tiering ones included), fired faults and TTFT in
+    ticks, and the tiered-memory sites fire (``host_io`` at least once,
+    ``promote_delay`` too)."""
+    jcfg, params, tcfg, model = setup
+    serve = dict(max_batch=3, max_context=512, prefill_chunk=128,
+                 prefill_tokens_per_tick=512, hbm_pages=30, host_pages=70,
+                 temperature=0.0)
+    out, ttft, fired, tiers = {}, {}, {}, {}
+    for pkg, cfg, w, res, Req in (("jax", jcfg, params, jres, JRequest),
+                                  ("torch", tcfg, model, tres, TRequest),
+                                  ("base", tcfg, model, None, TRequest)):
+        eng = _engine("jax" if pkg == "jax" else "torch", cfg, w, **serve)
+        if res is not None:
+            eng.set_fault_injector(res.FaultInjector(res.default_storm(), seed=7))
+        reqs, arrivals = _chaos_traffic(cfg.vocab_size, Req)
+        ttft[pkg] = _chaos_drive(eng, reqs, arrivals)
+        out[pkg] = _record(eng, reqs)
+        snap = eng.metrics.snapshot()
+        tiers[pkg] = {k: snap[k] for k in TIER_KEYS}
+        assert all(r.done for r in reqs)
+        assert eng.pool.assert_consistent(known_pins=eng.prefix_cache.pages()) == []
+        if res is not None:
+            fired[pkg] = eng._fault.fired
+    assert out["torch"] == out["jax"]
+    assert ttft["torch"] == ttft["jax"]
+    assert tiers["torch"] == tiers["jax"]
+    assert fired["torch"] == fired["jax"]
+    assert fired["torch"].get("host_io", 0) >= 1
+    assert fired["torch"].get("promote_delay", 0) >= 1
+    assert tiers["torch"]["migration_bytes"] > 0
+    for o, b, st in zip(out["torch"]["outputs"], out["base"]["outputs"],
+                        out["torch"]["status"]):
+        if st == "ok":
+            assert o == b

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_slot_reset import clear_slots_on_install
 from repro.backends import get_backend as jax_backend
 from repro.backends import store as jstore
 from repro.config import ServeConfig as JServe
@@ -263,7 +264,8 @@ def test_engine_telemetry_snapshot_matches_jax_for_fused_and_staged():
         out = {r.req_id: list(r.output) for r in eng.run_until_done()}
         return out, eng.metrics.snapshot()
 
-    jeng = JEngine(jcfg, params, JServe(**SERVE), seed=0, telemetry=True)
+    jeng = clear_slots_on_install(JEngine(jcfg, params, JServe(**SERVE), seed=0,
+                                          telemetry=True))
     jout, jsnap = serve(jeng, JRequest)
     for fused in (True, False):
         tcfg = dataclasses.replace(tb, sparse=dataclasses.replace(

@@ -15,7 +15,9 @@ and each replay calls it again on the static buffers and copies its logits
 into the static output, counting nothing.  With it the engine serves the
 default configuration as JAX does, the three-rung ladder of
 ``tests/test_torch_resilience.py`` runs with each tick's kernel counts
-equal to the eager engine's, and the guards raise.
+equal to the eager engine's, a tiered engine stalls and re-runs a step on
+its graph as the eager one does, and the guards raise (tiered memory's
+page masks among the tensors a graph is bound to).
 """
 import dataclasses
 import gc
@@ -32,7 +34,8 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.models import Transformer
 from repro_torch.serving import DecodeGraph, Engine, Request, step_graphs_disabled
 from repro_torch.serving import graphs
-from repro_torch.serving.probe import LadderProbe
+from repro_torch.serving.probe import TIER_COUNTERS, LadderProbe, demote_around_shield
+from repro_torch.serving.scheduler import DECODE
 
 from test_torch_dense_engine import check_streams, serve_both
 from test_torch_resilience import FAILURE_KEYS, FLEET_KEYS, _ladder_engine
@@ -335,3 +338,90 @@ def test_graphed_ladder_counts_as_eager(stub_graphs):
     assert decodes.keys() == {0, 1, 2}
     for rung, graph in g_eng._step_graphs.items():
         assert graph.replays == decodes[rung] > 0
+
+
+def _plant_masks(cache, ctx):
+    for key in ("_sel_pages", "_pre_pages"):
+        cache[key] = torch.zeros((B, ctx // 16), dtype=torch.bool)
+
+
+def test_graph_tensors_cover_the_page_masks(stub_graphs):
+    """Tiered memory's planted page masks are among the tensors a graph is
+    bound to: a graphed step fills them as the eager step does, and
+    planting, removing or replacing them after the capture raises."""
+    model, ctx = _model("fused")
+    cache, eager = _cache(model, ctx, False), _cache(model, ctx, False)
+    for c in (cache, eager):
+        _plant_masks(c, ctx)
+    held = graphs._tensors(cache)
+    assert any(t is cache["_sel_pages"] for t in held)
+    assert any(t is cache["_pre_pages"] for t in held)
+    tokens = torch.tensor([1, 2])
+    want, _ = model.decode_step(eager, tokens)
+    graph = DecodeGraph(model.decode_step, cache)
+    cache["seq_len"].copy_(torch.tensor(LENS, dtype=torch.int32))
+    logits, _ = graph(cache, tokens)
+    assert torch.equal(logits, want)
+    for key in ("_sel_pages", "_pre_pages"):
+        assert torch.equal(cache[key], eager[key]) and bool(cache[key].any())
+    assert bool((cache["_pre_pages"] | ~cache["_sel_pages"]).all())
+    sel = cache.pop("_sel_pages")
+    with pytest.raises(RuntimeError, match="_sel_pages"):
+        graph(cache, tokens)
+    cache["_sel_pages"] = sel.clone()
+    with pytest.raises(RuntimeError, match="replaced"):
+        graph(cache, tokens)
+    bare = _cache(model, ctx, False)
+    graph = DecodeGraph(model.decode_step, bare)
+    graph(bare, tokens)
+    _plant_masks(bare, ctx)
+    with pytest.raises(RuntimeError, match="planted"):
+        graph(bare, tokens)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])
+def test_graphed_tiered_engine_matches_eager(stub_graphs, fused):
+    """An overcommitted tiered engine with a forced miss (request 0's sink
+    page demoted around the shield once it decodes): graphed and eager give
+    the same tokens and tiering counters, the stalled step re-runs on the
+    graph (every decode step a replay), and the tokens equal a flat
+    pool's."""
+    model, ctx = _model("fused" if fused else "staged")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, 300).astype(np.int32) for _ in range(3)]
+    runs = {}
+    for name in ("eager", "graphed", "flat"):
+        pool = dict(pool_pages=96) if name == "flat" else dict(hbm_pages=40,
+                                                               host_pages=60)
+        serve = ServeConfig(max_batch=4, max_context=ctx, temperature=0.0,
+                            prefill_tokens_per_tick=512, **pool)
+        if name == "eager":
+            with step_graphs_disabled():
+                eng = Engine(model.cfg, model, serve, device="cpu")
+        else:
+            eng = Engine(model.cfg, model, serve, device="cpu")
+        reqs = [Request(i, p, max_new_tokens=12) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        probe = LadderProbe(eng)
+        forced = name == "flat"
+        for _ in range(300):
+            if not eng.scheduler.has_work:
+                break
+            seq = eng.scheduler.running.get(0)
+            if not forced and seq is not None and seq.state == DECODE and len(
+                    seq.req.output) >= 2:
+                forced = demote_around_shield(eng, 0) is not None
+            eng.step()
+            probe(eng, eng.metrics.ticks)
+        probe.detach()
+        assert forced and all(r.done for r in reqs)
+        assert eng.pool.assert_consistent(known_pins=eng.prefix_cache.pages()) == []
+        runs[name] = (eng, [list(r.output) for r in reqs], probe)
+    snaps = {n: runs[n][0].metrics.snapshot() for n in ("eager", "graphed")}
+    tier = {n: {k: s[k] for k in TIER_COUNTERS} for n, s in snaps.items()}
+    assert runs["graphed"][1] == runs["eager"][1] == runs["flat"][1]
+    assert tier["graphed"] == tier["eager"] and tier["graphed"]["stalls"] >= 1
+    assert runs["graphed"][0].pool.demotions > 0
+    steps = [k for st in runs["graphed"][2].steps.values() for _, k, _ in st]
+    assert runs["graphed"][0]._step_graphs[0].replays == steps.count("decode") > 0
