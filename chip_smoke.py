@@ -88,6 +88,10 @@ Phases (each failure is fatal, exit code != 0):
    line's numbers, the S x S ones under ``sxs_*``) and ``paged_attention``
    over the identity page table of dense decode (B 4, 32 / 8 heads, mean
    live 12000; SDPA on the dense view beside it; ``identity_*`` keys).
+   Every ``torch.profiler`` session of the script goes through
+   ``profiled``: synchronized before it opens and before it closes, its
+   rows read once closed; an empty recording is logged and, where the
+   work can run again, recorded once more; a second empty one fails.
 
 Phase 2 also holds the three kernels off the serving path against their
 plain versions: ``pool_rank_keys`` on llama3.2-3b K (bf16, B 4) and on f32
@@ -153,6 +157,32 @@ launched the pooling and scoring kernels and called no plain version.
    add, and the graphed decode step with and without the masks (phase 6's
    method).
 
+8. (after phase 7, on phase 3's weights and fused configuration) tracing,
+   the serving launcher and its async front-end: 8a runs
+   ``repro_torch.launch.serve.main`` at full llama3.2-3b width (its own
+   weights, generator seed 0; fused decode, sparse prefill, max_context
+   16384, 4 slots, chunks of 512, 16 new tokens, two shared 128-token
+   prefixes, SLO classes round robin, traced, metrics every 8 ticks) with
+   6 requests of 6000, 3000, 9000, 2000, 7000 and 4000 tokens arriving at
+   ticks 0, 0, 2, 5, 9 and 14 through the async front-end: every request
+   must finish, the trace validate (``engine.tick``, ``engine.decode``,
+   ``prefill.chunk``, the lifecycle spans, the ``pool``, ``queue`` and
+   ``sparsity`` counters, ``sched.admit`` and ``prefix.match``), the run
+   launch the fused decode, the sparse prefill and (for the telemetry
+   that follows the trace) the scoring kernel only, and the streams equal
+   ``Engine.run_until_done``'s at every position for the same requests
+   submitted at the same ticks (a drain with all of them submitted at once
+   is logged beside: its prefix-cache hits, chunk bounds and so its sums
+   differ);
+   8b serves phase 7's run T again with a trace recorder: tokens equal to
+   T's at every position, the trace holding the forced miss's
+   ``seq.stall``, ``mem.demote`` / ``mem.promote`` and the ``residency``
+   and ``sparsity`` counters; 8c logs (no gate) the graphed fused decode
+   step untraced and traced (device time and CUDA events in turns, three
+   rounds) and four closed batches on one engine with tracing on, off,
+   on, off (the first two capture their variant of the step): wall, TTFT
+   and TPOT p50, events recorded and dropped.
+
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
@@ -164,9 +194,12 @@ printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -273,18 +306,52 @@ def cuda_time_ms(torch, fn, warmup: int, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+#: this run's ``torch.profiler`` sessions (``profiled``): opened, and
+#: recorded again after an empty first recording
+PROFILER = {"sessions": 0, "retried": 0}
+
+
+def profiled(torch, run, repeatable: bool = True):
+    """The one owner of a ``torch.profiler`` session's lifecycle: ``run()``
+    under a session of device activity only, opened after a synchronize (no
+    earlier work lands in it) and closed after one (all of ``run``'s work
+    does), its rows read once it has closed -> (device ms, launches, kernel
+    name) per kernel, largest first.  A session that recorded no device
+    time is logged (and counted in ``PROFILER``); a
+    ``repeatable`` run is recorded once more, and a second empty recording
+    (or a first one of a run that cannot be repeated) fails the script."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    PROFILER["sessions"] += 1
+    for attempt in (1, 2):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = device_time_rows(torch, prof)
+        if rows:
+            return rows
+        log(f"profiler: session {PROFILER['sessions']} recorded no device time "
+            f"(recording {attempt}; {len(prof.events())} events, of them "
+            f"{sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())}"
+            f" on the device)")
+        if not repeatable:
+            break
+        PROFILER["retried"] += attempt == 1
+    fail("the profiler recorded no device time"
+         + (" twice in a row" if repeatable else ""))
+
+
 def device_ms(torch, fn, iters: int) -> float:
     """Device time per call of ``fn``: the summed times of the kernels it
     launches (``torch.profiler``), without the time the device waits for
     the host between calls."""
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    return sum(r[0] for r in device_time_rows(torch, prof)) / iters
+
+    return sum(r[0] for r in profiled(torch, run)) / iters
 
 
 def short(name: str) -> str:
@@ -297,14 +364,13 @@ def short(name: str) -> str:
 def kernel_breakdown(torch, fn, iters: int) -> str:
     """Device ms per call of ``fn`` by kernel (``torch.profiler``), as text."""
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
+
     return ", ".join(f"{short(name)} {ms / iters:.4f}"
-                     for ms, _, name in device_time_rows(torch, prof))
+                     for ms, _, name in profiled(torch, run))
 
 
 def device_rounds(torch, fns: dict, iters: int, rounds: int = 3) -> dict:
@@ -1252,8 +1318,9 @@ def time_paged_identity(torch, ident):
 
 
 def device_time_rows(torch, prof):
-    """(device ms, launches, kernel name) per kernel of a torch.profiler run
-    of device activity only, largest first."""
+    """(device ms, launches, kernel name) per kernel of a closed
+    torch.profiler session of device activity only, largest first (empty
+    when it recorded no device time; ``profiled`` decides)."""
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1263,16 +1330,13 @@ def device_time_rows(torch, prof):
             t = getattr(ev, "self_cuda_time_total", 0)
         if t > 0:
             rows.append((t / 1e3, ev.count, ev.key))
-    if not rows:
-        fail("the profiler recorded no device time")
     return sorted(rows, reverse=True)
 
 
-def profile_summary(torch, prof, wall_s: float):
-    """Device time by kernel from a torch.profiler run: the top kernels and
+def profile_summary(torch, rows, wall_s: float):
+    """Device time by kernel from a profiled run's rows: the top kernels and
     the device busy share of the profiled wall time (one stream, so kernel
     times do not overlap)."""
-    rows = device_time_rows(torch, prof)
     busy_ms = sum(r[0] for r in rows)
     log(f"profile: device busy {busy_ms:.0f} ms of {wall_s * 1e3:.0f} ms wall "
         f"({100 * busy_ms / max(wall_s * 1e3, 1e-9):.1f}%)")
@@ -1324,11 +1388,12 @@ def use_config(model, cfg, backend=None):
     model.backend = backend or get_backend(cfg.sparse.backend)
 
 
-def make_engine(cfg, model, dev, req_ids, new_tokens, telemetry=False,
-                prompts=None, backend=None, **serve_kw):
+def make_engine(cfg, model, dev, req_ids, new_tokens, telemetry=None,
+                prompts=None, backend=None, trace=None, **serve_kw):
     """An ``Engine`` over ``model`` with ``cfg`` (``backend`` in place of
     its registered backend), max_batch ``MAX_BATCH``, context CTX, chunks
-    of CHUNK (``serve_kw`` overrides), temperature 0, and requests
+    of CHUNK (``serve_kw`` overrides), temperature 0, ``trace`` and
+    ``telemetry`` (by default following ``trace``) attached, and requests
     ``req_ids`` of ``prompts`` (default: ``traffic``) submitted."""
     from repro_torch.config import ServeConfig
     from repro_torch.serving import Engine, Request
@@ -1337,7 +1402,7 @@ def make_engine(cfg, model, dev, req_ids, new_tokens, telemetry=False,
     serve_cfg = ServeConfig(**{**dict(max_batch=MAX_BATCH, max_context=CTX,
                                       prefill_chunk=CHUNK, temperature=0.0),
                                **serve_kw})
-    eng = Engine(cfg, model, serve_cfg, device=dev, telemetry=telemetry)
+    eng = Engine(cfg, model, serve_cfg, device=dev, telemetry=telemetry, trace=trace)
     prompts = traffic(cfg.vocab_size) if prompts is None else prompts
     for i in req_ids:
         eng.submit(Request(req_id=i, prompt=prompts[i], max_new_tokens=new_tokens))
@@ -1389,10 +1454,13 @@ def run_engine(torch, eng, forced=None, record=False, profile=False,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if profile:
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            done = eng.run_until_done(max_ticks=2000, tick_callback=callback)
-            torch.cuda.synchronize()
+        out = {}
+
+        def serve_run():
+            out["done"] = eng.run_until_done(max_ticks=2000, tick_callback=callback)
+
+        prof = profiled(torch, serve_run, repeatable=False)
+        done = out["done"]
     else:
         done = eng.run_until_done(max_ticks=2000, tick_callback=callback)
     torch.cuda.synchronize()
@@ -1599,25 +1667,21 @@ def serve_calibrated(torch, model, cfg, cal_cfg, dev):
 # ---------------------------------------------------------------------------
 
 
-def decode_timer(torch, profiled=False):
+def decode_timer(torch, busy=False):
     """-> (a ``decode_hook`` for ``LadderProbe``, the times it records by
     rung).  Each decode step's host time and the CUDA-event time from its
     start to its end on the stream (stream wall time: idle gaps between
-    its kernels count); with ``profiled``, its device-busy time instead:
+    its kernels count); with ``busy``, its device-busy time instead:
     the summed times of the kernels it launched, from a ``torch.profiler``
     session around the step (synchronized on both sides)."""
     times = {}
 
     def hook(rung, call):
-        if profiled:
-            torch.cuda.synchronize()
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                out = call()
-                torch.cuda.synchronize()
-            times.setdefault(rung, []).append(
-                sum(r[0] for r in device_time_rows(torch, prof)))
-            return out
+        if busy:
+            res = {}
+            rows = profiled(torch, lambda: res.update(out=call()), repeatable=False)
+            times.setdefault(rung, []).append(sum(r[0] for r in rows))
+            return res["out"]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         t0 = time.perf_counter()
         ev[0].record()
@@ -2015,26 +2079,17 @@ def compiled_step(torch, label, variants, dev):
         for name, pair in fns.items():
             for how, fn in pair.items():
                 times[name][how].append(cuda_time_ms(torch, fn, STEP_WARMUP, STEP_ITERS))
-    acts = [torch.profiler.ProfilerActivity.CUDA]
     for name, pair in fns.items():
         rec = out[name]
         for how, fn in pair.items():
             v = times[name][how]
             rec[how] = [min(v), statistics.median(v), max(v)]
             fn()
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(5):
-                    fn()
-                torch.cuda.synchronize()
-            rows = device_time_rows(torch, prof)
+            rows = profiled(torch, lambda: [fn() for _ in range(5)])
             rec[f"busy_{how}"] = sum(r[0] for r in rows) / 5
             rec[f"kernels_{how}"] = sum(r[1] for r in rows) / 5
-        with torch.profiler.profile(activities=acts) as prof:
-            pair["graphed"]()
-            torch.cuda.synchronize()
         seen = {}
-        for _, n, key in device_time_rows(torch, prof):
+        for _, n, key in profiled(torch, pair["graphed"]):
             seen[short(key)] = seen.get(short(key), 0) + n
         book = {k: c["launches"] for k, c in graphs[name].step_counts.items()
                 if c["launches"]}
@@ -2152,6 +2207,8 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
     paths["tiered"]["step"] = compiled_step(
         torch, f"{ARCH} tiered", mask_step_variants(torch, model, fused_cfg, dev), dev)
     log(f"phase 7 done at {time.perf_counter() - T_START:.1f}s")
+    paths["traced"] = serve_traced(torch, model, fused_cfg, dev, paths["tiered"])
+    log(f"phase 8 done at {time.perf_counter() - T_START:.1f}s")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2285,6 +2342,79 @@ def time_migrations(torch, eng):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+TIER_POOLS = {"flat": dict(pool_pages=TIER_HBM + TIER_HOST),
+              "tiered": dict(hbm_pages=TIER_HBM, host_pages=TIER_HOST)}
+
+
+def tiered_run(torch, model, cfg, dev, name, pool, forced=None, storm=False,
+               hook=None, trace=None, phase=7):
+    """One run of phase 7 (and of phase 8b): requests ``LADDER_REQS`` x
+    ``LADDER_NEW`` tokens on ``pool`` (``TIER_POOLS``), every prompt
+    prefilled at once, one engine, ``trace`` attached; under
+    ``default_storm()`` seed 7 with ``storm``; ``forced`` and ``hook`` as
+    ``run_engine`` takes them.  Checks the audit, that nothing was lost and
+    that every non-finite row is one the storm poisoned -> the run."""
+    from repro_torch.resilience import FaultInjector, default_storm
+    from repro_torch.serving.probe import TIER_COUNTERS
+
+    vocab = cfg.vocab_size
+    eng = make_engine(cfg, model, dev, LADDER_REQS, LADDER_NEW, prompts=traffic(vocab),
+                      prefill_tokens_per_tick=TIER_PREFILL_BUDGET, trace=trace,
+                      **TIER_POOLS[pool])
+    reqs = [s.req for s in eng.scheduler.waiting]
+    poisoned = []
+    if storm:
+        inj = FaultInjector(default_storm(), seed=7)
+        rows_of = inj.poison_rows
+
+        def poison_rows(*a):
+            rows = rows_of(*a)
+            poisoned.append(len(rows))
+            return rows
+
+        inj.poison_rows = poison_rows
+        eng.set_fault_injector(inj)
+    run = run_engine(torch, eng, forced=forced, record=True, tick_hook=hook)
+    snap = eng.metrics.snapshot()
+    run.update(reqs=reqs, snap=snap, fired=dict(eng._fault.fired) if storm else {})
+    pins = eng.prefix_cache.pages()
+    if eng.pool.assert_consistent(known_pins=pins):
+        fail(f"phase {phase} run {name}: page pool leaked pages")
+    if any(not r.done for r in reqs):
+        fail(f"phase {phase} run {name}: requests lost")
+    if snap["sampler_anomalies"] != sum(poisoned):
+        fail(f"phase {phase} run {name}: {snap['sampler_anomalies']} non-finite rows, "
+             f"{sum(poisoned)} poisoned")
+    log_serving(f"phase {phase} run {name}", run, snap)
+    first = {}
+    for t, st in sorted(run["probe"].steps.items()):
+        for _, kind, ids in st:
+            for rid in ids if kind == "decode" else ():
+                first.setdefault(rid, t)
+    run["first_decode_tick"] = first
+    if eng.memory is not None:
+        run["pool"] = {k: getattr(eng.pool, k) for k in TIER_POOL_KEYS}
+        run["tier"] = {k: snap[k] for k in TIER_COUNTERS + (
+            "hbm_resident_pages", "host_resident_pages")}
+        log(f"phase {phase} run {name}: pool {json.dumps(run['pool'])} (budget "
+            f"{eng.pool.hbm_pages} + {eng.pool.host_pages}), max_live_seqs "
+            f"{eng.pool.max_live_seqs}; {json.dumps(run['tier'])}; first decode tick "
+            f"by request {json.dumps(first)}"
+            + (f"; faults fired {json.dumps(run['fired'])}" if storm else ""))
+        if run["pool"]["peak_hbm_pages"] > eng.pool.hbm_pages:
+            fail(f"phase {phase} run {name}: {run['pool']['peak_hbm_pages']} pages "
+                 f"resident over a budget of {eng.pool.hbm_pages}")
+        if name == "T":
+            run["migration_ms"] = time_migrations(torch, eng)
+            run["page_nbytes"] = eng.memory.io.page_nbytes(eng.cache["layers"])
+    if not storm:
+        check_served(eng, run["done"], len(LADDER_REQS), LADDER_NEW, vocab)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
 def serve_tiered(torch, model, cfg, dev):
     """Phase 7: requests ``LADDER_REQS`` x ``LADDER_NEW`` tokens on phase 3's
     weights and fused main path, graphed, one engine a run: F on a flat pool
@@ -2298,69 +2428,10 @@ def serve_tiered(torch, model, cfg, dev):
     every committed position's logits be within ``LOGIT_COS`` of T's.
     Then the migration times and the graphed decode step with and without
     the page masks (phase 6's method)."""
-    from repro_torch.resilience import FaultInjector, default_storm
-    from repro_torch.serving.probe import TIER_COUNTERS
-
     vocab = cfg.vocab_size
-    prompts = traffic(vocab)
-    pools = {"flat": dict(pool_pages=TIER_HBM + TIER_HOST),
-             "tiered": dict(hbm_pages=TIER_HBM, host_pages=TIER_HOST)}
 
-    def one_run(name, pool, forced=None, storm=False, hook=None):
-        eng = make_engine(cfg, model, dev, LADDER_REQS, LADDER_NEW, prompts=prompts,
-                          prefill_tokens_per_tick=TIER_PREFILL_BUDGET, **pools[pool])
-        reqs = [s.req for s in eng.scheduler.waiting]
-        poisoned = []
-        if storm:
-            inj = FaultInjector(default_storm(), seed=7)
-            rows_of = inj.poison_rows
-
-            def poison_rows(*a):
-                rows = rows_of(*a)
-                poisoned.append(len(rows))
-                return rows
-
-            inj.poison_rows = poison_rows
-            eng.set_fault_injector(inj)
-        run = run_engine(torch, eng, forced=forced, record=True, tick_hook=hook)
-        snap = eng.metrics.snapshot()
-        run.update(reqs=reqs, snap=snap, fired=dict(eng._fault.fired) if storm else {})
-        pins = eng.prefix_cache.pages()
-        if eng.pool.assert_consistent(known_pins=pins):
-            fail(f"phase 7 run {name}: page pool leaked pages")
-        if any(not r.done for r in reqs):
-            fail(f"phase 7 run {name}: requests lost")
-        if snap["sampler_anomalies"] != sum(poisoned):
-            fail(f"phase 7 run {name}: {snap['sampler_anomalies']} non-finite rows, "
-                 f"{sum(poisoned)} poisoned")
-        log_serving(f"phase 7 run {name}", run, snap)
-        first = {}
-        for t, st in sorted(run["probe"].steps.items()):
-            for _, kind, ids in st:
-                for rid in ids if kind == "decode" else ():
-                    first.setdefault(rid, t)
-        run["first_decode_tick"] = first
-        if eng.memory is not None:
-            run["pool"] = {k: getattr(eng.pool, k) for k in TIER_POOL_KEYS}
-            run["tier"] = {k: snap[k] for k in TIER_COUNTERS + (
-                "hbm_resident_pages", "host_resident_pages")}
-            log(f"phase 7 run {name}: pool {json.dumps(run['pool'])} (budget "
-                f"{eng.pool.hbm_pages} + {eng.pool.host_pages}), max_live_seqs "
-                f"{eng.pool.max_live_seqs}; {json.dumps(run['tier'])}; first decode tick "
-                f"by request {json.dumps(first)}"
-                + (f"; faults fired {json.dumps(run['fired'])}" if storm else ""))
-            if run["pool"]["peak_hbm_pages"] > eng.pool.hbm_pages:
-                fail(f"phase 7 run {name}: {run['pool']['peak_hbm_pages']} pages "
-                     f"resident over a budget of {eng.pool.hbm_pages}")
-            if name == "T":
-                run["migration_ms"] = time_migrations(torch, eng)
-                run["page_nbytes"] = eng.memory.io.page_nbytes(eng.cache["layers"])
-        if not storm:
-            check_served(eng, run["done"], len(LADDER_REQS), LADDER_NEW, vocab)
-        del eng
-        gc.collect()
-        torch.cuda.empty_cache()
-        return run
+    def one_run(name, pool, **kw):
+        return tiered_run(torch, model, cfg, dev, name, pool, **kw)
 
     f = one_run("F", "flat")
     expect_path("phase 7 run F", f["counts"], {"fused_decode", "sparse_prefill"})
@@ -2437,6 +2508,306 @@ def mask_step_variants(torch, model, cfg, dev):
                            for k in ("_sel_pages", "_pre_pages")})
     lens = step_lens(torch, CTX, dev)
     return {"fused": (view, cache, lens), "fused+masks": (view, masks, lens)}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: tracing, the serving launcher and its async front-end
+# ---------------------------------------------------------------------------
+
+#: phase 8a's arrival trace: (engine tick, prompt tokens) of each request,
+#: and the new tokens of each
+LAUNCH_ARRIVALS = ((0, 6000), (0, 3000), (2, 9000), (5, 2000), (9, 7000), (14, 4000))
+LAUNCH_NEW = 16
+#: what phase 8a's trace must hold: span types, counter tracks, instants
+LAUNCH_TRACE = (("engine.tick", "engine.decode", "prefill.chunk", "seq.queued",
+                 "seq.prefill", "seq.decode"), ("pool", "queue", "sparsity"),
+                ("sched.admit", "prefix.match"))
+#: ... and phase 8b's (the traced tiered run)
+TIERED_TRACE = (("engine.tick", "engine.decode", "seq.decode", "seq.stall"),
+                ("pool", "residency", "sparsity"), ("mem.demote", "mem.promote"))
+#: phase 8c: rounds of the traced / untraced decode step in turns, and the
+#: closed batches served on one engine with tracing on, off, on, off:
+#: prompt lengths (numpy seeds 80-83) and new tokens
+COST_ROUNDS, COST_PROMPTS, COST_NEW = 3, (4000, 4000), 16
+
+
+def validate_trace(path, required, what):
+    """``python -m repro_torch.obs.validate`` on ``path`` with ``required``
+    (span types, counter tracks, instants), its output logged; fails the
+    script unless the trace is valid."""
+    from repro_torch.obs import validate
+
+    argv = [str(path)]
+    for flag, names in zip(("--require", "--counter", "--instant"), required):
+        for n in names:
+            argv += [flag, n]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = validate.main(argv)
+    for line in buf.getvalue().splitlines():
+        log(f"{what}: {line}")
+    if rc:
+        fail(f"{what}: the trace does not validate")
+
+
+def serve_launcher(torch, dev, out):
+    """Phase 8a: ``repro_torch.launch.serve.main`` at full llama3.2-3b width
+    (its own weights, generator seed 0 on the card), the fused decode and
+    sparse prefill, traced, requests arriving mid-flight through the async
+    front-end (``LAUNCH_ARRIVALS``).  Every request must finish, the trace
+    validate with ``LAUNCH_TRACE``, the run launch ``fused_decode``,
+    ``sparse_prefill`` and (for the telemetry that follows the trace) the
+    scoring kernel and nothing else; then the same requests are served by
+    ``Engine.run_until_done`` on the same weights, each submitted once the
+    engine has run its arrival tick (as the launcher's arrival loop submits it),
+    and the front-end's streams must equal them at every position, with the
+    same prefix-cache hits.  A drain with every request submitted at once
+    is logged beside: its prefix hits, and so its chunk bounds and sums,
+    differ."""
+    import asyncio
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launch
+    from repro_torch.serving import Engine, Request, frontend
+
+    arrivals, trace, metrics = (out / n for n in (
+        "arrivals.json", "trace.json", "metrics.jsonl"))
+    arrivals.write_text(json.dumps([{"tick": t, "prompt_tokens": n}
+                                    for t, n in LAUNCH_ARRIVALS]))
+    argv = ["--arch", ARCH, "--fused-decode", "--sparse-prefill",
+            "--max-context", str(CTX), "--max-batch", str(MAX_BATCH),
+            "--prefill-chunk", str(CHUNK), "--new-tokens", str(LAUNCH_NEW),
+            "--prefix-groups", "2", "--prefix-len", "128", "--slo-class", "mixed",
+            "--trace", str(trace), "--metrics-interval", "8",
+            "--metrics-out", str(metrics), "--arrival-trace", str(arrivals)]
+    log(f"phase 8a: python -m repro_torch.launch.serve {' '.join(argv)}")
+    streams = []
+    submit = frontend.AsyncFrontend.submit
+
+    def recording(self, req):
+        streams.append(submit(self, req))
+        return streams[-1]
+
+    buf = io.StringIO()
+    frontend.AsyncFrontend.submit = recording
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            eng = launch.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        frontend.AsyncFrontend.submit = submit
+        for line in buf.getvalue().splitlines():
+            log(f"phase 8a launcher: {line}")
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    done = sorted(eng.finished, key=lambda r: r.req_id)
+    if len(done) != len(LAUNCH_ARRIVALS) or any(
+            r.status != "ok" or len(r.output) != LAUNCH_NEW for r in done):
+        fail(f"phase 8a: {len(done)} of {len(LAUNCH_ARRIVALS)} requests finished "
+             f"with {LAUNCH_NEW} tokens")
+    validate_trace(trace, LAUNCH_TRACE, "phase 8a")
+    expect_path("phase 8a launcher", counts,
+                {"fused_decode", "sparse_prefill", "centroid_scores_quantized"})
+    got = {s.req.req_id: asyncio.run(s.collect()) for s in streams}
+    snaps = metrics.read_text().splitlines()
+    snap = eng.metrics.snapshot()
+    res = {"wall_s": wall, "ticks": snap["ticks"], "ttft_p50": snap["ttft_p50"],
+           "tpot_p50": snap["tpot_p50"], "prefix_hit_tokens": snap["prefix_hit_tokens"],
+           "events": len(eng.trace), "dropped": eng.trace.dropped,
+           "metrics_lines": len(snaps),
+           "launches": {n: c["launches"] for n, c in counts.items() if c["launches"]}}
+    model, cfg, serve_cfg = eng.model, eng.cfg, eng.serve
+    hits = {r.req_id: eng.metrics.requests[r.req_id].prefix_hit_tokens for r in done}
+    specs = [(r.req_id, r.prompt, r.max_new_tokens, r.slo_class, r.deadline_s)
+             for r in done]
+    del eng, done
+    gc.collect()
+
+    def drain(at_arrival):
+        """``run_until_done`` of a fresh engine on the launcher's weights
+        over the same requests: each submitted once the engine has run its
+        arrival tick's ticks (as the launcher's arrival loop submits it), or all
+        up front -> (streams, prefix-hit tokens by request, TPOT p50)."""
+        eng = Engine(cfg, model, serve_cfg, device=model.device)
+        due = {rid: LAUNCH_ARRIVALS[rid][0] if at_arrival else 0 for rid, *_ in specs}
+        pending = sorted((Request(rid, p, max_new_tokens=n, slo_class=c, deadline_s=d)
+                          for rid, p, n, c, d in specs), key=lambda r: due[r.req_id])
+        reqs = list(pending)
+
+        def submit_due(engine, tick):
+            while pending and due[pending[0].req_id] <= engine.metrics.ticks:
+                engine.submit(pending.pop(0))
+
+        submit_due(eng, 0)
+        while True:
+            eng.run_until_done(max_ticks=5000, tick_callback=submit_due)
+            if not pending:
+                break
+            eng.submit(pending.pop(0))     # idle before the next arrival
+        out = ({r.req_id: list(r.output) for r in reqs},
+               {r.req_id: eng.metrics.requests[r.req_id].prefix_hit_tokens
+                for r in reqs}, eng.metrics.snapshot()["tpot_p50"])
+        del eng
+        gc.collect()
+        return out
+
+    def differ(streams):
+        return [(rid, i) for rid, toks in streams.items()
+                for i in range(max(len(toks), len(got[rid])))
+                if toks[i:i + 1] != got[rid][i:i + 1]]
+
+    n_pos = sum(len(t) for t in got.values())
+    streams, drain_hits, res["drain_tpot_p50"] = drain(True)
+    diff = differ(streams)
+    res["streams_equal_drain"] = f"{n_pos - len(diff)} of {n_pos}"
+    # the same requests all submitted at once: other prefix-cache hits and
+    # chunk bounds, so other floating-point sums (logged, not a gate)
+    streams, once_hits, _ = drain(False)
+    res["all_at_once_equal"] = f"{n_pos - len(differ(streams))} of {n_pos}"
+    res["prefix_hit_tokens_by_request"] = {
+        "front_end": hits, "drain": drain_hits, "all_at_once": once_hits}
+    log(f"phase 8a: {json.dumps(res)}")
+    if diff or drain_hits != hits:
+        fail(f"phase 8a: the front-end's streams differ from run_until_done's at "
+             f"(request, position) {diff[:6]}, prefix hits {hits} against {drain_hits}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def traced_tiered(torch, model, cfg, dev, tiered, out):
+    """Phase 8b: phase 7's run T again with a ``TraceRecorder`` attached
+    (telemetry follows it, on its own decode-graph variant): its tokens must
+    equal the untraced T's at every position and the trace validate with
+    ``TIERED_TRACE`` (the forced miss's ``seq.stall``, the migrations)."""
+    from repro_torch.obs import TraceRecorder
+
+    rec, miss = TraceRecorder(), {}
+    run = tiered_run(torch, model, cfg, dev, "T traced", "tiered",
+                     hook=force_miss(torch, miss, tiered["F"]), trace=rec, phase="8b")
+    path = out / "tiered_trace.json"
+    rec.dump(str(path))
+    events, dropped = len(rec), rec.dropped
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = tiered["T"]
+    same = sum(int(run["tokens"].get(k) == v) for k, v in t["tokens"].items())
+    bitwise = sum(int(torch.equal(run["logits"][k], v)) for k, v in t["logits"].items()
+                  if k in run["logits"])
+    res = {"tokens_equal": f"{same} of {len(t['tokens'])}",
+           "logits_bitwise": f"{bitwise} of {len(t['logits'])}",
+           "events": events, "dropped": dropped, "stalls": run["snap"]["stalls"],
+           "tier": run["tier"], "wall_s": run["wall"],
+           "tpot_p50": run["snap"]["tpot_p50"], "untraced_tpot_p50": t["snap"]["tpot_p50"]}
+    log(f"phase 8b: {json.dumps(res)}")
+    if run["tokens"] != t["tokens"]:
+        fail(f"phase 8b: the traced tiered run's tokens differ from run T's "
+             f"({same} of {len(t['tokens'])} equal)")
+    expect_path("phase 8b", run["counts"],
+                {"fused_decode", "sparse_prefill", "centroid_scores_quantized"})
+    validate_trace(path, TIERED_TRACE, "phase 8b")
+    return res
+
+
+def tracing_cost(torch, model, cfg, dev):
+    """Phase 8c, numbers only: the graphed fused decode step on phase 6's
+    inputs untraced and traced (the telemetry variant), device time and
+    CUDA events in turns over ``COST_ROUNDS`` rounds; then closed batches on
+    one engine with ``set_tracing`` on, off, on, off (the first two capture
+    their variant of the decode step, the last two replay it): wall, TTFT /
+    TPOT p50 of the batch, events recorded and dropped, and each
+    decode-graph variant's replays."""
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.obs import TraceRecorder, validate_chrome_trace
+    from repro_torch.serving import DecodeGraph, Request
+
+    view = model.with_sparse(**dataclasses.asdict(cfg.sparse))
+    untraced = random_cache(torch, view, CTX, dev)
+    caches = {"untraced": untraced, "traced": dict(untraced, _telemetry=torch.zeros(
+        (model.cfg.n_layers, MAX_BATCH, 4), dtype=torch.int32, device=dev))}
+    lens, tokens = step_lens(torch, CTX, dev), torch.arange(MAX_BATCH, device=dev)
+    graphs = {n: DecodeGraph(view.decode_step, c) for n, c in caches.items()}
+
+    def step(name):
+        def fn():
+            caches[name]["seq_len"].copy_(lens)
+            graphs[name](caches[name], tokens)
+        return fn
+
+    fns = {n: step(n) for n in graphs}
+    for fn in fns.values():
+        fn()
+    busy = device_rounds(torch, fns, 10, COST_ROUNDS)
+    events = {n: [] for n in fns}
+    for _ in range(COST_ROUNDS):
+        for n, fn in fns.items():
+            events[n].append(cuda_time_ms(torch, fn, 1, 5))
+    res = {"step_device_ms": {n: v[1] for n, v in busy.items()},
+           "step_event_ms": events,
+           "step_event_median_ms": {n: statistics.median(v) for n, v in events.items()}}
+    del graphs, fns, caches, untraced
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eng = make_engine(cfg, model, dev, (), COST_NEW)
+    rec = TraceRecorder()
+    batches = []
+    for i, attach in enumerate((rec, None, rec, None)):
+        eng.set_tracing(attach)
+        n_variants = len(eng._graph_variants)
+        rng = np.random.default_rng(80 + i)
+        ids = [100 + 10 * i + j for j in range(len(COST_PROMPTS))]
+        for rid, n in zip(ids, COST_PROMPTS):
+            eng.submit(Request(rid, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                               max_new_tokens=COST_NEW))
+        n0 = len(rec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_until_done(max_ticks=2000)
+        torch.cuda.synchronize()
+        if sorted(r.req_id for r in done) != ids or any(
+                len(r.output) != COST_NEW for r in done):
+            fail(f"phase 8c: batch {i} did not finish")
+        m = [eng.metrics.requests[r] for r in ids]
+        batches.append({"tracing": attach is not None,
+                        "captured": len(eng._graph_variants) > n_variants,
+                        "wall_s": time.perf_counter() - t0,
+                        "ttft_p50": statistics.median(r.ttft for r in m),
+                        "tpot_p50_ms": statistics.median(r.tpot for r in m) * 1e3,
+                        "events": len(rec) - n0, "dropped": rec.dropped})
+    res["batches"] = batches
+    res["graph_replays"] = {f"rung {r}, telemetry {'on' if t else 'off'}": g.replays
+                            for (r, t), g in eng._graph_variants.items()}
+    trace = rec.to_chrome()
+    res["exported_events"] = len(trace["traceEvents"])
+    errors = validate_chrome_trace(trace, LAUNCH_TRACE[0], ("pool", "queue", "sparsity"))
+    del eng, rec, trace
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 8c: {json.dumps(res)}")
+    if errors:
+        fail(f"phase 8c: the toggled engine's trace does not validate: {errors[:3]}")
+    return res
+
+
+def serve_traced(torch, model, cfg, dev, tiered):
+    """Phase 8 (after phase 7, on phase 3's weights and fused main path)."""
+    out = ROOT / "chiprun_out" / "phase8"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    res = {"launcher": serve_launcher(torch, dev, out)}
+    res["tiered"] = traced_tiered(torch, model, cfg, dev, tiered, out)
+    res["cost"] = tracing_cost(torch, model, cfg, dev)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 8 took {res['seconds']:.1f}s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2585,6 +2956,11 @@ def main() -> int:
                          "include the profiler's overhead)")
     args = ap.parse_args()
 
+    # keep CUPTI set up between profiler sessions: torn down after each
+    # one (Kineto's default), about one session in a hundred of phase 4
+    # re-initialized it and recorded no event at all
+    # (``tools/profiler_loop.py``)
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
 
     if not torch.cuda.is_available():
@@ -2673,6 +3049,9 @@ def main() -> int:
         "ttft_tpot_p50": {n: [tiered[n]["snap"]["ttft_p50"], tiered[n]["snap"]["tpot_p50"]]
                           for n in ("F", "T")},
         "step": tiered["step"], "storm_fired": tiered["S"]["fired"]}))
+    log(f"phase 8 summary ({card}): {json.dumps(paths['traced'])}")
+    log(f"profiler sessions {PROFILER['sessions']}, recorded again after an empty "
+        f"first recording {PROFILER['retried']}")
     fused, staged = paths["fused"], paths["staged"]
     q1, q2 = qwen["Q1"], qwen["Q2"]
     kernels_line = [

@@ -1,6 +1,6 @@
 """Radix-tree prefix index over page-granular token-id chunks (a copy of
-``repro.cache.prefix_cache`` without its trace hooks; the port's engine
-keeps each node's KV snapshot on the device).
+``repro.cache.prefix_cache``; the port's engine keeps each node's KV
+snapshot on the device).
 
 Keys are tuples of ``page_size`` consecutive prompt token ids — AB-Sparse's
 fixed 16-token physical page is exactly the sharing unit, so a cached
@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.cache.paged_kv import PagePool
+from repro_torch.obs.trace import PID_SCHED
 
 
 class _Node:
@@ -49,6 +50,10 @@ class PrefixCache:
         self.hits = 0
         self.misses = 0
         self.evicted_pages = 0
+        #: optional :class:`~repro_torch.obs.trace.TraceRecorder` (set by
+        #: the engine); match / insert / evict emit timeline instants
+        #: through it.
+        self.trace = None
 
     # -- lookup --------------------------------------------------------------
 
@@ -86,6 +91,12 @@ class PrefixCache:
             self.hits += 1
         else:
             self.misses += 1
+        if self.trace is not None:
+            self.trace.instant(
+                "prefix.match", PID_SCHED,
+                args={"reused_tokens": len(pages) * self.page_size,
+                      "hit": bool(pages)},
+            )
         return len(pages) * self.page_size, pages, kvs
 
     # -- insertion -----------------------------------------------------------
@@ -116,6 +127,10 @@ class PrefixCache:
                 inserted += 1
             child.last_used = tick
             node = child
+        if self.trace is not None and inserted:
+            self.trace.instant(
+                "prefix.insert", PID_SCHED, args={"pages": inserted},
+            )
         return inserted
 
     # -- introspection -------------------------------------------------------
@@ -150,6 +165,10 @@ class PrefixCache:
         self.pool.cache_unref(node.page)
         self.n_pages -= 1
         self.evicted_pages += 1
+        if self.trace is not None:
+            self.trace.instant(
+                "prefix.evict", PID_SCHED, args={"page": node.page},
+            )
 
     def evict_for(self, need_free: int, protect: Sequence[int] = ()) -> bool:
         """Evict LRU leaves until ``pool.free_pages >= need_free`` (never a

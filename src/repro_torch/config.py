@@ -100,6 +100,13 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def attn_layers(self) -> Tuple[int, ...]:
+        """Indices of the attention layers (global or local), as in JAX."""
+        kinds = [self.layer_pattern[i % len(self.layer_pattern)]
+                 for i in range(self.n_layers)]
+        return tuple(i for i, k in enumerate(kinds) if k in ("attn", "local_attn"))
+
 
 @dataclass(frozen=True)
 class ResilienceConfig:

@@ -1,5 +1,7 @@
-"""Serving stack of the port: engine, scheduler, sampler, metrics."""
+"""Serving stack of the port: engine, scheduler, async streaming
+front-end, sampler, metrics."""
 from repro_torch.serving.engine import Engine, EngineStalled
+from repro_torch.serving.frontend import AsyncFrontend, TokenStream
 from repro_torch.serving.graphs import DecodeGraph, step_graphs_disabled
 from repro_torch.serving.metrics import RequestMetrics, ServingMetrics
 from repro_torch.serving.scheduler import (
@@ -13,6 +15,7 @@ from repro_torch.serving.scheduler import (
 )
 
 __all__ = [
+    "AsyncFrontend",
     "DecodeGraph",
     "Engine",
     "EngineStalled",
@@ -26,4 +29,5 @@ __all__ = [
     "SLO_DEADLINE",
     "SLO_INTERACTIVE",
     "step_graphs_disabled",
+    "TokenStream",
 ]

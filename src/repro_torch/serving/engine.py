@@ -17,11 +17,18 @@ Per tick the engine executes what the
    consume the sampled tokens (host-side lengths are authoritative);
 4. **retire / preempt** finished or evicted sequences.
 
-With ``telemetry=True`` (and the plan active at ``max_context``) the
-decode step and each sparse prefill chunk also fill the sparsity counters
-of :mod:`repro_torch.obs.telemetry`, which the engine copies to the host
-once per decode tick and once per chunk and folds into
-``metrics.snapshot()``.
+With ``trace=`` (a :class:`~repro_torch.obs.trace.TraceRecorder`) every
+subsystem (scheduler, engine, memory manager, prefix cache) records its
+timeline through that one recorder, as in the JAX engine: tick, decode and
+prefill-chunk spans, per-sequence lifecycle spans, instants and counter
+tracks.  Spans time the host; nothing is synchronized for them.  With
+telemetry on (by default it follows ``trace``; the plan must be active at
+``max_context``) the decode step and each sparse prefill chunk also fill
+the sparsity counters of :mod:`repro_torch.obs.telemetry`, which the
+engine copies to the host once per decode tick and once per chunk and
+folds into ``metrics.snapshot()``; under a trace the per-tick samples are
+queued and become ``sparsity`` counter events only when the trace is
+exported.  ``set_tracing`` attaches and detaches both on a live engine.
 
 Failure domains (:mod:`repro_torch.resilience`, policy in
 ``ServeConfig.resilience``), as in the JAX engine:
@@ -73,12 +80,12 @@ stalls until the page is back, and its step re-runs (the rest of the batch
 commits).  The device cache keeps its full size: the budget is accounting,
 as in JAX.
 
-Not ported (each raises ``NotImplementedError`` when asked for): a device
-mesh and tracing.
+Not ported (raises ``NotImplementedError`` when asked for): a device mesh.
 """
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -90,9 +97,20 @@ from repro_torch.config import ModelConfig, ServeConfig
 from repro_torch.memory import MemoryManager, TieredPagePool
 from repro_torch.models import Transformer, resolve_device
 from repro_torch.obs.telemetry import (
+    BLOCKS,
+    BUDGET,
+    FORCED,
     N_COUNTERS,
+    PAGES,
     SparsityAggregate,
     prefill_block_candidates,
+)
+from repro_torch.obs.trace import (
+    PID_ENGINE,
+    PID_KERNEL,
+    PID_MEMORY,
+    PID_SCHED,
+    TraceRecorder,
 )
 from repro_torch.resilience import (
     DEVICE_FAULTS,
@@ -149,6 +167,15 @@ def _fault_reason(exc: BaseException) -> str:
     return FAIL_SAMPLER if isinstance(exc, SamplerAnomaly) else FAIL_DEVICE
 
 
+#: series names of the per-tick counter tracks (see Engine._trace_counters).
+_COUNTER_KEYS = {
+    "pool": ("used_pages", "free_pages"),
+    "queue": ("waiting", "running"),
+    "residency": ("hbm_pages", "host_pages"),
+    "resilience": ("retries", "degradations", "requests_failed"),
+}
+
+
 class Engine:
     def __init__(
         self,
@@ -159,17 +186,17 @@ class Engine:
         clock: Callable[[], float] = time.monotonic,
         device="cuda",
         mesh=None,
-        trace=None,
+        trace: Optional[TraceRecorder] = None,
         fault_injector: Optional[FaultInjector] = None,
-        telemetry: bool = False,
+        telemetry: Optional[bool] = None,
     ):
         """``model`` holds the weights (a :class:`Transformer` on
         ``device``); batch capacity and context length come from
-        ``serve_cfg``.  ``telemetry`` turns on the sparsity counters;
-        ``fault_injector`` is attached as by :meth:`set_fault_injector`."""
-        for name, val in (("mesh", mesh), ("trace", trace)):
-            if val is not None:
-                raise NotImplementedError(f"{name} is not ported")
+        ``serve_cfg``.  ``trace`` and ``telemetry`` are attached as by
+        :meth:`set_tracing` (telemetry follows ``trace`` unless given);
+        ``fault_injector`` as by :meth:`set_fault_injector`."""
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
@@ -189,6 +216,10 @@ class Engine:
         self.slots: List[Optional[SeqState]] = [None] * self.max_batch
         self.finished: List[Request] = []
         self.metrics = ServingMetrics(clock=clock)
+        self.trace = trace
+        self.metrics.trace = trace
+        # last emitted value per counter track (see _trace_counters dedup).
+        self._last_counters: Dict[str, tuple] = {}
         self.memory: Optional[MemoryManager] = None
         if isinstance(self.pool, TieredPagePool):
             # every decode step reports the per-slot selected and
@@ -204,6 +235,8 @@ class Engine:
             PrefixCache(self.pool)
             if serve_cfg.enable_prefix_cache and self._chunkable else None
         )
+        if self.prefix_cache is not None:
+            self.prefix_cache.trace = trace
         #: sparse prefill runs: chunk boundaries and reused prefix spans then
         #: align to the query-block size (chunked selection is then
         #: token-identical to single-shot sparse prefill)
@@ -219,18 +252,16 @@ class Engine:
         self._tokens_buf = np.zeros((self.max_batch,), np.int64)
         #: authoritative per-slot sequence lengths (tokens with KV in cache).
         self._seq_len = np.zeros((self.max_batch,), np.int32)
-        # counters only where selection runs (as JAX's set_tracing)
-        self._telemetry_on = telemetry and model.use_sparse(self.max_context)
-        if self._telemetry_on:
-            L = model_cfg.n_layers
-            self.cache["_telemetry"] = torch.zeros(
-                (L, self.max_batch, N_COUNTERS), dtype=torch.int32,
-                device=self.device)
-            if self._sparse_prefill:
-                self.cache["_ptel"] = torch.zeros((L,), dtype=torch.int32,
-                                                  device=self.device)
-            self.metrics.sparsity = SparsityAggregate(L)
-            self._plan_layouts = model.attention_plan(self.max_context).layouts
+        # the sparsity counters (set_tracing): whether they are planted,
+        # the tensors planted (made once, so a decode graph captured with
+        # them stays valid across toggles), and the raw (ts, tel, slots)
+        # samples awaiting export-time materialization into "sparsity"
+        # counter events (see _flush_sparsity_counters)
+        self._telemetry_on = False
+        self._tel_bufs: Optional[Dict[str, torch.Tensor]] = None
+        self._plan_layouts = None
+        self._tel_pending: List[tuple] = []
+        self._tel_flush_recorder: Optional[TraceRecorder] = None
         # -- failure domains (repro_torch.resilience) ------------------------
         self.resilience = serve_cfg.resilience
         #: optional FaultInjector; None keeps every injection point a
@@ -240,9 +271,10 @@ class Engine:
         #: model views are built lazily (``_rung_step_fns``).
         self._ladder = self._build_ladder()
         self._rung_models: Dict[int, Transformer] = {0: model}
-        #: rung -> its captured decode step (``_rung_step_fns``); on CUDA
-        #: only, and not for engines built under ``step_graphs_disabled()``
-        self._step_graphs: Dict[int, graphs.DecodeGraph] = {}
+        #: (rung, telemetry on) -> that variant's captured decode step
+        #: (``_rung_step_fns``); on CUDA only, and not for engines built
+        #: under ``step_graphs_disabled()``
+        self._graph_variants: Dict[Tuple[int, bool], graphs.DecodeGraph] = {}
         self._graph_pool = None
         self._graphed = (graphs.graph_device(self.device)
                          and graphs.step_graphs_enabled())
@@ -252,6 +284,7 @@ class Engine:
         self._idle_ticks = 0        # consecutive no-progress ticks (watchdog)
         if fault_injector is not None:
             self.set_fault_injector(fault_injector)
+        self.set_tracing(trace, telemetry=telemetry)
 
     def _tiered_pool(self, model_cfg: ModelConfig, model: Transformer,
                      serve_cfg: ServeConfig) -> TieredPagePool:
@@ -296,6 +329,66 @@ class Engine:
     @property
     def max_context(self) -> int:
         return self.serve.max_context
+
+    @property
+    def queue(self) -> List[Request]:
+        """Waiting requests (scheduler view), oldest first."""
+        return [s.req for s in self.scheduler.waiting]
+
+    @property
+    def _step_graphs(self) -> Dict[int, graphs.DecodeGraph]:
+        """rung -> captured decode step of the current telemetry variant."""
+        return {rung: g for (rung, tel), g in self._graph_variants.items()
+                if tel == self._telemetry_on}
+
+    # -- tracing (repro_torch.obs) -------------------------------------------
+
+    def set_tracing(
+        self,
+        trace: Optional[TraceRecorder],
+        telemetry: Optional[bool] = None,
+    ):
+        """Attach / detach the trace recorder and the sparsity counters on
+        a live engine.  Telemetry (default: on with a trace) plants the
+        counter tensors in the cache or takes them out; on CUDA each rung's
+        decode step is captured once per variant (with and without them),
+        in the engine's one graph pool, and a toggle replays the variant
+        already captured.  The tensors are made once, so re-planting them
+        keeps every capture valid."""
+        self.trace = trace
+        self.metrics.trace = trace
+        self._last_counters = {}
+        if trace is not None and self._tel_flush_recorder is not trace:
+            trace.add_flush_hook(
+                lambda t=trace: self._flush_sparsity_counters(t)
+            )
+            self._tel_flush_recorder = trace
+        if telemetry is None:
+            telemetry = trace is not None
+        # counters only where selection runs
+        on = bool(telemetry and self.model.use_sparse(self.max_context))
+        if on == self._telemetry_on:
+            return
+        self._telemetry_on = on
+        if not on:
+            for key in self._tel_bufs:
+                self.cache.pop(key, None)
+            return
+        L = self.cfg.n_layers
+        if self._tel_bufs is None:
+            self._tel_bufs = {"_telemetry": torch.zeros(
+                (L, self.max_batch, N_COUNTERS), dtype=torch.int32,
+                device=self.device)}
+            if self._sparse_prefill:
+                self._tel_bufs["_ptel"] = torch.zeros(
+                    (L,), dtype=torch.int32, device=self.device)
+        for key, buf in self._tel_bufs.items():
+            self.cache[key] = buf.zero_()
+        if self.metrics.sparsity is None:
+            self.metrics.sparsity = SparsityAggregate(L)
+        if self._plan_layouts is None:
+            self._plan_layouts = self.model.attention_plan(
+                self.max_context).layouts
 
     # -- fault injection / degradation ladder (repro_torch.resilience) -------
 
@@ -349,12 +442,13 @@ class Engine:
         m = self._rung_models[rung]
         if not self._graphed or m.backend.plain:
             return m.decode_step, m.prefill_chunk
-        if rung not in self._step_graphs:
+        key = (rung, self._telemetry_on)
+        if key not in self._graph_variants:
             if self._graph_pool is None:
                 self._graph_pool = graphs.new_pool()
-            self._step_graphs[rung] = graphs.DecodeGraph(
+            self._graph_variants[key] = graphs.DecodeGraph(
                 m.decode_step, self.cache, self._graph_pool)
-        return self._step_graphs[rung], m.prefill_chunk
+        return self._graph_variants[key], m.prefill_chunk
 
     def _with_ladder(self, seqs_of, attempt) -> bool:
         """Run ``attempt(rung)`` under the degradation ladder: a step fault
@@ -568,17 +662,26 @@ class Engine:
         n = len(ch.tokens)
         buf = np.zeros((self._chunk_len,), np.int64)
         buf[:n] = ch.tokens
-        logits, self.cache = self._rung_step_fns(rung)[1](
-            self.cache, seq.slot, buf, ch.offset, n
-        )
-        if self._telemetry_on and self._sparse_prefill:
-            self.metrics.on_prefill_sparsity(
-                self.cache["_ptel"].cpu().numpy(),
-                prefill_block_candidates(
-                    self._plan_layouts, ch.offset, n,
-                    self.cfg.sparse.prefill_block_q,
-                ),
+        ctx = (
+            self.trace.span(
+                "prefill.chunk", PID_ENGINE,
+                args={"seq": seq.seq_id, "offset": ch.offset, "tokens": n},
             )
+            if self.trace is not None
+            else nullcontext()
+        )
+        with ctx:
+            logits, self.cache = self._rung_step_fns(rung)[1](
+                self.cache, seq.slot, buf, ch.offset, n
+            )
+            if self._telemetry_on and self._sparse_prefill:
+                self.metrics.on_prefill_sparsity(
+                    self.cache["_ptel"].cpu().numpy(),
+                    prefill_block_candidates(
+                        self._plan_layouts, ch.offset, n,
+                        self.cfg.sparse.prefill_block_q,
+                    ),
+                )
         self._seq_len[seq.slot] = ch.offset + n
         self.metrics.on_prefill(n)
         if ch.is_last:
@@ -729,9 +832,17 @@ class Engine:
         if "tokens" in res:
             toks, fin = res["tokens"], res["finite"]
             if self._telemetry_on:
-                # one fresh host copy per tick, after the token transfer
+                # one fresh host copy per tick, after the token transfer;
+                # the per-step trace counters are queued raw and
+                # materialized by the recorder's export-time flush hook
+                # (_flush_sparsity_counters), off the tick
                 tel = self.cache["_telemetry"].to("cpu", copy=True).numpy()
-                self.metrics.on_sparsity(tel, [s.slot for s in active])
+                live_slots = [s.slot for s in active]
+                self.metrics.on_sparsity(tel, live_slots)
+                if self.trace is not None:
+                    self._tel_pending.append(
+                        (self.trace.clock(), tel, live_slots)
+                    )
             if mem is not None:
                 sel = self.cache["_sel_pages"].cpu().numpy()
                 pre = self.cache["_pre_pages"].cpu().numpy()
@@ -775,6 +886,65 @@ class Engine:
     def step(self) -> int:
         """One engine tick: admit, prefill chunks, decode, retire, under
         the watchdog.  -> the number of occupied slots."""
+        if self.trace is not None:
+            with self.trace.span("engine.tick", PID_ENGINE,
+                                 args={"tick": self.metrics.ticks}):
+                n = self._step_body()
+            self._trace_counters()
+            return n
+        return self._step_body()
+
+    def _flush_sparsity_counters(self, trace: TraceRecorder):
+        """Materialize queued per-step sparsity samples into "sparsity"
+        counter events (runs as the recorder's export-time flush hook:
+        the reductions and event construction stay off the decode tick)."""
+        pending, self._tel_pending = self._tel_pending, []
+        for ts, tel, slots in pending:
+            per_slot = tel.sum(axis=0, dtype=np.int64)   # [B, 4]
+            live = (
+                per_slot.sum(axis=0)
+                if len(slots) == per_slot.shape[0]
+                else per_slot[slots].sum(axis=0)
+            )
+            budget = max(int(live[BUDGET]), 1)
+            trace.counter_at(
+                "sparsity",
+                {
+                    "blocks_attended": int(live[BLOCKS]),
+                    "pages_dma": int(live[PAGES]),
+                    "forced_blocks": int(live[FORCED]),
+                    "budget_util_pct": 100.0 * int(live[BLOCKS]) / budget,
+                },
+                ts,
+                pid=PID_KERNEL,
+            )
+
+    def _trace_counters(self):
+        """Per-tick counter tracks: pool occupancy, queue depth, failure
+        counters and, tiered, device / host residency.  Counter tracks
+        render as step functions, so a sample equal to the previous one is
+        invisible: dedup keeps steady-state decode nearly event-free."""
+        t = self.trace
+        last = self._last_counters
+        for name, pid, values in (
+            ("pool", PID_MEMORY, (self.pool.used_pages, self.pool.free_pages)),
+            ("queue", PID_SCHED,
+             (len(self.scheduler.waiting), len(self.scheduler.running))),
+            ("resilience", PID_ENGINE,
+             (self.metrics.retries,
+              sum(self.metrics.degradations.values()),
+              len(self.metrics.requests_failed))),
+        ) + ((
+            ("residency", PID_MEMORY,
+             (self.metrics.hbm_resident_pages,
+              self.metrics.host_resident_pages)),
+        ) if self.memory is not None else ()):
+            if last.get(name) != values:
+                last[name] = values
+                keys = _COUNTER_KEYS[name]
+                t.counter(name, dict(zip(keys, values)), pid=pid)
+
+    def _step_body(self) -> int:
         self._tick_had_fault = False
         had_work = self.scheduler.has_work
         sig0 = self._progress_sig()
@@ -828,6 +998,12 @@ class Engine:
         if not running:
             return
         victim = self.scheduler.choose_victim(running)
+        if self.trace is not None:
+            self.trace.instant(
+                "engine.watchdog", PID_ENGINE,
+                args={"victim_seq": victim.seq_id,
+                      "idle_ticks": self.resilience.watchdog_ticks},
+            )
         self.scheduler.preempt(victim)
         self._free_slot(victim)
 
@@ -850,11 +1026,22 @@ class Engine:
                        if sid in self.scheduler.running]
             if starved:
                 victim = self.scheduler.choose_victim(starved)
+                if self.trace is not None:
+                    self.trace.instant(
+                        "mem.starvation_breaker", PID_MEMORY,
+                        args={"victim_seq": victim.seq_id},
+                    )
                 self.scheduler.preempt(victim)
                 self._free_slot(victim)
         free = [i for i, s in enumerate(self.slots) if s is None]
         plan = self.scheduler.plan_tick(free)
         for adm in plan.admitted:
+            if self.trace is not None:
+                self.trace.instant(
+                    "sched.admit", PID_SCHED,
+                    args={"seq": adm.seq.seq_id, "slot": adm.slot,
+                          "prefix_tokens": adm.prefix_tokens},
+                )
             self._install(adm)
         for ch in plan.chunks:
             self._run_chunk(ch)
@@ -865,7 +1052,11 @@ class Engine:
             decoding = [s for s in decoding if s.seq_id not in self.memory.stalled]
         for seq in self.scheduler.prepare_decode(decoding):
             self._free_slot(seq)
-        decoded = self._decode_tick()
+        if self.trace is not None:
+            with self.trace.span("engine.decode", PID_ENGINE):
+                decoded = self._decode_tick()
+        else:
+            decoded = self._decode_tick()
         if self.memory is not None:
             self.memory.end_tick()
         return decoded

@@ -128,7 +128,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     mods = list(_port_modules())
     for m in ("kernels.fused_decode", "kernels.block_centroid", "kernels.topk_threshold",
               "kernels.flash_attention", "core.calibration", "core.recall",
-              "memory.manager", "memory.page_io"):
+              "memory.manager", "memory.page_io", "obs.trace", "obs.validate",
+              "obs.cost", "serving.frontend", "launch.serve"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -160,14 +161,18 @@ def test_entry_points_default_to_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Transformer(cfg)
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke"])
 
 
 def test_unported_engine_options_raise():
+    """A device mesh is not ported (tracing is: ``Engine(trace=...)``)."""
     tb = t_smoke(t_get_config("llama3.2-3b"))
     cfg = dataclasses.replace(tb, sparse=dataclasses.replace(tb.sparse, **SPARSE))
     from repro_torch.models import Transformer
 
     model = Transformer(cfg, device="cpu")
-    for kw in ({"mesh": object()}, {"trace": object()}):
-        with pytest.raises(NotImplementedError):
-            TEngine(cfg, model, TServe(**SERVE), device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        TEngine(cfg, model, TServe(**SERVE), device="cpu", mesh=object())

@@ -51,7 +51,10 @@ a fault-free run fed the same tokens.  Then tiered KV memory at smoke
 width: a graphed tiered engine against an eager one (tokens, pool and
 tiering counters, a forced miss re-run on the graph), ``CachePageIO``'s
 pinned, in-place, bitwise round trip, and a poisoned selected page that
-stalls its sequence without a non-finite row.
+stalls its sequence without a non-finite row.  Last, tracing toggled on ->
+off -> on a graphed engine: one capture per telemetry variant, replayed
+after every toggle, and logits bitwise equal to an untraced graphed
+engine's.
 """
 import pytest
 import torch
@@ -887,3 +890,56 @@ def test_poisoned_selected_page_stalls_with_finite_rows(cuda):
     assert snap["sampler_anomalies"] == 0 and snap["retries"] == 0
     assert snap["degradations"] == 0 and snap["prefetch_misses"] >= 1
     assert [r.output for r in reqs] == [r.output for r in flat]
+
+
+# -- tracing on a graphed engine ---------------------------------------------------
+
+
+def test_graphed_engine_toggles_tracing(cuda):
+    """``set_tracing`` on -> off -> on a graphed engine (fused decode,
+    sparse prefill), one closed batch between toggles: the decode step is
+    captured once per telemetry variant and replayed after every toggle,
+    the trace validates, and every sampled row's logits equal, bitwise,
+    those of a graphed engine that never traced (the counters change no
+    logit)."""
+    import numpy as np
+
+    from repro_torch.config import ServeConfig
+    from repro_torch.obs import TraceRecorder, validate_chrome_trace
+    from repro_torch.serving import Engine, Request
+    from repro_torch.serving.probe import SampleRecorder
+
+    model = _smoke_model(cuda, backend="cuda", fused_decode=True, sparse_prefill=True)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+               for n in (150, 220, 90, 180, 130, 200)]
+
+    def serve(toggle):
+        eng = Engine(model.cfg, model, ServeConfig(
+            max_batch=2, max_context=512, prefill_chunk=128, temperature=0.0),
+            device=cuda)
+        rec, samples = TraceRecorder(), SampleRecorder(eng)
+        for i, attach in enumerate((rec, None, rec)):
+            if toggle:
+                eng.set_tracing(attach)
+            assert ("_telemetry" in eng.cache) == (toggle and attach is not None)
+            for j in (2 * i, 2 * i + 1):
+                eng.submit(Request(j, prompts[j], max_new_tokens=8))
+            eng.run_until_done(max_ticks=300)
+        samples.detach()
+        return eng, rec, samples
+
+    eng, rec, traced = serve(True)
+    plain_eng, _, plain = serve(False)
+    variants = eng._graph_variants
+    assert set(variants) == {(0, True), (0, False)}
+    assert all(g.replays > 0 for g in variants.values())
+    assert set(plain_eng._graph_variants) == {(0, False)}
+    assert traced.logits.keys() == plain.logits.keys() and len(traced.logits) == 48
+    for key, lg in traced.logits.items():
+        assert torch.equal(lg, plain.logits[key]), key
+    assert traced.tokens == plain.tokens
+    assert validate_chrome_trace(
+        rec.to_chrome(), ["engine.tick", "engine.decode", "prefill.chunk", "seq.decode"],
+        ["pool", "queue", "sparsity"], ["sched.admit"]) == []
+    assert eng.metrics.snapshot()["sparsity_steps"] > 0
