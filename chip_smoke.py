@@ -20,7 +20,13 @@ Phases (each failure is fatal, exit code != 0):
    The fused decode and the sparse prefill are also held against their
    plain versions with their split counts forced (1 and 5 runs), and all
    of it again at the shapes phase 3b gives them (qwen3-8b: GQA group 4,
-   Q1's live lengths, the last chunk of its 9000-token prompt);
+   Q1's live lengths, the last chunk of its 9000-token prompt) and at
+   phase 9's new shapes (``check_family_kernels``: gemma-7b's 16 / 16
+   heads of 256 with Dp 512 for the fused decode, the sparse prefill, the
+   staged scoring and paged attention, flash S x S and at the chunk
+   shape, the identity table; qwen3-32b's group 8, 512 query rows a
+   prefill cell, at offsets 0 and 8192, and its fused decode; qwen1.5-4b's
+   20 kv heads of group 1 in the fused decode);
 3. serve full-width llama3.2-3b (28 layers, bf16, random weights from a
    seeded generator) through ``Engine``: 6 requests of 4-12k prompt tokens,
    two sharing a 2048-token prefix, 32 new tokens each, with the fused
@@ -51,8 +57,8 @@ Phases (each failure is fatal, exit code != 0):
    every other request end ok, and every committed position's logits
    must be within a cosine of 0.9995 of F's.  Every serving run without an
    injector must end on rung 0 with no degradation (no hidden fallback);
-3b. serve full-width qwen3-8b (36 layers, d_model 4096, 32 / 8 heads,
-   untied head, bf16, random weights from a seeded generator) through
+3b. serve full-width qwen3-8b (9 of its 36 layers, d_model 4096, 32 / 8
+   heads, untied head, bf16, random weights from a seeded generator) through
    ``Engine`` at max_batch 4, chunks of 512, 32 new tokens, temperature 0,
    in five runs, each of which must launch its path's kernels and no
    other and call no plain version: Q1 the repo's default configuration
@@ -88,10 +94,15 @@ Phases (each failure is fatal, exit code != 0):
    line's numbers, the S x S ones under ``sxs_*``) and ``paged_attention``
    over the identity page table of dense decode (B 4, 32 / 8 heads, mean
    live 12000; SDPA on the dense view beside it; ``identity_*`` keys).
+   The extended kernels are timed the same way at gemma-7b's head_dim 256
+   and at qwen3-32b's 512-row prefill (``time_family_kernels``; logged, not
+   in the ``kernels`` line, whose ``max_abs_err`` covers those checks too).
    Every ``torch.profiler`` session of the script goes through
    ``profiled``: synchronized before it opens and before it closes, its
    rows read once closed; an empty recording is logged and, where the
-   work can run again, recorded once more; a second empty one fails.
+   work can run again, recorded once more; a second empty one fails (a
+   served decode step is idempotent for its lengths and tokens: after an
+   empty recording the same step is served once more and profiled).
 
 Phase 2 also holds the three kernels off the serving path against their
 plain versions: ``pool_rank_keys`` on llama3.2-3b K (bf16, B 4) and on f32
@@ -128,7 +139,7 @@ launched the pooling and scoring kernels and called no plain version.
    3's fused run and Q1 are served again under ``step_graphs_disabled()``,
    fed the graphed run's tokens: the eager run's greedy tokens must be the
    graphed run's.  c) Each variant's step is timed eager and graphed over
-   15 rounds in turns (CUDA events), its device-busy ms per step printed
+   8 rounds in turns (CUDA events), its device-busy ms per step printed
    (``torch.profiler``), and one profiled replay's launches of each decode
    kernel must equal the bookkeeping's for one step.  d) Every served run
    prints its decode steps and graph replays by rung; a kernel rung's
@@ -182,6 +193,26 @@ launched the pooling and scoring kernels and called no plain version.
    rounds) and four closed batches on one engine with tracing on, off,
    on, off (the first two capture their variant of the step): wall, TTFT
    and TPOT p50, events recorded and dropped.
+
+9. (after phase 3b; ``serve_family``) the JAX package's other dense
+   decoders at full width and depth, one on the card at a time (bf16,
+   random weights from ``torch.Generator`` seed 0, INT4-asym quest store,
+   T 4096, block sizes ``(16, 32, 64)[(layer + head) % 3]``, chunks of
+   512, 16 new tokens, temperature 0): llama3.1-8b, qwen1.5-4b and
+   gemma-7b at max_batch 4 on requests 0, 1 and 3 (9000, 6500 and 4000
+   tokens, 0 and 1 sharing the 2048-token prefix) in runs D (the default
+   configuration: ``flash_attention`` + ``fused_decode``) and S
+   (``sparse_prefill`` + ``fused_decode``), gemma-7b also G (the staged
+   rung: ``flash_attention``, ``centroid_scores_quantized``,
+   ``paged_attention`` at head_dim 256 / Dp 512); qwen3-32b (65.5 GB of
+   weights) at a reduced max_batch of 2 on requests 1 and 2 (6500 and
+   12000 tokens).  Each run launches its path's kernels and no other,
+   calls no plain version and ends on rung 0; each is served again through
+   the plain versions, fed its tokens (qwen3-32b: request 1 alone at
+   max_batch 1), at a logit cosine of at least 0.9995.  There every sparse
+   prefill call selects on its own inputs and is held against the kernel
+   on the same inputs (``prefill_selections``).  Peak device memory is
+   logged per model.
 
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -238,8 +269,10 @@ PREFILL_FORCED_SPLITS = (1, 5)
 #: dense flash attention: sequence length of the check against the plain
 #: version (its [24, S, S] f32 logits fit in memory) and of the timing
 FLASH_CHECK_S, FLASH_TIME_S = 4096, CTX
-#: qwen3-8b at full width (phase 3b) and its GQA group
-QWEN, QG = "qwen3-8b", 4
+#: qwen3-8b at full width (phase 3b) and its GQA group; it runs 9 of its 36
+#: layers (cut in depth to keep the whole script well inside its time
+#: limit: llama3.1-8b serves the same layer shapes at full depth in phase 9)
+QWEN, QG, QWEN_LAYERS = "qwen3-8b", 4, 9
 #: flash attention as chunked dense prefill calls it: a chunk at the middle
 #: of the context over the keys written so far of a CTX-row cache row, and
 #: at an offset that is no multiple of the 64-key tile
@@ -258,6 +291,12 @@ QWEN_DECODE_LIVE = tuple(PROMPT_LENS[i] + NEW_TOKENS // 2 for i in Q_REQS) + (1,
 QWEN_PREFILL_OFF = PROMPT_LENS[0] // CHUNK * CHUNK
 QWEN_PREFILL_VALID = (PROMPT_LENS[0], QWEN_PREFILL_OFF + CHUNK,
                       QWEN_PREFILL_OFF + CHUNK * 3 // 5, QWEN_PREFILL_OFF + 1)
+
+#: phase 9, the dense family: the models it serves, and the new kernel
+#: shapes of three of them, (kv heads, head_dim) of gemma-7b and (kv
+#: heads, GQA group) of qwen3-32b and qwen1.5-4b
+LLAMA31, QWEN15, GEMMA, QWEN32 = "llama3.1-8b", "qwen1.5-4b", "gemma-7b", "qwen3-32b"
+FAMILY_SHAPES = {GEMMA: (16, 256), QWEN32: (8, 8), QWEN15: (20, 1)}
 
 #: phase 5, the degradation ladder and a fault storm on phase 3's weights
 #: and fused main-path configuration: the requests (0 and 1 share the
@@ -281,6 +320,22 @@ def log(*a):
     msg = " ".join(str(x) for x in a)
     LOG.append(msg)
     print(msg, flush=True)
+
+
+#: (phase, seconds since the start) as each phase ends (``phase_done``)
+PHASES = []
+
+
+def phase_done(name: str):
+    PHASES.append((name, time.perf_counter() - T_START))
+    log(f"phase {name} done at {PHASES[-1][1]:.1f}s")
+
+
+def phase_seconds() -> dict:
+    """Each phase's own seconds, from the end of the one before (the build
+    counts to phase 2)."""
+    ends = [0.0] + [t for _, t in PHASES]
+    return {n: round(t - ends[i], 1) for i, (n, t) in enumerate(PHASES)}
 
 
 def fail(msg: str):
@@ -399,26 +454,31 @@ def bound(bytes_, f32_ops, bf16_ops):
 # ---------------------------------------------------------------------------
 
 
-def layer_inputs(torch, dev, B, seed):
+def head_blocks(n_kv):
+    """Block sizes of ``n_kv`` heads: BLOCKS repeated."""
+    return tuple(BLOCKS[h % len(BLOCKS)] for h in range(n_kv))
+
+
+def layer_inputs(torch, dev, B, seed, n_kv=N_KV, d=D):
     from repro_torch.config import SparseConfig
     from repro_torch.core.ragged import layout_for
     from repro_torch.core.stacked import as_arrays
 
     sparse = SparseConfig(token_budget=BUDGET, quant="int4_asym",
                           sparse_prefill=True)
-    la = as_arrays(layout_for(BLOCKS, CTX, PS, BUDGET), dev)
+    la = as_arrays(layout_for(head_blocks(n_kv), CTX, PS, BUDGET), dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = (B, N_KV, CTX // PS, PS, D)
+    shape = (B, n_kv, CTX // PS, PS, d)
     k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     return sparse, la, gen, k, v
 
 
-def check_fused_decode(torch, dev, g=G, live=None, seed=1):
-    """The fused kernel against its plain version at ``N_KV * g`` query
-    heads and live lengths ``live`` (default: llama3.2-3b's group and
-    ragged lengths up to CTX), at its planned and forced split counts, with
-    the comparison's power check."""
+def check_fused_decode(torch, dev, g=G, live=None, seed=1, n_kv=N_KV, d=D):
+    """The fused kernel against its plain version at ``n_kv * g`` query
+    heads of ``d`` channels and live lengths ``live`` (default:
+    llama3.2-3b's heads and ragged lengths up to CTX), at its planned and
+    forced split counts, with the comparison's power check."""
     from repro_torch.backends.store import build_store_codes
     from repro_torch.core.centroids import rank_query
     from repro_torch.core.sparse_attention import paged_attention_reference
@@ -426,13 +486,13 @@ def check_fused_decode(torch, dev, g=G, live=None, seed=1):
 
     B = 4
     live = live or (CTX, CTX * 3 // 4 + 1, CTX * 7 // 16 - 3, CTX // 7)
-    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=seed)
-    q = torch.randn((B, N_KV * g, D), generator=gen, device=dev)
+    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=seed, n_kv=n_kv, d=d)
+    q = torch.randn((B, n_kv * g, d), generator=gen, device=dev)
     q = (q * parity.QSCALE).to(torch.bfloat16)
     seq_len = torch.tensor(live, dtype=torch.int32, device=dev)
-    log(f"fused_decode check at {N_KV * g}/{N_KV} heads, live {live}:")
+    log(f"fused_decode check at {n_kv * g}/{n_kv} heads of {d}, live {live}:")
     store = build_store_codes(k, la, sparse)
-    rq = rank_query(q, sparse.centroid_method, D)
+    rq = rank_query(q, sparse.centroid_method, d)
     res = parity.compare_fused_decode(q, rq, k, v, store, la, sparse, seq_len)
     log(f"fused_decode check: valid exact, near-tie blocks {res['near_ties']} "
         f"(heads {res['tie_heads']}), max_abs_err {res['max_abs_err']:.3e}, "
@@ -474,11 +534,12 @@ def check_fused_decode(torch, dev, g=G, live=None, seed=1):
                      sparse.local_pages, seq_len)}
 
 
-def check_sparse_prefill(torch, dev, g=G, off=CTX // 2, valid=None, seed=2):
+def check_sparse_prefill(torch, dev, g=G, off=CTX // 2, valid=None, seed=2,
+                         n_kv=N_KV, d=D):
     """The sparse prefill kernel against its plain version on a CHUNK-query
-    chunk at ``off`` with ``N_KV * g`` query heads and live lengths
-    ``valid`` (default: llama3.2-3b's group and ragged lengths ending
-    inside the chunk), at its planned and forced split counts."""
+    chunk at ``off`` with ``n_kv * g`` query heads of ``d`` channels and
+    live lengths ``valid`` (default: llama3.2-3b's heads and ragged lengths
+    ending inside the chunk), at its planned and forced split counts."""
     from repro_torch.backends.base import CentroidStore
     from repro_torch.backends.store import build_score_rows
     from repro_torch.core.centroids import rank_query
@@ -486,17 +547,18 @@ def check_sparse_prefill(torch, dev, g=G, off=CTX // 2, valid=None, seed=2):
     from repro_torch.kernels import parity
 
     B, SQ, OFF = 4, CHUNK, off
-    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=seed)
-    q = torch.randn((B, N_KV * g, SQ, D), generator=gen, device=dev)
+    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=seed, n_kv=n_kv, d=d)
+    q = torch.randn((B, n_kv * g, SQ, d), generator=gen, device=dev)
     q = (q * parity.QSCALE).to(torch.bfloat16)
     # ragged live lengths: later sequences end inside the chunk, leaving
     # dead trailing query blocks
     valid = valid or (OFF + SQ, OFF + SQ * 3 // 5, OFF + SQ // 8, OFF + 1)
     n_valid = torch.tensor(valid, dtype=torch.int32, device=dev)
-    log(f"sparse_prefill check at {N_KV * g}/{N_KV} heads, offset {OFF}, live {valid}:")
+    log(f"sparse_prefill check at {n_kv * g}/{n_kv} heads of {d} (g*BQ "
+        f"{g * sparse.prefill_block_q}), offset {OFF}, live {valid}:")
     codes, sc, ze = build_score_rows(k, la, sparse)
     ss = CentroidStore(codes, sc, ze, store_bits(sparse.quant), False)
-    rq = rank_query(q, sparse.centroid_method, D)
+    rq = rank_query(q, sparse.centroid_method, d)
     res = parity.compare_sparse_prefill(q, rq, k, v, ss, la, sparse, n_valid,
                                         OFF)
     log(f"sparse_prefill check: n_attended exact, selected blocks equal but "
@@ -691,16 +753,17 @@ def check_topk_threshold(torch, dev, dec, scored):
     return {"err": 0.0, "scores": masked, "k": la.top_k}
 
 
-def check_flash_attention(torch, dev):
-    """The dense flash kernel at B 1, 24 query / 8 kv heads, D 128,
-    S ``FLASH_CHECK_S``, causal and not, against the plain version."""
+def check_flash_attention(torch, dev, hq=N_KV * G, hkv=N_KV, d=D):
+    """The dense flash kernel at B 1, ``hq`` query / ``hkv`` kv heads of
+    ``d`` channels (default llama3.2-3b's 24 / 8 of 128), S
+    ``FLASH_CHECK_S``, causal and not, against the plain version."""
     from repro_torch.kernels import parity
 
     gen = torch.Generator(device=dev).manual_seed(11)
     S = FLASH_CHECK_S
-    q = (torch.randn((1, N_KV * G, S, D), generator=gen, device=dev)
+    q = (torch.randn((1, hq, S, d), generator=gen, device=dev)
          * parity.QSCALE).to(torch.bfloat16)
-    k, v = (torch.randn((1, N_KV, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, hkv, S, d), generator=gen, device=dev).to(torch.bfloat16)
             for _ in range(2))
     err = 0.0
     for causal in (True, False):
@@ -708,7 +771,8 @@ def check_flash_attention(torch, dev):
         err = max(err, res["max_abs_err"])
         if causal:
             plain = res["plain"]
-        log(f"flash_attention check ({'causal' if causal else 'not causal'}, S {S}): "
+        log(f"flash_attention check ({hq}/{hkv} heads of {d}, "
+            f"{'causal' if causal else 'not causal'}, S {S}): "
             f"max_abs_err {res['max_abs_err']:.3e}, max rel L2 {res['max_rel_l2']:.3e} "
             f"(limit {parity.REL_L2}), {res['tol_use']:.2f} of the elementwise limit "
             f"{parity.OUT_ATOL} + 2^-7 |plain|")
@@ -717,7 +781,7 @@ def check_flash_attention(torch, dev):
     t0 = S // 2
     keep = torch.ones((S, S), dtype=torch.bool, device=dev).tril_()
     keep[:, t0:t0 + 64] = False
-    logits = (q[0, 0].float() @ k[0, 0].float().T) * D ** -0.5
+    logits = (q[0, 0].float() @ k[0, 0].float().T) * d ** -0.5
     dropped = plain.clone()
     dropped[0, 0] = (torch.softmax(torch.where(keep, logits, -1e30), -1)
                      @ v[0, 0].float()).to(q.dtype)
@@ -735,21 +799,21 @@ def check_flash_attention(torch, dev):
     return {"err": err}
 
 
-def flash_chunk_inputs(torch, dev, seed):
-    """A chunk of CHUNK queries at qwen3-8b's 32 / 8 heads (D 128) and a
-    CTX-row K / V buffer, as ``prefill_chunk`` hands the flash kernel a
-    slot's cache row."""
+def flash_chunk_inputs(torch, dev, seed, hq=N_KV * QG, hkv=N_KV, d=D):
+    """A chunk of CHUNK queries at ``hq`` / ``hkv`` heads of ``d`` channels
+    (default qwen3-8b's 32 / 8 of 128) and a CTX-row K / V buffer, as
+    ``prefill_chunk`` hands the flash kernel a slot's cache row."""
     from repro_torch.kernels import parity
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = (torch.randn((1, N_KV * QG, CHUNK, D), generator=gen, device=dev)
+    q = (torch.randn((1, hq, CHUNK, d), generator=gen, device=dev)
          * parity.QSCALE).to(torch.bfloat16)
-    k, v = (torch.randn((1, N_KV, CTX, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, hkv, CTX, d), generator=gen, device=dev).to(torch.bfloat16)
             for _ in range(2))
     return q, k, v
 
 
-def check_flash_offset(torch, dev):
+def check_flash_offset(torch, dev, hq=N_KV * QG, hkv=N_KV, d=D):
     """The flash kernel with a query offset and a key length, as chunked
     dense prefill calls it, against its plain version: a CHUNK-query chunk
     at offset ``FLASH_CHUNK_OFF`` over the keys written so far
@@ -759,7 +823,7 @@ def check_flash_offset(torch, dev):
     of one head left out must fail the comparison."""
     from repro_torch.kernels import parity
 
-    q, k, v = flash_chunk_inputs(torch, dev, seed=12)
+    q, k, v = flash_chunk_inputs(torch, dev, seed=12, hq=hq, hkv=hkv, d=d)
     err, plain = 0.0, None
     for off, sq in ((FLASH_CHUNK_OFF, CHUNK), (FLASH_ODD_OFF, CHUNK),
                     (CTX * 3 // 4 + 57, 1)):
@@ -768,7 +832,8 @@ def check_flash_offset(torch, dev):
         err = max(err, res["max_abs_err"])
         if off == FLASH_CHUNK_OFF:
             plain = res["plain"]
-        log(f"flash_attention offset check (32/8 heads, {sq} queries at offset {off}, "
+        log(f"flash_attention offset check ({hq}/{hkv} heads of {d}, {sq} queries at "
+            f"offset {off}, "
             f"keys [0, {off + sq}) of {CTX}): max_abs_err {res['max_abs_err']:.3e}, "
             f"max rel L2 {res['max_rel_l2']:.3e} (limit {parity.REL_L2}), "
             f"{res['tol_use']:.2f} of the elementwise limit")
@@ -777,7 +842,7 @@ def check_flash_offset(torch, dev):
     pos = off + torch.arange(CHUNK, device=dev)
     keep = torch.arange(n, device=dev)[None, :] <= pos[:, None]
     keep[:, t0:t0 + 64] = False
-    logits = (q[0, 0].float() @ k[0, 0, :n].float().T) * D ** -0.5
+    logits = (q[0, 0].float() @ k[0, 0, :n].float().T) * d ** -0.5
     dropped = plain.clone()
     dropped[0, 0] = (torch.softmax(torch.where(keep, logits, -1e30), -1)
                      @ v[0, 0, :n].float()).to(q.dtype)
@@ -795,26 +860,66 @@ def check_flash_offset(torch, dev):
     return {"err": err}
 
 
-def check_paged_identity(torch, dev):
+def check_paged_identity(torch, dev, hq=N_KV * QG, hkv=N_KV, d=D):
     """The paged-attention kernel over dense decode's identity page table
-    (the ``"dense"`` backend, an inactive plan) at qwen3-8b's shape: B 4,
-    32 / 8 heads, CTX / PS pages, live lengths ``IDENTITY_LIVE``."""
+    (the ``"dense"`` backend, an inactive plan) at ``hq`` / ``hkv`` heads of
+    ``d`` channels (default qwen3-8b's shape): B 4, CTX / PS pages, live
+    lengths ``IDENTITY_LIVE``."""
     from repro_torch.backends import get_backend
     from repro_torch.kernels import parity
 
     B = len(IDENTITY_LIVE)
     gen = torch.Generator(device=dev).manual_seed(13)
-    kp, vp = (torch.randn((B, N_KV, CTX // PS, PS, D), generator=gen, device=dev)
+    kp, vp = (torch.randn((B, hkv, CTX // PS, PS, d), generator=gen, device=dev)
               .to(torch.bfloat16) for _ in range(2))
-    q = (torch.randn((B, N_KV * QG, D), generator=gen, device=dev)
+    q = (torch.randn((B, hq, d), generator=gen, device=dev)
          * parity.QSCALE).to(torch.bfloat16)
     live = torch.tensor(IDENTITY_LIVE, dtype=torch.int32, device=dev)
     tbl, vld = get_backend("cuda").full_page_table(kp, live)
     res = parity.compare_paged_attention(q, kp, vp, tbl, vld, PS, live)
-    log(f"paged_attention identity-table check (B {B}, 32/8 heads, {CTX // PS} pages, "
+    log(f"paged_attention identity-table check (B {B}, {hq}/{hkv} heads of {d}, "
+        f"{CTX // PS} pages, "
         f"live {list(IDENTITY_LIVE)}): max_abs_err {res['max_abs_err']:.3e}, max rel "
         f"L2 {res['max_rel_l2']:.3e}, {res['tol_use']:.2f} of the elementwise limit")
     return {"err": res["max_abs_err"], "args": (q, kp, vp, tbl, vld, live)}
+
+
+def check_family_kernels(torch, dev):
+    """Phase 2 at the dense family's new shapes (phase 9's models): every
+    kernel whose head_dim or row count they extend, against its plain
+    version with the same rules and power checks as at llama3.2-3b's.
+
+    - gemma-7b's layer (16 / 16 heads of 256, Dp 512): ``fused_decode``
+      (planned and forced split counts), ``sparse_prefill`` (splits 1 and
+      5), ``centroid_scores_quantized`` and ``paged_attention`` on the
+      staged table, ``flash_attention`` (S x S, the chunk at offsets 8192
+      and 5003) and ``paged_attention`` over the identity table;
+    - qwen3-32b's group 8 (64 / 8 heads, g * BQ 512): ``sparse_prefill`` at
+      offsets 0 and 8192 and ``fused_decode``;
+    - qwen1.5-4b's group 1 at 20 kv heads: ``fused_decode``."""
+    gh, gd = FAMILY_SHAPES[GEMMA]
+    out = {"gemma": {}}
+    dec = check_fused_decode(torch, dev, g=1, seed=21, n_kv=gh, d=gd)
+    pre = check_sparse_prefill(torch, dev, g=1, seed=22, n_kv=gh, d=gd)
+    scored = check_centroid_scores(torch, dec, "int4_asym")
+    att = check_paged_attention(torch, dec, scored)
+    flash = check_flash_attention(torch, dev, hq=gh, hkv=gh, d=gd)
+    flash_off = check_flash_offset(torch, dev, hq=gh, hkv=gh, d=gd)
+    ident = check_paged_identity(torch, dev, hq=gh, hkv=gh, d=gd)
+    out["gemma"] = {"dec": dec, "scored": scored, "att": att, "ident": ident,
+                    "err": {"fused_decode": dec["err"], "sparse_prefill": pre["err"],
+                            "centroid_scores_quantized": scored["err"],
+                            "paged_attention": max(att["err"], ident["err"]),
+                            "flash_attention": max(flash["err"], flash_off["err"])}}
+    qh, qg = FAMILY_SHAPES[QWEN32]
+    pre32 = [check_sparse_prefill(torch, dev, g=qg, off=off, seed=23 + i, n_kv=qh)
+             for i, off in enumerate((0, CTX // 2))]
+    dec32 = check_fused_decode(torch, dev, g=qg, seed=25, n_kv=qh)
+    out["qwen32"] = {"dec": dec32, "err": {"sparse_prefill": max(r["err"] for r in pre32),
+                                           "fused_decode": dec32["err"]}}
+    dec15 = check_fused_decode(torch, dev, g=1, seed=26, n_kv=FAMILY_SHAPES[QWEN15][0])
+    out["qwen15"] = {"dec": dec15, "err": {"fused_decode": dec15["err"]}}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -896,6 +1001,8 @@ def time_fused_decode(torch, dec):
     from repro_torch.kernels import paged_attention as pa
 
     q, rq, k, v, store, la, sink, local, seq_len = dec["args"]
+    n_kv, d = k.shape[1], q.shape[-1]
+    g = q.shape[1] // n_kv
     kernel = lambda: ops.fused_decode(*dec["args"])
     one_run = lambda: ops.fused_decode(*dec["args"], n_split=1)
     dev_t = device_rounds(torch, {"kernel": kernel, "one_run": one_run}, 20)
@@ -916,16 +1023,17 @@ def time_fused_decode(torch, dec):
     live = (pos < seq_len.long()[:, None, None, None]) & vld[..., None]
     tokens = int(live.sum())
     bytes_ = (q.numel() * 2 + rq.numel() * 4 + n_rows * row_bytes
-              + 2 * store.scale.numel() * 4 + 2 * tokens * D * 2
+              + 2 * store.scale.numel() * 4 + 2 * tokens * d * 2
               + q.numel() * 2 + tbl.numel() * 4 + vld.numel())
-    f32_ops = 2 * n_rows * G * rq.shape[-1]
-    bf16_ops = 4 * tokens * G * D
+    f32_ops = 2 * n_rows * g * rq.shape[-1]
+    bf16_ops = 4 * tokens * g * d
     b_ms, by = bound(bytes_, f32_ops, bf16_ops)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = pa.split_plan(q.shape[0], N_KV, tbl.shape[-1], n_sm)
-    log(f"fused_decode, device ms per call by kernel: {kernel_breakdown(torch, kernel, 20)}")
-    log(f"fused_decode (B {q.shape[0]}, {plan} runs x {q.shape[0] * N_KV} cells = "
-        f"{plan * q.shape[0] * N_KV} blocks): device {ms:.4f} ms/launch (rounds "
+    plan = pa.split_plan(q.shape[0], n_kv, tbl.shape[-1], n_sm)
+    log(f"fused_decode ({n_kv * g}/{n_kv} heads of {d}), device ms per call by kernel: "
+        f"{kernel_breakdown(torch, kernel, 20)}")
+    log(f"fused_decode ({n_kv * g}/{n_kv} heads of {d}, B {q.shape[0]}, {plan} runs x "
+        f"{q.shape[0] * n_kv} cells = {plan * q.shape[0] * n_kv} blocks): device {ms:.4f} ms/launch (rounds "
         f"{fmt_rounds(rounds)}; CUDA events {event_ms:.4f}); forced to one run "
         f"{dev_t['one_run'][0]:.4f} (rounds {fmt_rounds(dev_t['one_run'][1])}); "
         f"bound {b_ms:.4f} ms ({by}), {b_ms / ms:.3f} of the bound")
@@ -945,7 +1053,7 @@ def prefill_bound(torch, q, rq, k, v, ss, la, sparse, n_valid, off):
     over the causal (live row, selected key) pairs)."""
     from repro_torch.kernels import parity
 
-    dev = q.device
+    dev, d = q.device, q.shape[-1]
     extra, _ = parity.prefill_selection(q, rq, k, v, ss, la, sparse, n_valid, off)
     sel, cand, live_rows = extra["selected"], extra["cand"], extra["live_rows"]
     bsz = torch.tensor(la.host.block_sizes, device=dev)[None, :, None, None]
@@ -958,18 +1066,20 @@ def prefill_bound(torch, q, rq, k, v, ss, la, sparse, n_valid, off):
     row_bytes = ss.codes.shape[-1] * ss.codes.element_size() + 8
     Dp = rq.shape[-1]
     bytes_ = (q.numel() * 2 + rq.numel() * 4 + n_cand_rows * row_bytes
-              + 2 * kv_tokens * D * 2 + q.numel() * 2 + sel[..., 0].numel() * 4)
+              + 2 * kv_tokens * d * 2 + q.numel() * 2 + sel[..., 0].numel() * 4)
     f32_ops = 2 * Dp * float((cand.sum(-1) * live_rows[:, None, :]).sum())
-    bf16_ops = 4 * D * float(extra["pairs"].sum())
+    bf16_ops = 4 * d * float(extra["pairs"].sum())
     return bound(bytes_, f32_ops, bf16_ops)
 
 
-def time_sparse_prefill(torch, dev):
-    """B 1, one prefill chunk of CHUNK tokens as the engine issues it, at the
-    chunk offsets ``PREFILL_OFFSETS``: device time of the call's kernels
+def time_sparse_prefill(torch, dev, g=G, n_kv=N_KV, d=D, offsets=PREFILL_OFFSETS):
+    """B 1, one prefill chunk of CHUNK tokens as the engine issues it, at
+    ``n_kv * g`` query heads of ``d`` channels (default llama3.2-3b's), at
+    the chunk offsets ``offsets``: device time of the call's kernels
     (``device_rounds``, three rounds) beside CUDA events around
     back-to-back calls; the bound from each offset's inputs.  The kernel
-    line takes the middle offset's numbers."""
+    line takes the middle offset's numbers (the plain version's time is
+    taken there)."""
     from repro_torch.backends.store import build_score_rows
     from repro_torch.backends.base import CentroidStore
     from repro_torch.core.centroids import rank_query
@@ -977,18 +1087,18 @@ def time_sparse_prefill(torch, dev):
     from repro_torch.kernels import ops, sparse_prefill as sp
 
     B, SQ = 1, CHUNK
-    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=3)
-    q = torch.randn((B, N_KV * G, SQ, D), generator=gen, device=dev).to(torch.bfloat16)
+    sparse, la, gen, k, v = layer_inputs(torch, dev, B, seed=3, n_kv=n_kv, d=d)
+    q = torch.randn((B, n_kv * g, SQ, d), generator=gen, device=dev).to(torch.bfloat16)
     codes, sc, ze = build_score_rows(k, la, sparse)
     ss = CentroidStore(codes, sc, ze, store_bits(sparse.quant), False)
-    rq = rank_query(q, sparse.centroid_method, D)
+    rq = rank_query(q, sparse.centroid_method, d)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     nQB = SQ // sparse.prefill_block_q
-    n_split = sp.prefill_split_plan(B * N_KV * nQB, G * sparse.prefill_block_q, n_sm)
-    rows = G * sparse.prefill_block_q
-    blocks = n_split * sp.attend_blocks(B * N_KV * nQB, rows)
+    rows = g * sparse.prefill_block_q
+    n_split = sp.prefill_split_plan(B * n_kv * nQB, rows, n_sm, d)
+    blocks = n_split * sp.attend_blocks(B * n_kv * nQB, rows, d)
     res = {}
-    for off in PREFILL_OFFSETS:
+    for off in offsets:
         n_valid = torch.tensor([off + SQ], dtype=torch.int32, device=dev)
         kw = dict(sink_pages=sparse.sink_pages, local_pages=sparse.local_pages,
                   block_q=sparse.prefill_block_q, topk_scale=sparse.prefill_topk_scale,
@@ -1007,16 +1117,16 @@ def time_sparse_prefill(torch, dev):
         event_ms = cuda_time_ms(torch, kernel, 3, 20)
         b_ms, by = prefill_bound(torch, q, rq, k, v, ss, la, sparse, n_valid, off)
         res[off] = {"ms": ms, "event_ms": event_ms, "bound_ms": b_ms, "bound_by": by}
-        log(f"sparse_prefill at offset {off}, device ms per call by kernel: "
-            f"{kernel_breakdown(torch, kernel, 20)}")
-        log(f"sparse_prefill (B 1, chunk {SQ} at offset {off}, {n_split} runs x "
-            f"{B * N_KV * nQB} cells = {blocks} attention blocks of "
-            f"{sp.attend_warpgroups(rows)} warpgroups): device {ms:.4f} "
+        log(f"sparse_prefill ({n_kv * g}/{n_kv} heads of {d}, g*BQ {rows}) at offset "
+            f"{off}, device ms per call by kernel: {kernel_breakdown(torch, kernel, 20)}")
+        log(f"sparse_prefill ({n_kv * g}/{n_kv} heads of {d}, B 1, chunk {SQ} at offset "
+            f"{off}, {n_split} runs x {B * n_kv * nQB} cells = {blocks} attention blocks "
+            f"of {sp.attend_warpgroups(rows, d)} warpgroups): device {ms:.4f} "
             f"ms/call (rounds {fmt_rounds(rounds)}; CUDA events {event_ms:.4f}), bound "
             f"{b_ms:.4f} ms ({by}), {b_ms / ms:.3f} of the bound; "
             f"ops.sparse_prefill with its layout copies {dev_t['call'][0]:.4f} "
             f"(rounds {fmt_rounds(dev_t['call'][1])})")
-    mid = PREFILL_OFFSETS[1]
+    mid = offsets[len(offsets) // 2]
     n_valid = torch.tensor([mid + SQ], dtype=torch.int32, device=dev)
     kw = dict(sink_pages=sparse.sink_pages, local_pages=sparse.local_pages,
               block_q=sparse.prefill_block_q, topk_scale=sparse.prefill_topk_scale,
@@ -1042,6 +1152,8 @@ def time_centroid_scores(torch, dec, scored):
     q, rq, k, v, _, la, sink, local, seq_len = dec["args"]
     st = scored["store"]
     B, n_q, Dp = rq.shape
+    n_kv = k.shape[1]
+    g = n_q // n_kv
     rows = st.codes.shape[1]
     if st.bits:
         args = (rq, st.codes, st.scale, st.zero, la.tile_head, la.tile_rows)
@@ -1049,9 +1161,9 @@ def time_centroid_scores(torch, dec, scored):
         fns = {"kernel": lambda: cs.centroid_scores_quantized(*args, **kw)}
     else:
         args = (rq, st.codes, None, None, la.tile_head, la.tile_rows)
-        kw = dict(bits=0, symmetric=False, n_kv=N_KV)
+        kw = dict(bits=0, symmetric=False, n_kv=n_kv)
         rq_t = rq.transpose(1, 2).contiguous()
-        fns = {"kernel": lambda: cs.centroid_scores_f32(rq, st.codes, N_KV, la.tile_head,
+        fns = {"kernel": lambda: cs.centroid_scores_f32(rq, st.codes, n_kv, la.tile_head,
                                                         la.tile_rows),
                "library": lambda: torch.matmul(st.codes, rq_t)}
     dev_t = device_rounds(torch, fns, 50)
@@ -1062,11 +1174,12 @@ def time_centroid_scores(torch, dec, scored):
     bytes_ = (rq.numel() * 4 + st.codes.numel() * st.codes.element_size()
               + (2 * st.scale.numel() * 4 if st.bits else 0)
               + la.tile_head.numel() * 4 + B * rows * 4)
-    f32_ops = 2 * B * rows * G * Dp
+    f32_ops = 2 * B * rows * g * Dp
     b_ms, by = bound(bytes_, f32_ops, 0)
     lib = ("none" if library_ms is None else f"device {library_ms:.4f} "
            f"(rounds {fmt_rounds(dev_t['library'][1])})")
-    log(f"centroid_scores ({'INT' + str(st.bits) if st.bits else 'f32'} store, B {B}, "
+    log(f"centroid_scores ({'INT' + str(st.bits) if st.bits else 'f32'} store, "
+        f"{n_q}/{n_kv} heads, B {B}, "
         f"{rows} rows x Dp {Dp}): device {ms:.4f} ms/launch (rounds "
         f"{fmt_rounds(rounds)}; CUDA events {event_ms:.4f}), torch.matmul {lib}, "
         f"bound {b_ms:.4f} ms ({by})")
@@ -1087,7 +1200,9 @@ def time_paged_attention(torch, dec, att):
 
     q, rq, k, v, _, la, sink, local, seq_len = dec["args"]
     tbl, vld = att["table"], att["valid"]
-    B, n_q, _ = q.shape
+    B, n_q, d = q.shape
+    n_kv = k.shape[1]
+    g = n_q // n_kv
     args = (q, k, v, tbl, vld, seq_len, PS)
     kernel = lambda: pa.paged_attention(*args)
     ms = device_ms(torch, kernel, 50)
@@ -1096,22 +1211,23 @@ def time_paged_attention(torch, dec, att):
     P = tbl.shape[-1]
     pos = tbl.long()[..., None] * PS + torch.arange(PS, device=q.device)
     live = ((pos < seq_len.long()[:, None, None, None]) & vld[..., None])
-    live = live.reshape(B, N_KV, P * PS)
-    idx = tbl.long()[..., None, None].expand(-1, -1, -1, PS, D)
-    sel_k = torch.gather(k, 2, idx).reshape(B, N_KV, P * PS, D)
-    sel_v = torch.gather(v, 2, idx).reshape(B, N_KV, P * PS, D)
-    q4 = q.reshape(B, N_KV, G, D)
+    live = live.reshape(B, n_kv, P * PS)
+    idx = tbl.long()[..., None, None].expand(-1, -1, -1, PS, d)
+    sel_k = torch.gather(k, 2, idx).reshape(B, n_kv, P * PS, d)
+    sel_v = torch.gather(v, 2, idx).reshape(B, n_kv, P * PS, d)
+    q4 = q.reshape(B, n_kv, g, d)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = lambda: sdpa(q4, sel_k, sel_v, attn_mask=live[:, :, None, :])
     library_ms = device_ms(torch, library, 50)
     library_event_ms = cuda_time_ms(torch, library, 5, 50)
     tokens = int(live.sum())
-    bytes_ = (2 * q.numel() * 2 + 2 * tokens * D * 2 + tbl.numel() * 4
+    bytes_ = (2 * q.numel() * 2 + 2 * tokens * d * 2 + tbl.numel() * 4
               + vld.numel() + seq_len.numel() * 4)
-    f32_ops = 4 * tokens * G * D
+    f32_ops = 4 * tokens * g * d
     b_ms, by = bound(bytes_, f32_ops, 0)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"paged_attention (B {B}, {pa.split_plan(B, N_KV, P, n_sm)} "
+    log(f"paged_attention ({n_q}/{n_kv} heads of {d}, B {B}, "
+        f"{pa.split_plan(B, n_kv, P, n_sm)} "
         f"splits): device {ms:.4f} ms/call (CUDA events over back-to-back calls "
         f"{event_ms:.4f}), SDPA device {library_ms:.4f} (events {library_event_ms:.4f}), "
         f"bound {b_ms:.4f} ms ({by})")
@@ -1238,7 +1354,7 @@ def time_flash_attention(torch, dev):
             "library_device_ms": d_sdpa}
 
 
-def time_flash_chunk(torch, dev):
+def time_flash_chunk(torch, dev, hq=N_KV * QG, hkv=N_KV, d=D):
     """The flash kernel at the chunk shape of dense prefill (qwen3-8b's 32 /
     8 heads, D 128, CHUNK queries at offset ``FLASH_CHUNK_OFF`` over the
     keys written so far of a CTX-row buffer), by the device time of its
@@ -1247,7 +1363,7 @@ def time_flash_chunk(torch, dev):
     boolean mask (K / V sliced beforehand, not timed)."""
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v = flash_chunk_inputs(torch, dev, seed=14)
+    q, k, v = flash_chunk_inputs(torch, dev, seed=14, hq=hq, hkv=hkv, d=d)
     off = FLASH_CHUNK_OFF
     n = off + CHUNK
     kernel = lambda: fa.flash_attention(q, k, v, True, off, n)
@@ -1259,16 +1375,17 @@ def time_flash_chunk(torch, dev):
         library = lambda: sdpa(q, ks, vs, attn_mask=mask, enable_gqa=True)
         library()
     except TypeError:       # no enable_gqa: K/V expanded beforehand, not timed
-        ke, ve = ks.repeat_interleave(QG, dim=1), vs.repeat_interleave(QG, dim=1)
+        ke, ve = (x.repeat_interleave(hq // hkv, dim=1) for x in (ks, vs))
         library = lambda: sdpa(q, ke, ve, attn_mask=mask)
     dev_t = device_rounds(torch, {"kernel": kernel, "library": library}, 20)
     ms, library_ms = dev_t["kernel"][0], dev_t["library"][0]
     event_ms = cuda_time_ms(torch, kernel, 3, 20)
     plain_ms = cuda_time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True, off, n),
                             1, 3)
-    pairs = N_KV * QG * sum(off + i + 1 for i in range(CHUNK))
-    b_ms, by = bound((2 * q.numel() + 2 * N_KV * n * D) * 2, 0, 4 * D * pairs)
-    log(f"flash_attention at the chunk shape (B 1, 32/8 heads, {CHUNK} queries at offset "
+    pairs = hq * sum(off + i + 1 for i in range(CHUNK))
+    b_ms, by = bound((2 * q.numel() + 2 * hkv * n * d) * 2, 0, 4 * d * pairs)
+    log(f"flash_attention at the chunk shape (B 1, {hq}/{hkv} heads of {d}, {CHUNK} "
+        f"queries at offset "
         f"{off}, {n} live keys): device {ms:.4f} ms/call (rounds "
         f"{fmt_rounds(dev_t['kernel'][1])}; CUDA events {event_ms:.4f}), SDPA with the "
         f"boolean mask device {library_ms:.4f} (rounds {fmt_rounds(dev_t['library'][1])}), "
@@ -1286,30 +1403,61 @@ def time_paged_identity(torch, ident):
     from repro_torch.kernels import paged_attention as pa
 
     q, kp, vp, tbl, vld, live = ident["args"]
-    B = q.shape[0]
+    B, hq, d = q.shape
+    hkv = kp.shape[1]
     kernel = lambda: pa.paged_attention(q, kp, vp, tbl, vld, live, PS)
-    kd, vd = kp.reshape(B, N_KV, CTX, D), vp.reshape(B, N_KV, CTX, D)
+    kd, vd = kp.reshape(B, hkv, CTX, d), vp.reshape(B, hkv, CTX, d)
     mask = (torch.arange(CTX, device=q.device)[None, :] < live[:, None])[:, None, None, :]
-    q4 = q.reshape(B, N_KV, QG, D)
+    q4 = q.reshape(B, hkv, hq // hkv, d)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = lambda: sdpa(q4, kd, vd, attn_mask=mask)
     dev_t = device_rounds(torch, {"kernel": kernel, "library": library}, 50)
     ms, library_ms = dev_t["kernel"][0], dev_t["library"][0]
     plain_ms = cuda_time_ms(
         torch, lambda: pa.paged_attention_plain(q, kp, vp, tbl, vld, live, PS), 1, 5)
-    tokens = int(live.long().sum()) * N_KV
-    bytes_ = (2 * q.numel() * 2 + 2 * tokens * D * 2 + tbl.numel() * 4 + vld.numel()
+    tokens = int(live.long().sum()) * hkv
+    bytes_ = (2 * q.numel() * 2 + 2 * tokens * d * 2 + tbl.numel() * 4 + vld.numel()
               + live.numel() * 4)
-    b_ms, by = bound(bytes_, 4 * tokens * QG * D, 0)
+    b_ms, by = bound(bytes_, 4 * tokens * (hq // hkv) * d, 0)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"paged_attention over the identity table (B {B}, 32/8 heads, "
+    log(f"paged_attention over the identity table (B {B}, {hq}/{hkv} heads of {d}, "
         f"{tbl.shape[-1]} pages, live {list(IDENTITY_LIVE)}, "
-        f"{pa.split_plan(B, N_KV, tbl.shape[-1], n_sm)} splits): device {ms:.4f} "
+        f"{pa.split_plan(B, hkv, tbl.shape[-1], n_sm)} splits): device {ms:.4f} "
         f"ms/call (rounds {fmt_rounds(dev_t['kernel'][1])}), SDPA on the dense view "
         f"device {library_ms:.4f} (rounds {fmt_rounds(dev_t['library'][1])}), plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / ms:.3f} of the bound")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms}
+
+
+def time_family_kernels(torch, dev, fam):
+    """Phase 4 at the dense family's new shapes: gemma-7b's layer (16 / 16
+    heads of 256, Dp 512; the inputs of ``check_family_kernels``) for
+    ``fused_decode``, ``sparse_prefill`` (chunk at offset 8192),
+    ``centroid_scores_quantized``, ``paged_attention`` (staged table and
+    identity table) and ``flash_attention`` (the chunk shape),
+    qwen3-32b's ``sparse_prefill`` at g * BQ 512 (offset 8192) and
+    ``fused_decode`` at group 8, and qwen1.5-4b's ``fused_decode`` at 20
+    kv heads of group 1, with the same methods, bounds and library calls
+    as at llama3.2-3b's shapes -> {"gemma": {kernel: times}, "qwen32":
+    {...}, "qwen15": {...}}."""
+    gh, gd = FAMILY_SHAPES[GEMMA]
+    g = fam["gemma"]
+    gemma = {
+        "fused_decode": time_fused_decode(torch, g["dec"]),
+        "sparse_prefill": time_sparse_prefill(torch, dev, g=1, n_kv=gh, d=gd,
+                                              offsets=(CTX // 2,)),
+        "centroid_scores_quantized": time_centroid_scores(torch, g["dec"], g["scored"]),
+        "paged_attention": time_paged_attention(torch, g["dec"], g["att"]),
+        "paged_identity": time_paged_identity(torch, g["ident"]),
+        "flash_attention": time_flash_chunk(torch, dev, hq=gh, hkv=gh, d=gd),
+    }
+    qh, qg = FAMILY_SHAPES[QWEN32]
+    qwen32 = {"sparse_prefill": time_sparse_prefill(torch, dev, g=qg, n_kv=qh,
+                                                    offsets=(CTX // 2,)),
+              "fused_decode": time_fused_decode(torch, fam["qwen32"]["dec"])}
+    qwen15 = {"fused_decode": time_fused_decode(torch, fam["qwen15"]["dec"])}
+    return {"gemma": gemma, "qwen32": qwen32, "qwen15": qwen15}
 
 
 # ---------------------------------------------------------------------------
@@ -1679,7 +1827,10 @@ def decode_timer(torch, busy=False):
     def hook(rung, call):
         if busy:
             res = {}
-            rows = profiled(torch, lambda: res.update(out=call()), repeatable=False)
+            # the step is idempotent for its (seq_len, tokens): after an
+            # empty recording ``profiled`` serves the same step once more
+            # and profiles that one (logged; a second empty one fails)
+            rows = profiled(torch, lambda: res.update(out=call()))
             times.setdefault(rung, []).append(sum(r[0] for r in rows))
             return res["out"]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1929,7 +2080,9 @@ DECODE_KERNELS = {
 }
 #: the step's timing: rounds (the variants in turns, eager and graphed),
 #: and per round the warm-up and timed steps of each (CUDA events)
-STEP_ROUNDS, STEP_WARMUP, STEP_ITERS = 15, 1, 2
+#: (8 rounds keep the whole script, phase 9 included, well inside its time
+#: limit)
+STEP_ROUNDS, STEP_WARMUP, STEP_ITERS = 8, 1, 2
 #: least logit cosine of a graphed step to the eager one when they are not
 #: bitwise equal
 GRAPH_COS = 0.99999
@@ -2197,18 +2350,18 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
     agree_with_plain(torch, model, cfgs, dev)
     paths["f32"] = {"counts": serve_f32_store(torch, model, cfgs["staged"], dev)}
     serve_calibrated(torch, model, fused_cfg, cal_cfg, dev)
-    log(f"phase 3 done at {time.perf_counter() - T_START:.1f}s")
+    phase_done("3")
     paths["ladder"] = serve_ladder(torch, model, fused_cfg, dev)
-    log(f"phase 5 done at {time.perf_counter() - T_START:.1f}s")
+    phase_done("5")
     paths["step"] = compiled_step(torch, ARCH, step_variants(torch, model, cfgs, dev,
                                                              qwen=False), dev)
-    log(f"phase 6 ({ARCH}) done at {time.perf_counter() - T_START:.1f}s")
+    phase_done(f"6 ({ARCH})")
     paths["tiered"] = serve_tiered(torch, model, fused_cfg, dev)
     paths["tiered"]["step"] = compiled_step(
         torch, f"{ARCH} tiered", mask_step_variants(torch, model, fused_cfg, dev), dev)
-    log(f"phase 7 done at {time.perf_counter() - T_START:.1f}s")
+    phase_done("7")
     paths["traced"] = serve_traced(torch, model, fused_cfg, dev, paths["tiered"])
-    log(f"phase 8 done at {time.perf_counter() - T_START:.1f}s")
+    phase_done("8")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2824,7 +2977,7 @@ def qwen_runs():
     ``(16, 32, 64)[(layer + head) % 3]``."""
     from repro_torch.configs import get_config
 
-    base = get_config(QWEN)
+    base = dataclasses.replace(get_config(QWEN), n_layers=QWEN_LAYERS)
     pattern = tuple(
         tuple((16, 32, 64)[(l + h) % 3] for h in range(base.n_kv_heads))
         for l in range(base.n_layers)
@@ -2853,9 +3006,33 @@ def qwen_runs():
 QWEN_PLAIN = ("Q1", "Q2", "Q5")
 
 
+def agree_logits(torch, what, lk, lp, vocab, reqs, floor=LOGIT_COS, fatal=True,
+                 other="plain"):
+    """The ``other`` run's logits ``lp`` (by default the plain run's)
+    against the kernel run's ``lk`` at the same (request, position) keys:
+    all finite, of the vocabulary's size, at a cosine of at least
+    ``floor`` (not ``fatal``: logged, the caller decides) -> (the least
+    cosine, greedy tokens equal, steps)."""
+    if not set(lp) <= set(lk):
+        fail(f"{what}: the plain run sampled at steps the kernel run did not")
+    for key, lg in (*((k, lk[k]) for k in lp), *lp.items()):
+        if lg.shape != (vocab,) or not bool(torch.isfinite(lg).all()):
+            fail(f"{what} logits at {key} of shape {tuple(lg.shape)} are not finite")
+    worst = min(float(torch.nn.functional.cosine_similarity(lk[k], lp[k], dim=0))
+                for k in lp)
+    same = sum(int(lk[k].argmax() == lp[k].argmax()) for k in lp)
+    log(f"{what} kernels vs {other}: requests {tuple(reqs)}, fed the kernel run's "
+        f"tokens: min logit cosine {worst:.6f} (>= {floor}) over {len(lp)} steps, "
+        f"greedy tokens equal at {same} of {len(lp)}")
+    if fatal and not worst >= floor:
+        fail(f"{what}: kernel and plain logits drift apart: cosine {worst}")
+    return worst, same, len(lp)
+
+
 def serve_qwen(torch, dev):
-    """Phase 3b: qwen3-8b at full width (36 layers, bf16, random weights from
-    ``torch.Generator`` seed 0) served through ``Engine`` in runs Q1-Q5
+    """Phase 3b: qwen3-8b at full width (``QWEN_LAYERS`` of its 36 layers,
+    bf16, random weights from ``torch.Generator`` seed 0) served through
+    ``Engine`` in runs Q1-Q5
     (``qwen_runs``), NEW_TOKENS new tokens each; each run's counts zeroed
     just before and read just after, its path's kernels launched and no
     other, no plain version called.  Then Q1, Q2 and Q5 are served again
@@ -2876,7 +3053,9 @@ def serve_qwen(torch, dev):
     vocab = model.cfg.vocab_size
     log(f"{QWEN} weights: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params "
         f"bf16 ({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} "
-        f"GB), untied head, init {time.perf_counter() - t0:.1f}s")
+        f"GB), untied head, {model.cfg.n_layers} of its 36 layers (a depth cut: "
+        f"phase 9 serves its layer shapes at full depth), init "
+        f"{time.perf_counter() - t0:.1f}s")
     runs = {}
     for name, (cfg, reqs, prompts, serve_kw, launched, hit) in runs_cfg.items():
         prompts = q3_traffic(vocab) if prompts == "q3" else None
@@ -2906,22 +3085,8 @@ def serve_qwen(torch, dev):
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-        lk, lp = runs[name]["logits"], run["logits"]
-        if not set(lp) <= set(lk):
-            fail(f"{QWEN} {name}: the plain run sampled at steps the kernel run did not")
-        for key, lg in (*((k, lk[k]) for k in lp), *lp.items()):
-            if lg.shape != (vocab,) or not bool(torch.isfinite(lg).all()):
-                fail(f"{QWEN} {name} logits at {key} of shape {tuple(lg.shape)} are "
-                     "not finite")
-        worst = min(float(torch.nn.functional.cosine_similarity(lk[k], lp[k], dim=0))
-                    for k in lp)
-        same = sum(int(lk[k].argmax() == lp[k].argmax()) for k in lp)
-        log(f"{QWEN} {name} kernels vs plain: requests {tuple(reqs)} x {AGREE_NEW} new "
-            f"tokens, fed the kernel run's tokens: min logit cosine {worst:.6f} (>= "
-            f"{LOGIT_COS}) over {len(lp)} steps, greedy tokens equal at {same} of "
-            f"{len(lp)}")
-        if not worst >= LOGIT_COS:
-            fail(f"{QWEN} {name}: kernel and plain logits drift apart: cosine {worst}")
+        agree_logits(torch, f"{QWEN} {name}", runs[name]["logits"], run["logits"],
+                     vocab, reqs)
     # phase 6 b): Q1 again with the eager decode step, fed Q1's tokens
     cfg, reqs = runs_cfg["Q1"][:2]
     with step_graphs_disabled():
@@ -2943,6 +3108,334 @@ def serve_qwen(torch, dev):
     del model
     torch.cuda.empty_cache()
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the dense family at full width
+# ---------------------------------------------------------------------------
+
+#: phase 9's traffic (``traffic``'s prompts): requests 0, 1 and 3 (9000,
+#: 6500 and 4000 tokens, 0 and 1 sharing the 2048-token prefix), 16 new
+#: tokens each; qwen3-32b serves requests 1 and 2 (6500 and 12000 tokens)
+#: at max_batch 2, a reduced batch on one card, and its plain and control
+#: runs request 1 alone at max_batch 1
+FAMILY_REQS, FAMILY_NEW = (0, 1, 3), 16
+QWEN32_REQS, QWEN32_PLAIN_REQS, QWEN32_BATCH = (1, 2), (1,), 2
+#: the S runs' gate: ``1 - c_plain <= max(S_GATE_FLOOR, S_GATE_RATIO *
+#: (1 - c_ctrl))`` with both cosines at least ``S_MIN_COS``, where c_plain
+#: is the plain run's least logit cosine to the kernel run and c_ctrl the
+#: control run's (the kernel with one split a call)
+S_GATE_FLOOR, S_GATE_RATIO, S_MIN_COS = 5e-4, 2.0, 0.999
+
+
+def family_runs(arch):
+    """Phase 9's runs of ``arch`` at full width and depth: name -> (config,
+    kernels the run must launch).  D is the repo's default configuration
+    (``"cuda"``, fused decode, dense chunked prefill through
+    ``flash_attention``), S the sparse main path (``sparse_prefill`` and
+    the fused decode), G (gemma-7b only) the staged rung (scoring kernel,
+    top-K, ``paged_attention``).  T = BUDGET, INT4-asym quest store, block
+    sizes ``(16, 32, 64)[(layer + head) % 3]``."""
+    from repro_torch.configs import get_config
+
+    base = get_config(arch)
+    pattern = tuple(
+        tuple((16, 32, 64)[(l + h) % 3] for h in range(base.n_kv_heads))
+        for l in range(base.n_layers))
+    d = dataclasses.replace(base, sparse=dataclasses.replace(
+        base.sparse, backend="cuda", fused_decode=True, quant="int4_asym",
+        block_sizes=pattern, token_budget=BUDGET))
+    runs = {"D": (d, {"flash_attention", "fused_decode"}),
+            "S": (dataclasses.replace(d, sparse=dataclasses.replace(
+                d.sparse, sparse_prefill=True)), {"sparse_prefill", "fused_decode"})}
+    if arch == GEMMA:
+        runs["G"] = (dataclasses.replace(d, sparse=dataclasses.replace(
+            d.sparse, fused_decode=False)),
+            {"flash_attention", "centroid_scores_quantized", "paged_attention"})
+    return runs
+
+
+@contextlib.contextmanager
+def prefill_selections(mode, record, stats=None):
+    """Within, every sparse prefill call made inside
+    ``Transformer.prefill_chunk`` is keyed by its chunk (a hash of the
+    chunk's tokens, its offset and length) and its place among the chunk's
+    calls (the layer), and its selected blocks ``[B, n_kv, nQB, M]`` are
+    stored in ``record`` under that key.
+
+    - ``"kernel"``: the kernel call also returns its selection (it writes
+      it beside its outputs); nothing else runs, so the run's times are
+      serving times.
+    - ``"control"``: the same, with the kernel's split count forced to 1
+      on every call (the same kernel; only its split-combine order
+      differs from the planned count's).
+    - ``"plain"``: every plain call scores and selects on its own inputs
+      (``sparse_prefill_ref`` with its extras), and the kernel is launched
+      on those same inputs (a comparison launch, taken off its count).
+      The two are held under ``parity``'s rules: ``n_attended`` equal, a
+      block chosen by one version only a scored candidate within
+      ``TIE_RTOL`` of its cell's K-th score, every output row of the
+      other cells within one bf16 step and 1e-2 relative L2.  The call
+      then attends the kernel's blocks in those near-tie cells and its own
+      everywhere else.  ``stats`` counts the calls held, their cells and
+      their near-tie cells."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import parity, ref
+    from repro_torch.kernels import sparse_prefill as sp
+    from repro_torch.models import Transformer
+
+    cur = {"key": None, "layer": 0}
+    orig_chunk, orig_kernel, orig_plain = (
+        Transformer.prefill_chunk, sp.sparse_prefill, sp.sparse_prefill_plain)
+
+    def keyed(self, cache, slot, tokens, offset, n_valid):
+        digest = hashlib.sha1(np.asarray(tokens[:n_valid]).tobytes()).hexdigest()
+        cur.update(key=(digest, int(offset), int(n_valid)), layer=0)
+        try:
+            return orig_chunk(self, cache, slot, tokens, offset, n_valid)
+        finally:
+            cur["key"] = None
+
+    def next_key():
+        if cur["key"] is None:
+            fail("a sparse prefill call outside a prefill chunk")
+        cur["layer"] += 1
+        return cur["key"] + (cur["layer"] - 1,)
+
+    def recording(*args, return_selected=False, **kw):
+        if mode == "control":
+            kw["n_split"] = 1
+        out, n_att, sel = orig_kernel(*args, return_selected=True, **kw)
+        record[next_key()] = sel
+        return (out, n_att, sel) if return_selected else (out, n_att)
+
+    def held(q6, rq6, kp, vp, codes, scale, zero, la, k_sel, n_valid, qb0, *, bits,
+             symmetric, block_q, sink_pages, local_pages, return_selected=False):
+        key = next_key()
+        sp.plain_calls += 1
+        args = (q6, rq6, kp, vp, codes, scale, zero, la, k_sel, n_valid, qb0)
+        rows = ref.dequant_score_rows(codes, scale, zero, bits, symmetric)
+        out, n_att, extra = ref.sparse_prefill_ref(
+            q6, rq6, kp, vp, rows, la, k_sel, n_valid, int(qb0), block_q,
+            sink_pages, local_pages, extras=True)
+        sel = extra["selected"]
+        launched = sp.launches
+        out_k, att_k, sel_k = orig_kernel(
+            *args, bits=bits, symmetric=symmetric, block_q=block_q,
+            sink_pages=sink_pages, local_pages=local_pages, return_selected=True)
+        sp.launches = launched          # a comparison launch, not the run's path
+        try:
+            assert torch.equal(att_k, n_att), "sparse_prefill: n_attended differs"
+            ties = parity.check_prefill_ties(sel_k ^ sel, extra, k_sel)
+            keep = (~ties)[..., None, None].expand(out.shape[:-1])
+            parity.check_outputs(out_k, out, keep, "sparse_prefill while serving")
+        except AssertionError as e:
+            fail(f"{key}: {e}")
+        stats["calls"] += 1
+        stats["cells"] += ties.numel()
+        stats["tie_cells"] += int(ties.sum())
+        if bool(ties.any()):
+            sel = torch.where(ties[..., None], sel_k, sel)
+            out = ref.prefill_attention_ref(q6, kp, vp, sel, la, n_valid, int(qb0),
+                                            block_q)[0]
+        record[key] = sel
+        return (out, n_att, sel) if return_selected else (out, n_att)
+
+    Transformer.prefill_chunk = keyed
+    if mode == "plain":
+        sp.sparse_prefill_plain = held
+    else:
+        sp.sparse_prefill = recording
+    try:
+        yield
+    finally:
+        Transformer.prefill_chunk = orig_chunk
+        sp.sparse_prefill, sp.sparse_prefill_plain = orig_kernel, orig_plain
+
+
+def selection_drift(what, ref_sel, other):
+    """The share of (sequence, kv head, query block) cells, by layer, whose
+    selection in ``other`` differs from the kernel run's (``ref_sel``) at
+    the same call -> [share of layer 0, 1, ...]."""
+    moved, cells = {}, {}
+    for key, sel in other.items():
+        if key not in ref_sel:
+            fail(f"{what}: sparse prefill call {key} is not one of the kernel run's")
+        layer = key[-1]
+        moved[layer] = moved.get(layer, 0) + int((ref_sel[key] ^ sel).any(-1).sum())
+        cells[layer] = cells.get(layer, 0) + sel[..., 0].numel()
+    return [moved[l] / cells[l] for l in sorted(cells)]
+
+
+def s_gate(what, c_plain, c_ctrl):
+    """Tentpole gate of an S run -> (passed, the limit on 1 - c_plain)."""
+    limit = max(S_GATE_FLOOR, S_GATE_RATIO * (1 - c_ctrl))
+    ok = (1 - c_plain <= limit and c_plain >= S_MIN_COS and c_ctrl >= S_MIN_COS)
+    log(f"{what}: S gate 1 - c_plain = {1 - c_plain:.3e} against max({S_GATE_FLOOR}, "
+        f"{S_GATE_RATIO} x (1 - c_ctrl) = {S_GATE_RATIO * (1 - c_ctrl):.3e}) = "
+        f"{limit:.3e}; c_plain {c_plain:.6f}, c_ctrl {c_ctrl:.6f} (each >= {S_MIN_COS}): "
+        f"{'passed' if ok else 'FAILED'}")
+    return ok, limit
+
+
+def serve_family(torch, dev):
+    """Phase 9: llama3.1-8b, qwen1.5-4b, gemma-7b and qwen3-32b at full
+    width and depth (bf16, random weights from ``torch.Generator`` seed 0),
+    one model on the card at a time, served through ``Engine`` at
+    temperature 0 in the runs of ``family_runs``, each run's counts zeroed
+    just before and read just after: its path's kernels launched and no
+    other, no plain version called, rung 0 kept.  Each run is served again
+    through the plain versions (the ``"reference"`` backend) for
+    ``AGREE_NEW`` tokens, fed the kernel run's tokens, every step's logits
+    finite.  D and G runs: least logit cosine to the kernel run at least
+    ``LOGIT_COS``.  S runs: every plain sparse prefill call selects on its
+    own inputs and is held against the kernel on the same inputs
+    (``prefill_selections``); a control run of the kernel with one split a
+    call, fed the same tokens, sets the tolerance (``s_gate``).
+    qwen3-32b (65.5 GB of weights) runs at max_batch 2, a reduced batch
+    (the script fails if the free memory after the weights cannot hold two
+    16384-token KV rows), its plain and control runs on its shorter
+    request at max_batch 1.  A run that misses its gate fails the phase
+    after every run has been served.  -> {arch: {run: summary}}."""
+    from repro_torch.models import Transformer
+
+    out, missed = {}, []
+    for arch in (LLAMA31, QWEN15, GEMMA, QWEN32):
+        t_arch = time.perf_counter()
+        runs_cfg = family_runs(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Transformer(runs_cfg["D"][0], device=dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()        # the init's f32 staging, still cached
+        cfg = model.cfg
+        n_par = sum(p.numel() for p in model.parameters())
+        w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        log(f"{arch} weights: {n_par / 1e9:.3f}B params bf16 ({w_bytes / 1e9:.2f} GB), "
+            f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, {cfg.activation}, "
+            f"qkv_bias {cfg.qkv_bias}, tied {cfg.tie_embeddings}, init "
+            f"{time.perf_counter() - t0:.1f}s")
+        reqs, plain_reqs, serve_kw, plain_kw, hit = FAMILY_REQS, FAMILY_REQS, {}, {}, True
+        if arch == QWEN32:
+            kv_row = (2 * cfg.n_layers * cfg.n_kv_heads * CTX * cfg.resolved_head_dim * 2)
+            free = torch.cuda.mem_get_info(dev)[0]
+            if free < QWEN32_BATCH * kv_row:
+                fail(f"{arch}: {free / 2**30:.2f} GiB free after the weights cannot "
+                     f"hold {QWEN32_BATCH} KV rows of {CTX} tokens")
+            reqs, plain_reqs, hit = QWEN32_REQS, QWEN32_PLAIN_REQS, False
+            serve_kw, plain_kw = {"max_batch": QWEN32_BATCH}, {"max_batch": 1}
+            log(f"{arch}: {free / 2**30:.2f} GiB free after the weights, a KV row of "
+                f"{CTX} tokens takes {kv_row / 2**30:.2f} GiB: max_batch {QWEN32_BATCH} "
+                f"(a reduced batch on one card, not the full serving configuration)")
+        vocab = cfg.vocab_size
+        summary = {}
+        for name, (rcfg, launched) in runs_cfg.items():
+            sparse = rcfg.sparse.sparse_prefill
+            sel = {"kernel": {}, "plain": {}, "control": {}}
+            held = {"calls": 0, "cells": 0, "tie_cells": 0}
+
+            def selecting(mode):
+                return (prefill_selections(mode, sel[mode], held) if sparse
+                        else contextlib.nullcontext())
+
+            t_run = time.perf_counter()
+            eng = make_engine(rcfg, model, dev, reqs, FAMILY_NEW, **serve_kw)
+            with selecting("kernel"):
+                run = run_engine(torch, eng, record=True)
+            check_served(eng, run["done"], len(reqs), FAMILY_NEW, vocab, prefix_hit=hit)
+            expect_path(f"{arch} run {name}", run["counts"], launched)
+            snap = eng.metrics.snapshot()
+            log_serving(f"{arch} {name} (sparse_prefill {sparse}, fused_decode "
+                        f"{rcfg.sparse.fused_decode}, max_batch {eng.serve.max_batch})",
+                        run, snap)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the plain run, fed the kernel run's tokens
+            plain_cfg = dataclasses.replace(rcfg, sparse=dataclasses.replace(
+                rcfg.sparse, backend="reference"))
+            eng = make_engine(plain_cfg, model, dev, plain_reqs, AGREE_NEW, **plain_kw)
+            with selecting("plain"):
+                plain = run_engine(torch, eng, forced=run["tokens"], record=True)
+            check_served(eng, plain["done"], len(plain_reqs), AGREE_NEW, vocab,
+                         prefix_hit=hit)
+            expect_path(f"{arch} run {name}, plain", plain["counts"], set())
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            floor = S_MIN_COS if sparse else LOGIT_COS
+            c_plain, same, n_steps = agree_logits(
+                torch, f"{arch} {name}", run["logits"], plain["logits"], vocab,
+                plain_reqs, floor=floor, fatal=False)
+            ok = c_plain >= floor
+            row = {"launches": {k: c["launches"] for k, c in run["counts"].items()
+                                if c["launches"]},
+                   "decode_steps": run["steps"]["decode_step"],
+                   "prefill_chunks": run["steps"]["prefill_chunk"],
+                   "wall_s": run["wall"], "ttft_p50": snap["ttft_p50"],
+                   "tpot_p50": snap["tpot_p50"], "c_plain": c_plain,
+                   "greedy_equal": [same, n_steps]}
+            if sparse:
+                # the control: the kernel with one split a call, same tokens
+                eng = make_engine(rcfg, model, dev, plain_reqs, AGREE_NEW, **plain_kw)
+                with selecting("control"):
+                    ctrl = run_engine(torch, eng, forced=run["tokens"], record=True)
+                check_served(eng, ctrl["done"], len(plain_reqs), AGREE_NEW, vocab,
+                             prefix_hit=hit)
+                expect_path(f"{arch} run {name}, control", ctrl["counts"], launched)
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+                c_ctrl, same_c, _ = agree_logits(
+                    torch, f"{arch} {name}", run["logits"], ctrl["logits"], vocab,
+                    plain_reqs, floor=S_MIN_COS, fatal=False,
+                    other="the control (the kernel at n_split 1)")
+                ok, limit = s_gate(f"{arch} {name}", c_plain, c_ctrl)
+                drift = {m: selection_drift(f"{arch} {name} {m}", sel["kernel"], sel[m])
+                         for m in ("plain", "control")}
+                log(f"{arch} {name}: every sparse prefill call of the plain run "
+                    f"({held['calls']} calls, {held['cells']} cells) selected on its own "
+                    f"inputs and was held against the kernel on the same inputs: "
+                    f"selections equal up to {held['tie_cells']} near-tie cells (the "
+                    f"plain run attends the kernel's blocks there), outputs within the "
+                    f"bf16 rule")
+                for m, shares in drift.items():
+                    log(f"{arch} {name}: share of cells the {m} run selects otherwise "
+                        f"than the kernel run, by layer: "
+                        + " ".join(f"{s:.3f}" for s in shares))
+                row.update(c_ctrl=c_ctrl, greedy_equal_ctrl=same_c, gate_limit=limit,
+                           prefill_calls_held=held["calls"],
+                           prefill_cells=held["cells"],
+                           prefill_tie_cells=held["tie_cells"],
+                           drift_plain_max=max(drift["plain"]),
+                           drift_control_max=max(drift["control"]))
+            if not ok:
+                missed.append(f"{arch} {name}: c_plain {c_plain}"
+                              + (f", c_ctrl {row['c_ctrl']}" if sparse else ""))
+            del sel
+            row["run_s"] = time.perf_counter() - t_run
+            log(f"phase 9 {arch} {name} took {row['run_s']:.1f}s")
+            summary[name] = row
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{arch}: peak device memory allocated {peak / 2**30:.2f} GiB; phase 9 "
+            f"{arch} took {time.perf_counter() - t_arch:.1f}s")
+        summary["peak_gib"] = peak / 2**30
+        out[arch] = summary
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    if missed:
+        log(f"phase 9 summary: {json.dumps(out)}")
+        fail("phase 9: " + "; ".join(missed))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3002,10 +3495,13 @@ def main() -> int:
     flash = check_flash_attention(torch, dev)
     flash_off = check_flash_offset(torch, dev)
     ident = check_paged_identity(torch, dev)
-    log(f"phase 2 done at {time.perf_counter() - T_START:.1f}s")
+    # the same kernels at phase 9's new shapes (head_dim 256, g * BQ 512,
+    # 20 kv heads of group 1)
+    fam = check_family_kernels(torch, dev)
+    phase_done("2")
 
     cal = calibrate_phase(torch, dev)
-    log(f"phase 2b done at {time.perf_counter() - T_START:.1f}s")
+    phase_done("2b")
 
     # phase 4 before phase 3: under --profile, a device-time session that
     # follows the profiled serving runs has recorded no kernel at all
@@ -3020,7 +3516,9 @@ def main() -> int:
     sparse_prompt_ms = t_flash.pop("sparse_ms")
     t_chunk = time_flash_chunk(torch, dev)
     t_ident = time_paged_identity(torch, ident)
-    log(f"phase 4 done at {time.perf_counter() - T_START:.1f}s")
+    t_fam = time_family_kernels(torch, dev, fam)
+    fam = {k: {"err": f["err"]} for k, f in fam.items()}   # free their inputs
+    phase_done("4")
 
     mem0 = torch.cuda.memory_allocated()
     paths = serve(torch, dev, cal["cfg"], profile=args.profile)
@@ -3038,7 +3536,9 @@ def main() -> int:
         log(f"live blocks by size and stream: {json.dumps(blocks)}")
         fail("an engine, its decode graphs or the weights outlived phase 3")
     qwen = serve_qwen(torch, dev)
-    log(f"phase 3b and phase 6 ({QWEN}) done at {time.perf_counter() - T_START:.1f}s")
+    phase_done(f"3b and phase 6 ({QWEN})")
+    family = serve_family(torch, dev)
+    phase_done("9")
     log(f"phase 6 summary (ms; busy = device-busy ms per step): "
         f"{json.dumps({ARCH: paths['step'], QWEN: qwen['step']})}")
     tiered = paths["tiered"]
@@ -3102,6 +3602,11 @@ def main() -> int:
         # phase 7's tiered run (T: fused, plus the page masks' scoring)
         k["ladder_launches"] = paths["ladder"]["counts"][k["name"]]["launches"]
         k["tiered_launches"] = paths["tiered"]["T"]["counts"][k["name"]]["launches"]
+        # max_abs_err over the checks at phase 9's shapes too
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            f["err"][k["name"]] for f in fam.values() if k["name"] in f["err"]])
+    log(f"phase 4 at phase 9's shapes ({card}): " + json.dumps(t_fam))
+    log(f"phase 9 summary ({card}): " + json.dumps(family))
     for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "
@@ -3133,6 +3638,7 @@ def main() -> int:
         f"{q2['counts']['paged_attention']['launches']} over {q2['steps']['decode_step']} "
         f"decode steps; flash_attention's kernel-line numbers are the chunk shape's, "
         f"its S x S numbers under sxs_*")
+    log(f"seconds by phase: {json.dumps(phase_seconds())}")
     log(f"total {time.perf_counter() - T_START:.1f}s")
     (out_dir / "chip_smoke.log").write_text("\n".join(LOG) + "\n")
     print(card)

@@ -77,7 +77,8 @@ class SparseConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Dense decoder architecture (the port serves the ``("attn",)``
-    pattern with a SwiGLU MLP)."""
+    pattern; ``activation`` is "swiglu", "geglu", "relu2" or "gelu", as
+    JAX's ``mlp`` computes them)."""
 
     name: str
     n_layers: int

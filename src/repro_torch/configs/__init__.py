@@ -4,12 +4,34 @@ CPU tests run (same reduction as ``repro.configs.smoke_variant``)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 from repro_torch.config import ModelConfig
 
-from . import llama32_3b, qwen3_8b
+from . import (
+    gemma_7b,
+    llama31_8b,
+    llama32_3b,
+    nemotron4_340b,
+    qwen3_8b,
+    qwen3_32b,
+    qwen15_4b,
+)
 
-_MODULES = {"llama3.2-3b": llama32_3b, "qwen3-8b": qwen3_8b}
+#: the JAX package's dense ``("attn",)`` decoders, in its registry's order
+_MODULES = {
+    "qwen1.5-4b": qwen15_4b,
+    "gemma-7b": gemma_7b,
+    "llama3.2-3b": llama32_3b,
+    "nemotron-4-340b": nemotron4_340b,
+    "llama3.1-8b": llama31_8b,
+    "qwen3-8b": qwen3_8b,
+    "qwen3-32b": qwen3_32b,
+}
+
+
+def list_archs() -> Tuple[str, ...]:
+    return tuple(_MODULES)
 
 
 def get_config(name: str) -> ModelConfig:

@@ -2,9 +2,10 @@
 
 ``params_from_jax`` takes the parameter tree of ``repro``'s
 ``Transformer.init`` as numpy arrays (stacked ``cycles.pos0.{norm1,norm2,
-attn.{wq,wk,wv,wo},ffn.{up,gate,down}}``, ``embed``, ``final_norm``,
-optional ``lm_head``) and returns a port :class:`Transformer` holding the
-same weights.  bfloat16 arrays travel bit-exactly through a uint16 view.
+attn.{wq,wk,wv,wo},ffn.{up,gate,down}}``, the attention biases with
+``qkv_bias``, no ``gate`` for a non-gated activation, ``embed``,
+``final_norm``, optional ``lm_head``) and returns a port
+:class:`Transformer` holding the same weights.  bfloat16 arrays travel bit-exactly through a uint16 view.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 // Tensor-core attention tile for Hopper (sm_90a): one warpgroup (128
 // threads) owns 64 query rows and runs the flash loop over 64-key tiles
-// with wgmma.  The dense flash kernel uses it; the sparse prefill's flash
-// loop over selected key tiles is the same tile.
+// with wgmma, at head_dim 64, 128 or 256.  The dense flash kernel uses it;
+// the sparse prefill's flash loop over selected key tiles is the same tile.
 //
 // Shared-memory layout of every bf16 tile [ROWS, D] (Q, K and V alike):
 // 64-column panels of ROWS rows x 128 bytes, the 16-byte chunks of row r
@@ -149,15 +149,28 @@ __device__ __forceinline__ void qk(float (&s)[32], uint32_t q_rows, uint32_t k_t
 }
 
 // o += P V over one 64-key tile, P as A fragments p[k-step][4].  Issues 4
-// wgmma (no commit).
+// wgmma (8 at D 256; no commit).  At D 256 each k-step is two m64n128k16
+// products, channels 0-127 (V panels 0-1) into o[0..63] and 128-255
+// (panels 2-3) into o[64..127]: the two halves' fragments are exactly the
+// m64n256 accumulator's, so the softmax rescale and the epilogue index o
+// as at D 64 and 128.
 template <int D>
 __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[4][4],
                                    uint32_t v_tile) {
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
 #pragma unroll
   for (int kk = 0; kk < KEYS / 16; ++kk) {
-    const uint64_t b = desc(v_tile + kk * 16 * 128, KEYS * 128, 1024);
-    if constexpr (D == 128) mma_rs_n128(o, p[kk], b);
-    else mma_rs_n64(o, p[kk], b);
+    const uint32_t vk = v_tile + kk * 16 * 128;
+    if constexpr (D == 256) {
+      mma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), p[kk],
+                  desc(vk, KEYS * 128, 1024));
+      mma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), p[kk],
+                  desc(vk + 2 * KEYS * 128, KEYS * 128, 1024));
+    } else if constexpr (D == 128) {
+      mma_rs_n128(o, p[kk], desc(vk, KEYS * 128, 1024));
+    } else {
+      mma_rs_n64(o, p[kk], desc(vk, KEYS * 128, 1024));
+    }
   }
 }
 

@@ -10,11 +10,11 @@
 // masked when causal, a running (max, sum, acc) rescaled per key tile, and
 // out = acc / max(l, 1e-30).  The TPU kernel walks the key tiles as the
 // last, sequential grid axis with the state in VMEM scratch; here one
-// thread block per (head, query tile of 128 rows, sequence) loops over the
-// 64-key tiles itself, and a causal block stops at the tile of its last
-// query's position (masking from the first tile a row of it must not see
-// whole).  Blocks are issued heaviest first: the grid's slowest axis after
-// the heads is the query tile, last tile first.
+// thread block per (head, query tile of 128 rows, 64 at head_dim 256,
+// sequence) loops over the 64-key tiles itself, and a causal block stops
+// at the tile of its last query's position (masking from the first tile a
+// row of it must not see whole).  Blocks are issued heaviest first: the
+// grid's slowest axis after the heads is the query tile, last tile first.
 //
 // The offset and the key length serve chunked dense prefill: a chunk's
 // queries at offset over the keys [0, offset + n) of the slot's cache row
@@ -28,7 +28,7 @@
 // bf16 tensor-core rate; 6 D as run here, see below).  Design
 // (attn_tile.cuh holds the tile):
 //  - both products on the tensor cores with wgmma: two warpgroups, each 64
-//    query rows; S = Q K^T from shared memory (m64n64k16), O += P V with P
+//    query rows (one at head_dim 256, for shared memory: Shape below); S = Q K^T from shared memory (m64n64k16), O += P V with P
 //    from registers and V from shared memory (m64nDk16, transposed B);
 //  - P is split into bf16 hi + lo and O accumulates both products: one
 //    bf16 rounding of P fails the one-bf16-step comparison with the f32
@@ -48,16 +48,25 @@ using namespace absparse::tile;
 
 namespace {
 
-constexpr int BQ = 2 * ROWS_WG;         // query rows per thread block
 constexpr int BK = KEYS;                // keys per tile
 constexpr int NSTAGE = 3;               // K / V ring depth
-constexpr int NTHR = 256;               // two warpgroups
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Warpgroups of a thread block: two (128 query rows) at head_dim 64 and
+// 128; one at 256, where a 128-row Q tile (64 KB) beside the three-stage
+// K / V ring (192 KB) would pass the 227 KB a block may use (64 rows:
+// 225 KB).  Each K / V tile is then read once per 64 query rows.
+template <int D>
+struct Shape {
+  static constexpr int NWG = D == 256 ? 1 : 2;
+  static constexpr int BQ = NWG * ROWS_WG;   // query rows per thread block
+  static constexpr int NTHR = NWG * 128;
+};
 
 template <int D>
 constexpr size_t smem_bytes() {
   // 1024 bytes of slack to align the tiles to the swizzle period
-  return 1024 + (size_t)BQ * D * 2 + (size_t)NSTAGE * 2 * BK * D * 2;
+  return 1024 + (size_t)Shape<D>::BQ * D * 2 + (size_t)NSTAGE * 2 * BK * D * 2;
 }
 
 // The TPU kernel's contract (q_offset 0, Sq = Sk = k_len, a multiple of
@@ -67,12 +76,13 @@ constexpr size_t smem_bytes() {
 // about 1.4% slower with the same outputs (tools/flash_parent_check.py on
 // an H100).
 template <int D>
-__global__ void __launch_bounds__(NTHR, 1) flash_square_kernel(
+__global__ void __launch_bounds__(Shape<D>::NTHR, 1) flash_square_kernel(
     const __nv_bfloat16* __restrict__ q,    // [B, Hq, S, D]
     const __nv_bfloat16* __restrict__ k,    // [B, Hkv, S, D]
     const __nv_bfloat16* __restrict__ v,
     __nv_bfloat16* __restrict__ out,        // [B, Hq, S, D]
     int Hq, int Hkv, int S, int causal, float scale_log2) {
+  constexpr int BQ = Shape<D>::BQ, NTHR = Shape<D>::NTHR;
   constexpr int TILE = BK * D * 2;      // bytes of one K or V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -173,7 +183,7 @@ __global__ void __launch_bounds__(NTHR, 1) flash_square_kernel(
 // holding it loads zeros past it and masks per key; without it no load
 // carries a row predicate and no key a length mask.
 template <int D, bool TAIL>
-__global__ void __launch_bounds__(NTHR, 1) flash_attention_kernel(
+__global__ void __launch_bounds__(Shape<D>::NTHR, 1) flash_attention_kernel(
     const __nv_bfloat16* __restrict__ q,    // [B, Hq, Sq, D]
     const __nv_bfloat16* __restrict__ k,    // [B, Hkv, Sk, D]
     const __nv_bfloat16* __restrict__ v,
@@ -181,6 +191,7 @@ __global__ void __launch_bounds__(NTHR, 1) flash_attention_kernel(
     const int* __restrict__ k_len,          // [B], or null: k_len_all
     int k_len_all, int Hq, int Hkv, int Sq, int Sk, int q_offset, int causal,
     float scale_log2) {
+  constexpr int BQ = Shape<D>::BQ, NTHR = Shape<D>::NTHR;
   constexpr int TILE = BK * D * 2;      // bytes of one K or V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -297,6 +308,7 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
            const __nv_bfloat16* v, __nv_bfloat16* out, const int* k_len,
            int k_len_all, int B, int Hq, int Hkv, int Sq, int Sk, int q_offset,
            int causal, float scale, cudaStream_t stream) {
+  constexpr int BQ = Shape<D>::BQ, NTHR = Shape<D>::NTHR;
   const size_t smem = smem_bytes<D>();
   const bool square = !TAIL && q_offset == 0 && Sq == Sk && k_len_all == Sk;
   cudaError_t e = cudaFuncSetAttribute(
@@ -349,5 +361,8 @@ extern "C" int flash_attention_launch(const __nv_bfloat16* q,
   if (D == 64)
     return launch_d<64>(q, k, v, out, k_len, k_len_all, B, Hq, Hkv, Sq, Sk,
                         q_offset, causal, scale, st);
+  if (D == 256)
+    return launch_d<256>(q, k, v, out, k_len, k_len_all, B, Hq, Hkv, Sq, Sk,
+                         q_offset, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

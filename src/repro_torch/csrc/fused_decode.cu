@@ -105,7 +105,9 @@ extern "C" size_t fused_decode_smem_bytes(int D, int g, int Dp, int max_blocks,
                                           int k_max) {
   size_t m = score::smem_bytes(g, Dp);
   const size_t sel = select_smem(max_blocks, k_max);
-  const size_t ring = D == 64 ? split::ring_bytes<64>() : split::ring_bytes<128>();
+  const size_t ring = D == 64    ? split::ring_bytes<64>()
+                      : D == 128 ? split::ring_bytes<128>()
+                                 : split::ring_bytes<256>();
   if (sel > m) m = sel;
   return ring > m ? ring : m;
 }

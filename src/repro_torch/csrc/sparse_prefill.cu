@@ -37,7 +37,10 @@
 //     to three (g * BQ = 192: 384 threads, 168 registers), so that each
 //     gathered K / V tile is read from L2 once for all of them (one block
 //     per row tile read it three times and took 0.147 against 0.123 ms at
-//     offset 8192 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).  The
+//     offset 8192 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).  More
+//     row tiles (g * BQ up to 512) go in blocks of two, and at head_dim
+//     256 every row tile is a block of its own (attend_wgs), each block
+//     gathering the run's K / V tiles again.  The
 //     cell's selected tokens, in slot order, form 64-key tiles (64 / bs
 //     blocks each at bs 16 / 32 / 64); a run is a contiguous range of those
 //     tiles (the wrapper's split plan: about two blocks per SM, the run
@@ -525,10 +528,12 @@ int run_slots(int max_blocks, int n_split) {
 }
 
 // Warpgroups of an attention block: every row tile of the cell up to 3
-// (192 rows, a 384-thread block), else 2 (R 256: two blocks of 128 rows).
-int attend_wgs(int R) {
+// (192 rows, a 384-thread block), else 2 (R 256: two blocks of 128 rows,
+// R 512: four); one at head_dim 256, where a second 32 KB Q tile beside
+// the five 32 KB K / V stages would pass the 227 KB a block may use.
+int attend_wgs(int R, int D) {
   const int nrt = (R + QT - 1) / QT;
-  return nrt <= 3 ? nrt : 2;
+  return D == 256 ? 1 : nrt <= 3 ? nrt : 2;
 }
 
 // Query rows per lane of a scoring slice: the one of 4, 3, 2 that leaves
@@ -559,13 +564,14 @@ extern "C" size_t sparse_prefill_smem_bytes(int g, int BQ, int D, int Dp,
   (void)Dp;
   size_t m = score_smem(score_rpt(g * BQ));
   const size_t sel = sizeof(float) * (size_t)max_blocks + sizeof(int) * NWARPS;
-  const int nwg = attend_wgs(g * BQ), rs = run_slots(max_blocks, n_split);
-  const size_t att = D == 64 ? (nwg == 1 ? attend_smem<64, 1>(rs)
-                                         : nwg == 2 ? attend_smem<64, 2>(rs)
-                                                    : attend_smem<64, 3>(rs))
-                             : (nwg == 1 ? attend_smem<128, 1>(rs)
-                                         : nwg == 2 ? attend_smem<128, 2>(rs)
-                                                    : attend_smem<128, 3>(rs));
+  const int nwg = attend_wgs(g * BQ, D), rs = run_slots(max_blocks, n_split);
+  const size_t att = D == 256 ? attend_smem<256, 1>(rs)
+                     : D == 64 ? (nwg == 1 ? attend_smem<64, 1>(rs)
+                                           : nwg == 2 ? attend_smem<64, 2>(rs)
+                                                      : attend_smem<64, 3>(rs))
+                               : (nwg == 1 ? attend_smem<128, 1>(rs)
+                                           : nwg == 2 ? attend_smem<128, 2>(rs)
+                                                      : attend_smem<128, 3>(rs));
   if (sel > m) m = sel;
   return att > m ? att : m;
 }
@@ -586,8 +592,8 @@ extern "C" int sparse_prefill_launch(
     int local_pages, int max_blocks, int qb0, int jb, int n_split,
     float scale_qk, void* stream) {
   const int R = g * BQ;
-  if (R < 1 || R > 4 * QT || Dp % KC || (D != 64 && D != 128) || n_split < 1 ||
-      B < 1 || n_kv < 1 || n_kv * B > 65535 || nQB < 1 || nQB > 65535)
+  if (R < 1 || R > 8 * QT || Dp % KC || (D != 64 && D != 128 && D != 256) ||
+      n_split < 1 || B < 1 || n_kv < 1 || n_kv * B > 65535 || nQB < 1 || nQB > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int e;
@@ -620,7 +626,7 @@ extern "C" int sparse_prefill_launch(
       page_size, sink_pages, local_pages, max_blocks, qb0);
   if ((e = (int)cudaGetLastError())) return e;
 
-  const int nwg = attend_wgs(R), n_groups = (R + QT * nwg - 1) / (QT * nwg);
+  const int nwg = attend_wgs(R, D), n_groups = (R + QT * nwg - 1) / (QT * nwg);
   const dim3 agrid(n_split * n_groups, nQB, n_kv * B);
   const float scale_log2 = scale_qk * 1.4426950408889634f;
 #define ABS_ATTEND(DD, NWG)                                                      \
@@ -635,14 +641,18 @@ extern "C" int sparse_prefill_launch(
   }
   ABS_ATTEND(64, 1) ABS_ATTEND(64, 2) ABS_ATTEND(64, 3)
   ABS_ATTEND(128, 1) ABS_ATTEND(128, 2) ABS_ATTEND(128, 3)
+  ABS_ATTEND(256, 1)
 #undef ABS_ATTEND
   if ((e = (int)cudaGetLastError()) || n_split == 1) return e;
   const dim3 cgrid(B * n_kv * nQB, (R + NWARPS - 1) / NWARPS);
   if (D == 64)
     prefill_combine_kernel<64><<<cgrid, NT, 0, st>>>(part_ml, part_acc,
                                                      (__nv_bfloat16*)out, n_split, R);
-  else
+  else if (D == 128)
     prefill_combine_kernel<128><<<cgrid, NT, 0, st>>>(part_ml, part_acc,
+                                                      (__nv_bfloat16*)out, n_split, R);
+  else
+    prefill_combine_kernel<256><<<cgrid, NT, 0, st>>>(part_ml, part_acc,
                                                       (__nv_bfloat16*)out, n_split, R);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,8 @@
 //    x 128 channels is 4 KB, contiguous) and keeps its own (m, l, acc) for
 //    the g rows in registers; a lane holds 8 channels of one token row, so
 //    every K and V load is 16 bytes and V is read once per token for all
-//    g rows;
+//    g rows (at head_dim 256 a token row spans the whole warp, and each
+//    dot product is summed over all 32 lanes);
 //  - each lane looks up one of its warp's next 32 units in the run's slots,
 //    and the warp walks the live ones from registers (a ballot), so no
 //    table read sits on the loop's path and a slot that does not count
@@ -380,8 +381,8 @@ int launch_split(const void* q, const void* kp, const void* vp, const int* table
   return (int)cudaGetLastError();
 }
 
-// launch_split with the group size g (1 .. GMAX) and head_dim 64 / 128 as
-// runtime arguments.
+// launch_split with the group size g (1 .. GMAX) and head_dim 64 / 128 /
+// 256 as runtime arguments.
 inline int launch_split_any(int D, int g, const void* q, const void* kp, const void* vp,
                             const int* table, const uint8_t* valid, const int* seq_len,
                             void* out, float* part_ml, float* part_acc, int B, int n_kv,
@@ -399,6 +400,7 @@ inline int launch_split_any(int D, int g, const void* q, const void* kp, const v
   }
   ABS_D(64)
   ABS_D(128)
+  ABS_D(256)
 #undef ABS_D
 #undef ABS_G
   return (int)cudaErrorInvalidValue;

@@ -50,9 +50,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     expect(q, torch.bfloat16, (B, Hq, Sq, D), dev, "q")
     expect(k, torch.bfloat16, (B, Hkv, Sk, D), dev, "k")
     expect(v, torch.bfloat16, (B, Hkv, Sk, D), dev, "v")
-    if D not in (64, 128) or Hq % Hkv:
+    if D not in (64, 128, 256) or Hq % Hkv:
         raise ValueError(
-            f"flash_attention kernel takes head_dim 64/128 and Hq a multiple "
+            f"flash_attention kernel takes head_dim 64/128/256 and Hq a multiple "
             f"of Hkv (got D={D}, Hq={Hq}, Hkv={Hkv})"
         )
     if q_offset < 0:

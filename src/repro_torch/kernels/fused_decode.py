@@ -94,9 +94,9 @@ def fused_decode(
                  "pages_per_block"):
         expect(getattr(la, name), torch.int32, (n_kv,), dev, f"la.{name}")
     expect(la.tile_head, torch.int32, (rows // la.tile_rows,), dev, "la.tile_head")
-    if D not in (64, 128) or not 1 <= g <= 8 or bits not in (0, 4, 8):
+    if D not in (64, 128, 256) or not 1 <= g <= 8 or bits not in (0, 4, 8):
         raise ValueError(
-            f"fused_decode kernel takes head_dim 64/128, GQA group <= 8 and "
+            f"fused_decode kernel takes head_dim 64/128/256, GQA group <= 8 and "
             f"0/4/8-bit codes (got D={D}, g={g}, bits={bits})"
         )
     if n_q % n_kv or ps != la.page_size or rows != la.total_rows:

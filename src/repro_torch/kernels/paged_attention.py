@@ -85,9 +85,9 @@ def paged_attention(
     expect(page_table, torch.int32, (B, n_kv, P), dev, "page_table")
     expect(page_valid, torch.bool, (B, n_kv, P), dev, "page_valid")
     expect(seq_len, torch.int32, (B,), dev, "seq_len")
-    if D not in (64, 128) or not 1 <= g <= 8 or n_q % n_kv:
+    if D not in (64, 128, 256) or not 1 <= g <= 8 or n_q % n_kv:
         raise ValueError(
-            f"paged_attention kernel takes head_dim 64/128 and a GQA group "
+            f"paged_attention kernel takes head_dim 64/128/256 and a GQA group "
             f"<= 8 (got D={D}, n_q={n_q}, n_kv={n_kv})"
         )
     if ps != page_size:

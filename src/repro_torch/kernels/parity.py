@@ -212,6 +212,20 @@ def prefill_selection(q, rq, k, v, score_store, la, sparse, n_valid, chunk_offse
     return extra, k_sel
 
 
+def check_prefill_ties(diff, extra, k_sel):
+    """The blocks selected by one version only (``diff`` ``[B, H, nQB, M]``)
+    must each be a scored candidate within ``TIE_RTOL`` of its cell's K-th
+    candidate score (``extra``: the plain selection's, ``k_sel`` the
+    per-head K) -> the cells holding such a near tie ``[B, H, nQB]``."""
+    scores = extra["cand_scores"]                              # [B, H, nQB, M]
+    vals = torch.sort(scores, dim=-1, descending=True).values
+    kk = k_sel.long()[None, :, None, None].expand(*vals.shape[:-1], 1)
+    thr = vals.gather(-1, (kk - 1).clamp(min=0))
+    ok = ~diff | (extra["cand"] & _near(scores, thr.expand_as(scores)))
+    assert bool(ok.all()), "sparse_prefill: a block selected by one version only is not a near tie"
+    return diff.any(-1)
+
+
 def compare_sparse_prefill(q, rq, k, v, score_store, la, sparse, n_valid,
                            chunk_offset, n_split=None):
     """Prefill kernel (``n_split`` key-tile runs per cell, default its plan)
@@ -227,18 +241,10 @@ def compare_sparse_prefill(q, rq, k, v, score_store, la, sparse, n_valid,
                                                        la, **kw)
     torch.cuda.synchronize()
     assert torch.equal(att_k, att_p), "sparse_prefill: n_attended differs"
-    # a block picked by one version only must be a scored candidate within
-    # TIE_RTOL of its cell's K-th candidate score
     extra, k_sel = prefill_selection(q, rq, k, v, score_store, la, sparse,
                                      n_valid, chunk_offset)
-    scores = extra["cand_scores"]                              # [B, H, nQB, M]
-    vals = torch.sort(scores, dim=-1, descending=True).values
-    kk = k_sel.long()[None, :, None, None].expand(*vals.shape[:-1], 1)
-    thr = vals.gather(-1, (kk - 1).clamp(min=0))
     diff = sel_k ^ sel_p
-    ok = ~diff | (extra["cand"] & _near(scores, thr.expand_as(scores)))
-    assert bool(ok.all()), "sparse_prefill: a block selected by one version only is not a near tie"
-    tie_cells = diff.any(-1)                                   # [B, H, nQB]
+    tie_cells = check_prefill_ties(diff, extra, k_sel)         # [B, H, nQB]
     B, Hq, Sq, D = q.shape
     n_kv, bq = k.shape[1], sparse.prefill_block_q
     keep = (~tie_cells).repeat_interleave(bq, dim=-1)[..., :Sq]  # [B, H, Sq]

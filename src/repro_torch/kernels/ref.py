@@ -139,11 +139,10 @@ def sparse_prefill_ref(
     ``cand_scores`` ``[B, n_kv, nQB, M]``), the live query rows per cell
     (``live_rows`` ``[B, nQB]``) and the causal (live row, selected key)
     pairs per cell (``pairs`` ``[B, n_kv, nQB]``)."""
-    B, n_kv, nQB, g, BQ, D = q.shape
+    B, n_kv, nQB, g, BQ, _ = q.shape
     dev = q.device
     M = la.max_blocks
     ps = la.page_size
-    S = k_pages.shape[2] * ps
     bsz = la.block_sizes.to(torch.int32)
     nv = n_valid.to(torch.int32)
 
@@ -182,6 +181,35 @@ def sparse_prefill_ref(
     selected = (forced | scored) & qb_live                    # [B, H, nQB, M]
     n_att = selected.sum(-1).to(torch.int32)
 
+    out, pairs = prefill_attention_ref(q, k_pages, v_pages, selected, la, nv, qb0,
+                                       block_q, pairs=extras)
+    if not extras:
+        return out, n_att
+    return out, n_att, {
+        "selected": selected, "cand": cand, "cand_scores": masked,
+        "live_rows": g * (qpos[None] < nv[:, None, None]).sum(-1),
+        "pairs": pairs,
+    }
+
+
+def prefill_attention_ref(q, k_pages, v_pages, selected, la, n_valid, qb0: int,
+                          block_q: int, pairs: bool = False):
+    """The attention of :func:`sparse_prefill_ref` over given selected
+    blocks ``[B, n_kv, nQB, M]`` bool: per query block, dense masked softmax
+    over the selected blocks' keys at positions up to the query's and below
+    ``n_valid`` (f32, a row with no such key gives 0) -> (out like q, and
+    with ``pairs`` the causal (live row, selected key) pairs per cell
+    ``[B, n_kv, nQB]``, else None)."""
+    B, n_kv, nQB, g, BQ, D = q.shape
+    dev = q.device
+    M = la.max_blocks
+    S = k_pages.shape[2] * la.page_size
+    bsz = la.block_sizes.to(torch.int32)
+    nv = n_valid.to(torch.int32)
+    qb_idx = qb0 + torch.arange(nQB, device=dev, dtype=torch.int32)
+    qpos = qb_idx[:, None] * block_q + torch.arange(
+        BQ, device=dev, dtype=torch.int32
+    )[None, :]                                                # [nQB, BQ]
     key_block = torch.clamp_max(
         torch.arange(S, device=dev, dtype=torch.int32)[None, :] // bsz[:, None],
         M - 1,
@@ -189,7 +217,7 @@ def sparse_prefill_ref(
     kd = k_pages.reshape(B, n_kv, S, D).to(torch.float32)
     vd = v_pages.reshape(B, n_kv, S, D).to(torch.float32)
     pos = torch.arange(S, device=dev, dtype=torch.int32)
-    outs, pairs = [], []
+    outs, n_pairs = [], []
     for qb in range(nQB):
         sel_k = torch.gather(
             selected[:, :, qb], 2, key_block[None].expand(B, -1, -1)
@@ -205,17 +233,11 @@ def sparse_prefill_ref(
         any_ok = ok.any(dim=-1, keepdim=True)
         probs = torch.where(any_ok, torch.softmax(logits, dim=-1), 0.0)
         outs.append(torch.einsum("bhgqs,bhsd->bhgqd", probs, vd))
-        if extras:
+        if pairs:
             live = (qpos[qb][None, :] < nv[:, None])[:, None, None, :, None]
-            pairs.append(g * (ok & live).sum(dim=(2, 3, 4)))
+            n_pairs.append(g * (ok & live).sum(dim=(2, 3, 4)))
     out = torch.stack(outs, dim=2).to(q.dtype)
-    if not extras:
-        return out, n_att
-    return out, n_att, {
-        "selected": selected, "cand": cand, "cand_scores": masked,
-        "live_rows": g * (qpos[None] < nv[:, None, None]).sum(-1),
-        "pairs": torch.stack(pairs, dim=2),
-    }
+    return out, torch.stack(n_pairs, dim=2) if pairs else None
 
 
 def pool_rank_keys_ref(keys: torch.Tensor, block_size: int, method: str) -> torch.Tensor:

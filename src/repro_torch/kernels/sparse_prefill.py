@@ -47,37 +47,42 @@ RUN_COST = 0.03
 FILL = 0.95
 
 
-def attend_warpgroups(rows: int) -> int:
+def attend_warpgroups(rows: int, head_dim: int) -> int:
     """Warpgroups (64 query rows each) of one attention block: every row
-    tile of the cell up to 3, else 2 (as ``csrc/sparse_prefill.cu``)."""
+    tile of the cell up to 3, else 2; 1 at head_dim 256 (as
+    ``csrc/sparse_prefill.cu``)."""
     nrt = -(-rows // ROW_TILE)
-    return nrt if nrt <= 3 else 2
+    return 1 if head_dim == 256 else nrt if nrt <= 3 else 2
 
 
-def attend_blocks(n_cells: int, rows: int) -> int:
+def attend_blocks(n_cells: int, rows: int, head_dim: int) -> int:
     """Attention blocks of one run over all cells."""
-    return n_cells * -(-rows // (ROW_TILE * attend_warpgroups(rows)))
+    return n_cells * -(-rows // (ROW_TILE * attend_warpgroups(rows, head_dim)))
 
 
-def prefill_plan_cost(n_cells: int, rows: int, n_sm: int, n: int) -> float:
+def prefill_plan_cost(n_cells: int, rows: int, n_sm: int, n: int,
+                      head_dim: int) -> float:
     """Modeled attention time of n runs per cell, in units of one run's: the
     waves of blocks (one 128 * w-thread block of w warpgroups per SM, two
-    of one warpgroup) over n, each run adding ``RUN_COST``."""
-    per_sm = 2 if attend_warpgroups(rows) == 1 else 1
-    waves = -(-attend_blocks(n_cells, rows) * n // (per_sm * max(1, n_sm)))
+    of one warpgroup below head_dim 256, one at 256, whose block takes
+    most of an SM's shared memory) over n, each run adding ``RUN_COST``."""
+    per_sm = 2 if attend_warpgroups(rows, head_dim) == 1 and head_dim < 256 else 1
+    blocks = attend_blocks(n_cells, rows, head_dim)
+    waves = -(-blocks * n // (per_sm * max(1, n_sm)))
     return waves / n * (1 + RUN_COST * n)
 
 
-def prefill_split_plan(n_cells: int, rows: int, n_sm: int) -> int:
+def prefill_split_plan(n_cells: int, rows: int, n_sm: int, head_dim: int) -> int:
     """Runs of key tiles per (sequence, kv head, query block) cell: of the
     run counts 1 .. ``MAX_RUNS`` that give about ``BLOCKS_PER_SM``
     attention blocks per SM (``FILL``), the one of least
     :func:`prefill_plan_cost`, the fewest on a tie (all counts when none
     reaches it)."""
-    blocks = attend_blocks(n_cells, rows)
+    blocks = attend_blocks(n_cells, rows, head_dim)
     runs = range(1, MAX_RUNS + 1)
     ok = [n for n in runs if blocks * n >= FILL * BLOCKS_PER_SM * n_sm] or list(runs)
-    return min(ok, key=lambda n: (prefill_plan_cost(n_cells, rows, n_sm, n), n))
+    return min(ok, key=lambda n: (
+        prefill_plan_cost(n_cells, rows, n_sm, n, head_dim), n))
 
 
 def prefill_tile_keys(blocks, block_size: int, n_valid: int):
@@ -176,10 +181,10 @@ def sparse_prefill(
     expect(n_valid, torch.int32, (B,), dev, "n_valid")
     for name in ("row_offsets", "n_blocks", "block_sizes"):
         expect(getattr(la, name), torch.int32, (n_kv,), dev, f"la.{name}")
-    if (D not in (64, 128) or g * BQ > 256 or bits not in (0, 4, 8)
+    if (D not in (64, 128, 256) or g * BQ > 512 or bits not in (0, 4, 8)
             or la.max_block_size > 64 or BQ != block_q):
         raise ValueError(
-            f"sparse_prefill kernel takes head_dim 64/128, g*BQ <= 256, "
+            f"sparse_prefill kernel takes head_dim 64/128/256, g*BQ <= 512, "
             f"0/4/8-bit codes and blocks of <= 64 tokens (got D={D}, "
             f"g*BQ={g * BQ}, bits={bits}, max block {la.max_block_size})"
         )
@@ -187,7 +192,7 @@ def sparse_prefill(
         raise ValueError("sparse_prefill: inconsistent page / row shapes")
     _build.expect_rows(Dp, "sparse_prefill")
     if n_split is None:
-        n_split = prefill_split_plan(B * n_kv * nQB, g * BQ, _sm_count(dev))
+        n_split = prefill_split_plan(B * n_kv * nQB, g * BQ, _sm_count(dev), D)
     if n_split < 1:
         raise ValueError(f"sparse_prefill: n_split {n_split} < 1")
     M = la.max_blocks

@@ -1,7 +1,8 @@
 """Common layers (counterpart of ``repro.models.layers``): RMSNorm, rotary
-positions, SwiGLU MLP, attention projections, and the plain chunked causal
-attention of dense prefill.  Weights keep the JAX package's
-``[d_in, d_out]`` layout, so converted parameters copy as they are.
+positions, the MLP (SwiGLU, GeGLU, ReLU^2, GELU), attention projections,
+and the plain chunked causal attention of dense prefill.  Weights keep the
+JAX package's ``[d_in, d_out]`` layout, so converted parameters copy as
+they are.
 """
 from __future__ import annotations
 
@@ -49,8 +50,13 @@ def _weight(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+#: activations whose MLP multiplies ``up`` by an activated ``gate``
+GATED = {"swiglu", "geglu"}
+
+
 class DecoderLayer(nn.Module):
-    """One pre-norm attention + SwiGLU block's weights."""
+    """One pre-norm attention + MLP block's weights (``gate`` only for a
+    gated activation)."""
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
@@ -68,15 +74,24 @@ class DecoderLayer(nn.Module):
         else:
             self.bq = self.bk = self.bv = None
         self.up = _weight((d, cfg.d_ff), dtype, device)
-        self.gate = _weight((d, cfg.d_ff), dtype, device)
+        self.gate = (_weight((d, cfg.d_ff), dtype, device)
+                     if cfg.activation in GATED else None)
         self.down = _weight((cfg.d_ff, d), dtype, device)
 
 
 def mlp(p: DecoderLayer, x: torch.Tensor, activation: str) -> torch.Tensor:
-    if activation != "swiglu":
-        raise NotImplementedError(f"activation {activation!r} is not ported")
+    """JAX's ``mlp``: GELU is its tanh form (``approximate=True``)."""
     up = dense(x, p.up)
-    h = F.silu(dense(x, p.gate)) * up
+    if activation == "swiglu":
+        h = F.silu(dense(x, p.gate)) * up
+    elif activation == "geglu":
+        h = F.gelu(dense(x, p.gate), approximate="tanh") * up
+    elif activation == "relu2":
+        h = torch.square(F.relu(up))
+    elif activation == "gelu":
+        h = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(activation)
     return dense(h, p.down)
 
 

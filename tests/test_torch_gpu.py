@@ -24,7 +24,11 @@ page tables, prefill block sets) is exact up to the near-tie rule of
 :mod:`repro_torch.kernels.parity`; staged scores within its
 ``SCORE_RTOL``, and the staged page sets equal to the fused kernel's
 exactly; bf16 outputs agree within one bf16 rounding step per element and
-a relative L2 error of 1e-2 per row.
+a relative L2 error of 1e-2 per row.  The four attention kernels also run
+at head_dim 256 (gemma-7b: the fused and staged decode at groups 1 to 4,
+the sparse prefill at groups 1 and 2, flash S x S and with an offset at
+16 / 16 heads, the identity table), and the sparse prefill at group 8
+(qwen3-32b: 512 query rows a cell).
 
 The scoring kernel also runs at GQA groups 1, 3 and 8 and rank-key
 widths 128 and 256 for every store, and on 48-row tiles.  The pooling
@@ -121,7 +125,8 @@ def test_fused_decode_kernel_matches_plain(cuda, quant, blocks, sink, local):
 
 @pytest.mark.parametrize("seq", [(1, 17), (31, 100), (2047, 513)],
                          ids=["edge", "tiny", "ragged"])
-@pytest.mark.parametrize("D,g", [(128, 3), (64, 2), (128, 8), (128, 4)])
+@pytest.mark.parametrize("D,g", [(128, 3), (64, 2), (128, 8), (128, 4), (256, 1),
+                                 (256, 4)])
 def test_fused_decode_kernel_shapes_and_lengths(cuda, seq, D, g):
     _decode(cuda, LAYOUTS["nonuniform"], "int4_asym", seq, 1, 4, D=D, g=g, seed=5)
 
@@ -172,8 +177,12 @@ def test_sparse_prefill_kernel_chunks_and_scales(cuda, off, sq, n_valid, scale):
              scale=scale, seed=3)
 
 
-@pytest.mark.parametrize("D,g", [(64, 4), (128, 1), (64, 2), (128, 4)])
+@pytest.mark.parametrize("D,g", [(64, 4), (128, 1), (64, 2), (128, 4), (256, 1),
+                                 (256, 2), (128, 8)])
 def test_sparse_prefill_kernel_shapes(cuda, D, g):
+    """Head dims 64, 128 and 256 (one warpgroup a block at 256), groups up
+    to 8: g 8 at the default query block of 64 is 512 query rows a cell,
+    four blocks of two warpgroups."""
     _prefill(cuda, LAYOUTS["nonuniform"], "int8_asym", 1024, 256, (1280, 1100),
              D=D, g=g, seed=7)
 
@@ -272,7 +281,8 @@ def test_staged_kernels_match_plain_and_fused(cuda, quant, blocks, sink, local):
 
 @pytest.mark.parametrize("seq", [(1, 17), (31, 100), (2047, 513)],
                          ids=["edge", "tiny", "ragged"])
-@pytest.mark.parametrize("D,g", [(128, 3), (64, 1), (128, 8), (64, 5), (128, 4)])
+@pytest.mark.parametrize("D,g", [(128, 3), (64, 1), (128, 8), (64, 5), (128, 4),
+                                 (256, 1), (256, 3)])
 def test_staged_kernels_shapes_and_lengths(cuda, seq, D, g):
     _staged(cuda, LAYOUTS["nonuniform"], "int4_asym", seq, 1, 4, D=D, g=g, seed=5)
 
@@ -382,7 +392,8 @@ def test_topk_threshold_kernel_matches_plain(cuda, M, ties):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("hq,hkv,s,d", [(4, 4, 256, 64), (24, 8, 512, 128),
-                                        (8, 1, 384, 128), (6, 3, 640, 64)])
+                                        (8, 1, 384, 128), (6, 3, 640, 64),
+                                        (16, 16, 512, 256), (6, 2, 320, 256)])
 def test_flash_attention_kernel_matches_plain(cuda, causal, hq, hkv, s, d):
     gen = torch.Generator(device=cuda).manual_seed(s + d)
     q, k, v = (torch.randn((2, h, s, d), generator=gen, device=cuda) for h in (hq, hkv, hkv))
@@ -425,8 +436,9 @@ FLASH_CHUNKS = {
 
 
 @pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (24, 8, 128), (32, 8, 64),
-                                      (24, 8, 64)], ids=["32-8-128", "24-8-128",
-                                                         "32-8-64", "24-8-64"])
+                                      (24, 8, 64), (16, 16, 256)],
+                         ids=["32-8-128", "24-8-128", "32-8-64", "24-8-64",
+                              "16-16-256"])
 @pytest.mark.parametrize("case", list(FLASH_CHUNKS))
 def test_flash_attention_kernel_with_offset(cuda, case, hq, hkv, d):
     """Queries at an offset over a prefix of the keys, as chunked dense
@@ -471,9 +483,21 @@ def test_paged_attention_kernel_identity_table(cuda, seq):
     """Dense decode's identity page table over 1024 pages at GQA group 4
     (qwen3-8b's 32 / 8 heads), through the ``"cuda"`` and ``"dense"``
     backends against the plain oracle ``dense_decode_attention``."""
+    _identity_case(cuda, seq, n_kv=8, g=4, D=128)
+
+
+@pytest.mark.parametrize("seq", [(16384, 12000, 7001, 1), (5, 16383, 16, 17)],
+                         ids=["ragged", "edges"])
+def test_paged_attention_kernel_identity_table_head_dim_256(cuda, seq):
+    """The same at gemma-7b's 16 / 16 heads of 256 (a token row spans the
+    whole warp)."""
+    _identity_case(cuda, seq, n_kv=16, g=1, D=256)
+
+
+def _identity_case(cuda, seq, n_kv, g, D):
     from repro_torch.backends import DenseBackend
 
-    B, n_kv, g, D, n_pages = 4, 8, 4, 128, 1024
+    B, n_pages = 4, 1024
     gen = torch.Generator(device=cuda).manual_seed(sum(seq))
     kp, vp = (torch.randn((B, n_kv, n_pages, PS, D), generator=gen, device=cuda)
               .to(torch.bfloat16) for _ in range(2))

@@ -11,6 +11,8 @@
   flags: both launchers run with their engine and ``_serve_async``
   replaced by recorders (``monkeypatch``; nothing in ``src/repro``
   changes).
+- ``--arch qwen1.5-4b --smoke`` serves to the end, and ``--arch`` takes
+  every dense decoder of the JAX package;
 - ``--mesh`` exits with the message that multi-device serving is not
   ported.
 """
@@ -160,6 +162,28 @@ def test_requests_equal_jax_launchers(flags, tmp_path, monkeypatch):
     assert t_sp.pop("backend") == ("cuda" if j_sp.pop("backend") == "pallas"
                                    else "reference")
     assert t_sp == {k: j_sp[k] for k in t_sp}
+
+
+def test_launcher_serves_another_arch(capsys):
+    """``--arch qwen1.5-4b --smoke`` (QKV bias, MHA: 4 / 4 heads) serves to
+    the end on the CPU, and every dense decoder of the JAX package is one
+    ``--arch`` takes."""
+    from repro.configs import get_config as j_get_config
+    from repro.configs import list_archs as j_list_archs
+    from repro_torch.configs import list_archs
+
+    assert set(list_archs()) == {a for a in j_list_archs()
+                                 if j_get_config(a).family == "dense"}
+    eng = tserve.main([
+        "--arch", "qwen1.5-4b", "--smoke", "--device", "cpu", "--fused-decode",
+        "--requests", "3", "--max-context", "512", "--max-batch", "2",
+        "--prefill-chunk", "128", "--new-tokens", "4", "--prefix-len", "64"])
+    out = capsys.readouterr().out
+    assert eng.model.cfg.name == "qwen1.5-4b-smoke" and eng.model.cfg.qkv_bias
+    assert eng.model.cfg.n_kv_heads == eng.model.cfg.n_heads == 4
+    assert [len(r.output) for r in eng.finished] == [4, 4, 4]
+    assert all(r.status == "ok" for r in eng.finished)
+    assert "served 3 requests / 12 tokens" in out and "accounting clean" in out
 
 
 def test_mesh_is_not_ported(capsys):

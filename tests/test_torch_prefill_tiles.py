@@ -108,29 +108,46 @@ def test_tiles_masked_only_where_a_key_can_be(bs):
 # -- the split plans -------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cells,rows,n_sm", [
-    (64, 192, 132), (64, 256, 132), (8, 192, 132), (256, 192, 132), (512, 64, 132),
-    (1, 64, 132), (64, 192, 1), (64, 128, 132),
-])
-def test_prefill_split_plan_contract(cells, rows, n_sm):
+@pytest.mark.parametrize("cells,rows,n_sm,d", [
+    (64, 192, 132, 128), (64, 256, 132, 128), (8, 192, 132, 128),
+    (256, 192, 132, 128), (512, 64, 132, 128), (1, 64, 132, 128), (64, 192, 1, 128),
+    (64, 128, 132, 128), (64, 512, 132, 128), (128, 64, 132, 256), (8, 128, 132, 256),
+], ids=["64-192-132", "64-256-132", "8-192-132", "256-192-132", "512-64-132",
+        "1-64-132", "64-192-1", "64-128-132", "64-512-132", "128-64-132-d256",
+        "8-128-132-d256"])
+def test_prefill_split_plan_contract(cells, rows, n_sm, d):
     """The plan gives about two attention blocks per SM where MAX_RUNS
     allows, and among such run counts the one of least modeled time (whole
     waves, a cost per run), the fewest on a tie."""
-    n = prefill_split_plan(cells, rows, n_sm)
+    n = prefill_split_plan(cells, rows, n_sm, d)
     assert 1 <= n <= MAX_RUNS
-    blocks = attend_blocks(cells, rows)
+    blocks = attend_blocks(cells, rows, d)
     ok = [k for k in range(1, MAX_RUNS + 1) if blocks * k >= FILL * 2 * n_sm]
     if ok:
         assert n in ok
-    cost = {k: prefill_plan_cost(cells, rows, n_sm, k) for k in (ok or range(1, MAX_RUNS + 1))}
+    cost = {k: prefill_plan_cost(cells, rows, n_sm, k, d)
+            for k in (ok or range(1, MAX_RUNS + 1))}
     assert cost[n] == min(cost.values()) and n == min(k for k in cost if cost[k] == cost[n])
 
 
 def test_prefill_attention_blocks_by_group():
     """Warpgroups per attention block: every 64-row tile of a cell up to 3
     (one block per cell and run), two blocks of 2 at 256 rows."""
-    assert [attend_warpgroups(r) for r in (64, 128, 192, 256)] == [1, 2, 3, 2]
-    assert [attend_blocks(10, r) for r in (64, 128, 192, 256)] == [10, 10, 10, 20]
+    assert [attend_warpgroups(r, 128) for r in (64, 128, 192, 256)] == [1, 2, 3, 2]
+    assert [attend_blocks(10, r, 128) for r in (64, 128, 192, 256)] == [10, 10, 10, 20]
+
+
+def test_prefill_attention_blocks_at_512_rows_and_head_dim_256():
+    """qwen3-32b's group of 8 at query blocks of 64 (512 rows: four blocks
+    of 2 warpgroups a cell); at head_dim 256 one warpgroup a block, so
+    every 64-row tile is a block of its own, one resident per SM."""
+    assert attend_warpgroups(512, 128) == 2 and attend_blocks(10, 512, 128) == 40
+    assert [attend_warpgroups(r, 256) for r in (64, 128, 192, 512)] == [1, 1, 1, 1]
+    assert [attend_blocks(10, r, 256) for r in (64, 128, 192, 512)] == [10, 20, 30, 80]
+    # one block per SM at head_dim 256: twice the waves of head_dim 128's
+    # two one-warpgroup blocks per SM
+    assert prefill_plan_cost(264, 64, 132, 1, 256) == 2 * prefill_plan_cost(
+        264, 64, 132, 1, 128)
 
 
 def test_prefill_split_plan_at_the_serving_shape():
@@ -138,8 +155,12 @@ def test_prefill_split_plan_at_the_serving_shape():
     384-thread block per cell and run (one fits on an SM); 4 runs give 256
     blocks, 1.94 per SM on an H100's 132 SMs.  qwen3-8b's group of 4 (256
     rows: two blocks of 2 warpgroups per cell) takes 2 runs."""
-    assert prefill_split_plan(64, 3 * 64, 132) == 4
-    assert prefill_split_plan(64, 4 * 64, 132) == 2
+    assert prefill_split_plan(64, 3 * 64, 132, 128) == 4
+    assert prefill_split_plan(64, 4 * 64, 132, 128) == 2
+    # qwen3-32b (8 kv heads x 8 query blocks, 512 rows: 256 blocks a run)
+    # and gemma-7b (16 x 8 cells of 64 rows at head_dim 256, one block an SM)
+    assert prefill_split_plan(64, 8 * 64, 132, 128) == 1
+    assert prefill_split_plan(128, 64, 132, 256) == 2
 
 
 @pytest.mark.parametrize("n_tiles", [0, 1, 2, 7, 64, 70])
@@ -225,23 +246,23 @@ def prefill_model(q6, k_pages, v_pages, selected, bsz, n_valid, qb0, n_split):
     return out.reshape(q6.shape)
 
 
-def _prefill_case(off, sq, n_valid, quant, seed):
+def _prefill_case(off, sq, n_valid, quant, seed, d=D, g=2):
     kw = dict(quant=quant, sink_pages=1, local_pages=4, prefill_block_q=BQ)
     jcfg, tcfg = JSparse(token_budget=BUDGET, **kw), TSparse(token_budget=BUDGET, **kw)
     jla = j_as_arrays(j_layout_for(BLOCKS, S, PS, BUDGET))
     tla = t_as_arrays(t_layout_for(BLOCKS, S, PS, BUDGET))
     rng = np.random.default_rng(seed)
-    shape = (B, len(BLOCKS), S // PS, PS, D)
+    shape = (B, len(BLOCKS), S // PS, PS, d)
     k, v = (_bf16(rng.standard_normal(shape).astype(np.float32)).float().numpy()
             for _ in range(2))
-    q = _bf16((rng.standard_normal((B, len(BLOCKS) * 2, sq, D))
+    q = _bf16((rng.standard_normal((B, len(BLOCKS) * g, sq, d))
                * parity.QSCALE).astype(np.float32)).float().numpy()
     nv = np.asarray(n_valid, np.int32)
     offs = jnp.asarray(jla.row_offsets)
     codes, sc, ze = jstore.build_score_rows(jnp.asarray(k), jla, offs, jcfg, quant)
     jss = jax_backend("reference").prefill_score_rows(jnp.asarray(k), jla, offs, jcfg,
                                                       quant)
-    rq = j_rank_query(jnp.asarray(q), jcfg.centroid_method, D)
+    rq = j_rank_query(jnp.asarray(q), jcfg.centroid_method, d)
     want, n_att = jops.sparse_prefill(
         jnp.asarray(q), rq, jnp.asarray(k), jnp.asarray(v), jss, jla, sink_pages=1,
         local_pages=4, block_q=BQ, n_valid=jnp.asarray(nv), chunk_offset=off,
@@ -250,7 +271,7 @@ def _prefill_case(off, sq, n_valid, quant, seed):
     tss = CentroidStore(torch.from_numpy(np.array(codes)), torch.from_numpy(np.array(sc)),
                         torch.from_numpy(np.array(ze)), bits, False)
     tq = torch.from_numpy(q)
-    trq = t_rank_query(tq, tcfg.centroid_method, D)
+    trq = t_rank_query(tq, tcfg.centroid_method, d)
     kt, vt = torch.from_numpy(k), torch.from_numpy(v)
     extra, _ = parity.prefill_selection(tq, trq, kt, vt, tss, tla, tcfg, torch.from_numpy(nv),
                                         off)
@@ -261,15 +282,20 @@ def _prefill_case(off, sq, n_valid, quant, seed):
     return q6, kt, vt, extra["selected"], tla, nv, qb0, want, sq
 
 
-@pytest.mark.parametrize("off,sq,n_valid", [(256, 256, (512, 377)), (0, 192, (192, 70))],
-                         ids=["later-chunk", "first-chunk"])
+@pytest.mark.parametrize("off,sq,n_valid,d,g", [
+    (256, 256, (512, 377), D, 2), (0, 192, (192, 70), D, 2),
+    (256, 128, (512, 301), 256, 1), (256, 128, (384, 300), D, 8),
+], ids=["later-chunk", "first-chunk", "head-dim-256", "rows-512"])
 @pytest.mark.parametrize("quant", ["int4_asym", "none"])
-def test_prefill_split_model_matches_jax_kernel(off, sq, n_valid, quant):
+def test_prefill_split_model_matches_jax_kernel(off, sq, n_valid, d, g, quant):
     """The model at 1, 2, 3 and 8 runs per cell against JAX's sparse_prefill
     kernel in interpret mode, every output row (dead rows and dead query
-    blocks included: a dead query block attends nothing and gives 0)."""
-    q6, k, v, selected, la, nv, qb0, want, sq = _prefill_case(off, sq, n_valid, quant,
-                                                              seed=off + sq)
+    blocks included: a dead query block attends nothing and gives 0); also
+    at head_dim 256 and at a group of 8 (512 query rows a cell)."""
+    q6, k, v, selected, la, nv, qb0, want, sq = _prefill_case(
+        off, sq, n_valid, quant, seed=off + sq + (d if d != D else 0) + 8 * (g == 8),
+        d=d, g=g)
+    assert q6.shape[3] * q6.shape[4] == g * BQ
     keep = torch.ones(want.shape[:-1], dtype=torch.bool)
     for n_split in (1, 2, 3, 8):
         got6 = prefill_model(q6, k, v, selected, la.block_sizes, nv, qb0, n_split)
@@ -296,33 +322,34 @@ def test_prefill_model_comparison_sees_a_missing_diagonal_mask(monkeypatch):
 # -- f32 model of the fused decode against JAX's kernel ------------------------
 
 
-@pytest.mark.parametrize("seq", [(S, 301), (1, 17)], ids=["ragged", "edge"])
+@pytest.mark.parametrize("seq,d", [((S, 301), D), ((1, 17), D), ((S, 301), 256)],
+                         ids=["ragged", "edge", "ragged-head-dim-256"])
 @pytest.mark.parametrize("quant", ["int4_asym", "int8_asym"])
-def test_fused_split_model_matches_jax_kernel(seq, quant):
+def test_fused_split_model_matches_jax_kernel(seq, d, quant):
     """The fused kernel's page table (the port's plain version) equals JAX's
     fused kernel's exactly; the split-KV model over it at 1, 3, 8 and one
     slot per run (split_ranges, the kernel's runs) agrees with JAX's
-    output within the bf16 rule."""
+    output within the bf16 rule; also at head_dim 256 (rank keys of 512)."""
     jcfg, tcfg = JSparse(token_budget=BUDGET, quant=quant), TSparse(token_budget=BUDGET,
                                                                     quant=quant)
     jla = j_as_arrays(j_layout_for(BLOCKS, S, PS, BUDGET))
     tla = t_as_arrays(t_layout_for(BLOCKS, S, PS, BUDGET))
-    rng = np.random.default_rng(len(quant) + seq[1])
-    shape = (B, 3, S // PS, PS, D)
+    rng = np.random.default_rng(len(quant) + seq[1] + (d if d != D else 0))
+    shape = (B, 3, S // PS, PS, d)
     k, v = (_bf16(rng.standard_normal(shape).astype(np.float32)).float().numpy()
             for _ in range(2))
-    q = _bf16((rng.standard_normal((B, 3 * 2, D)) * parity.QSCALE).astype(
+    q = _bf16((rng.standard_normal((B, 3 * 2, d)) * parity.QSCALE).astype(
         np.float32)).float().numpy()
     sl = np.asarray(seq, np.int32)
     jst = jstore.build_store_codes(jnp.asarray(k), jla, jnp.asarray(jla.row_offsets),
                                    jcfg, quant)
-    rq = j_rank_query(jnp.asarray(q), jcfg.centroid_method, D)
+    rq = j_rank_query(jnp.asarray(q), jcfg.centroid_method, d)
     want, jtbl, jvld = jops.fused_decode(jnp.asarray(q), rq, jnp.asarray(k), jnp.asarray(v),
                                          jst, jla, 1, 4, jnp.asarray(sl), interpret=True)
     tst = CentroidStore(*(torch.from_numpy(np.array(x)) for x in
                           (jst.codes, jst.scale, jst.zero)), jst.bits, jst.symmetric)
     tq = torch.from_numpy(q)
-    _, tbl, vld = tops.fused_decode(tq, t_rank_query(tq, tcfg.centroid_method, D),
+    _, tbl, vld = tops.fused_decode(tq, t_rank_query(tq, tcfg.centroid_method, d),
                                     torch.from_numpy(k), torch.from_numpy(v), tst, tla, 1,
                                     4, torch.from_numpy(sl))
     np.testing.assert_array_equal(np.asarray(jvld), vld.numpy())

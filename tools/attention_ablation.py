@@ -60,9 +60,10 @@ FLASH_VARIANTS = {
                          "    if ((TAIL || causal) && j >= mask_from) {",
                          "    if (TAIL || causal) {")],
     "one warpgroup per block": [
-        ("flash_attention.cu", "constexpr int BQ = 2 * ROWS_WG;", "constexpr int BQ = ROWS_WG;"),
-        ("flash_attention.cu", "constexpr int NTHR = 256;", "constexpr int NTHR = 128;"),
-        ("flash_attention.cu", "__launch_bounds__(NTHR, 1)", "__launch_bounds__(NTHR, 2)"),
+        ("flash_attention.cu", "static constexpr int NWG = D == 256 ? 1 : 2;",
+         "static constexpr int NWG = 1;"),
+        ("flash_attention.cu", "__launch_bounds__(Shape<D>::NTHR, 1)",
+         "__launch_bounds__(Shape<D>::NTHR, 2)"),
     ],
 }
 #: variants that compute the function and must pass the comparison
