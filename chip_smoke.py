@@ -26,7 +26,10 @@ Phases (each failure is fatal, exit code != 0):
    staged scoring and paged attention, flash S x S and at the chunk
    shape, the identity table; qwen3-32b's group 8, 512 query rows a
    prefill cell, at offsets 0 and 8192, and its fused decode; qwen1.5-4b's
-   20 kv heads of group 1 in the fused decode);
+   20 kv heads of group 1 in the fused decode) and at phase 10's
+   (``check_moe_kernels``: granite-moe-3b-a800m's 24 / 8 heads of 64 with
+   Dp 128 for the fused decode, the sparse prefill and flash at a chunk
+   offset; internvl2-2b's 16 / 8 heads of 128 for the fused decode);
 3. serve full-width llama3.2-3b (28 layers, bf16, random weights from a
    seeded generator) through ``Engine``: 6 requests of 4-12k prompt tokens,
    two sharing a 2048-token prefix, 32 new tokens each, with the fused
@@ -44,8 +47,9 @@ Phases (each failure is fatal, exit code != 0):
    Then the calibrated assignment of phase 2b is installed and requests 0
    and 3 are served with the fused kernel, then through the plain versions
    fed the same tokens (logit cosine at least 0.9995);
-5. (run after phase 3, on its weights and fused configuration) the
-   degradation ladder and a fault storm: requests 0, 1, 3 and 5 (24 new
+5. (run after phase 3, on its weights and fused configuration, cut to the
+   first ``LADDER_LAYERS`` of its layers) the degradation ladder and a
+   fault storm: requests 0, 1, 3 and 5 (24 new
    tokens) served fault-free (run F, no injector), then fed F's tokens
    under a plan built from F's schedule (run L: a prefill fault on rung
    0, a decode fault on staged, a NaN row on staged, re-promotion back to
@@ -192,7 +196,8 @@ launched the pooling and scoring kernels and called no plain version.
    step untraced and traced (device time and CUDA events in turns, three
    rounds) and four closed batches on one engine with tracing on, off,
    on, off (the first two capture their variant of the step): wall, TTFT
-   and TPOT p50, events recorded and dropped.
+   and TPOT p50, events recorded and dropped, on the first
+   ``COST_LAYERS`` layers.
 
 9. (after phase 3b; ``serve_family``) the JAX package's other dense
    decoders at full width and depth, one on the card at a time (bf16,
@@ -213,6 +218,22 @@ launched the pooling and scoring kernels and called no plain version.
    prefill call selects on its own inputs and is held against the kernel
    on the same inputs (``prefill_selections``).  Peak device memory is
    logged per model.
+
+10. (after phase 9; ``serve_moe``) granite-moe-3b-a800m at full width
+   and depth (32 layers, 24 / 8 heads of 64, 40 experts top-8 of d_ff
+   512, vocab 49155, tied, bf16, capacity factor 1.25 as published,
+   random weights from ``torch.Generator`` seed 0, phase 9's settings of
+   run D) is not served end to end: that gate waits for an oracle that
+   holds under lossy expert capacity (``ROADMAP.md`` §3).  b) the MoE FFN
+   on the card against the same function in f32 on the CPU
+   (``repro_torch.models.moe_check.compare_moe_ffn``) on the inputs of one
+   layer that granite's entry points give it: a whole chunk, a padded
+   chunk, a decode step.  c) granite's decode step graphed vs eager
+   (phase 6's method), the MoE FFN's share of the step's device time (the
+   expert products apart), peak memory.  d) internvl2-2b at full width
+   and depth, requests 0, 1 and 3 each after 256 patch embeddings
+   (single-shot prefill through ``flash_attention``, fused decode), then
+   through the plain versions fed its tokens: cosine ``LOGIT_COS``.
 
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -296,6 +317,8 @@ QWEN_PREFILL_VALID = (PROMPT_LENS[0], QWEN_PREFILL_OFF + CHUNK,
 #: shapes of three of them, (kv heads, head_dim) of gemma-7b and (kv
 #: heads, GQA group) of qwen3-32b and qwen1.5-4b
 LLAMA31, QWEN15, GEMMA, QWEN32 = "llama3.1-8b", "qwen1.5-4b", "gemma-7b", "qwen3-32b"
+#: phase 10, the MoE family and prefix-embedding requests
+GRANITE, INTERNVL = "granite-moe-3b-a800m", "internvl2-2b"
 FAMILY_SHAPES = {GEMMA: (16, 256), QWEN32: (8, 8), QWEN15: (20, 1)}
 
 #: phase 5, the degradation ladder and a fault storm on phase 3's weights
@@ -304,6 +327,11 @@ FAMILY_SHAPES = {GEMMA: (16, 256), QWEN32: (8, 8), QWEN15: (20, 1)}
 #: run L (24 tokens give about 25 decode ticks, too few for three windows
 #: of the default 8), and the request the storm poisons on every tick
 LADDER_REQS, LADDER_NEW, LADDER_REPROMOTE, STORM_VICTIM = (0, 1, 3, 5), 24, 4, 5
+#: layers of llama3.2-3b that phases 5 and 8c run (the first 8 of its 28:
+#: cut in depth for the script's time limit, which phase 10 shares; their
+#: gates read rungs, ticks and launches per layer, not the depth; phase 3
+#: serves the same path at full depth)
+LADDER_LAYERS = COST_LAYERS = 8
 #: the kernels of the rungs' decode steps: (launched per layer, never)
 RUNG_DECODE = {
     "fused": ({"fused_decode"}, {"centroid_scores_quantized", "paged_attention"}),
@@ -339,6 +367,8 @@ def phase_seconds() -> dict:
 
 
 def fail(msg: str):
+    log(f"seconds by phase so far: {json.dumps(phase_seconds())}; "
+        f"{time.perf_counter() - T_START:.1f}s in all")
     raise SystemExit(f"FAILED: {msg}")
 
 
@@ -2286,6 +2316,21 @@ def graphed_vs_eager(torch, what, graphed, eager):
         fail(f"{what}: the eager engine would commit other tokens at {other[:4]}")
 
 
+def shallow(model, cfg, n_layers):
+    """(a view of ``model`` with its first ``n_layers`` layers, ``cfg`` cut
+    to them): the same weight tensors, no copy."""
+    from torch import nn
+
+    sp = cfg.sparse
+    cut = dataclasses.replace(cfg, n_layers=n_layers, sparse=dataclasses.replace(
+        sp, block_sizes=None if sp.block_sizes is None else sp.block_sizes[:n_layers]))
+    view = model.with_sparse(**dataclasses.asdict(cut.sparse))
+    view._modules = dict(model._modules)
+    view._modules["layers"] = nn.ModuleList(list(model.layers)[:n_layers])
+    view.cfg = cut
+    return view, cut
+
+
 def serve(torch, dev, cal_cfg, profile: bool = False):
     from repro_torch.configs import get_config
     from repro_torch.models import Transformer
@@ -2351,7 +2396,7 @@ def serve(torch, dev, cal_cfg, profile: bool = False):
     paths["f32"] = {"counts": serve_f32_store(torch, model, cfgs["staged"], dev)}
     serve_calibrated(torch, model, fused_cfg, cal_cfg, dev)
     phase_done("3")
-    paths["ladder"] = serve_ladder(torch, model, fused_cfg, dev)
+    paths["ladder"] = serve_ladder(torch, *shallow(model, fused_cfg, LADDER_LAYERS), dev)
     phase_done("5")
     paths["step"] = compiled_step(torch, ARCH, step_variants(torch, model, cfgs, dev,
                                                              qwen=False), dev)
@@ -2957,7 +3002,7 @@ def serve_traced(torch, model, cfg, dev, tiered):
     t0 = time.perf_counter()
     res = {"launcher": serve_launcher(torch, dev, out)}
     res["tiered"] = traced_tiered(torch, model, cfg, dev, tiered, out)
-    res["cost"] = tracing_cost(torch, model, cfg, dev)
+    res["cost"] = tracing_cost(torch, *shallow(model, cfg, COST_LAYERS), dev)
     res["seconds"] = time.perf_counter() - t0
     log(f"phase 8 took {res['seconds']:.1f}s")
     return res
@@ -3439,6 +3484,286 @@ def serve_family(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the MoE family (granite-moe-3b-a800m) and prefix-embedding
+# requests (internvl2-2b) at full width and depth
+# ---------------------------------------------------------------------------
+
+#: granite's attention (24 / 8 heads of 64, Dp 128) and internvl's (16 / 8
+#: heads of 128, group 2), as phases 2 and 4 check and time them
+GRANITE_SHAPE, INTERNVL_SHAPE = (8, 3, 64), (8, 2, 128)
+#: the layer whose MoE FFN inputs phase 10b takes, and the valid rows of
+#: its padded chunk (a 512-token buffer)
+MOE_PROBE_LAYER, MOE_PADDED_VALID = 16, 296
+
+
+def check_moe_kernels(torch, dev):
+    """Phase 2 at phase 10's new shapes: granite's ``fused_decode`` (planned
+    and forced splits, the page-left-out power check), ``sparse_prefill``
+    (planned and forced splits) and ``flash_attention`` at a chunk offset
+    (the tile-left-out power check), all at head_dim 64 / Dp 128;
+    internvl's ``fused_decode`` at group 2."""
+    n_kv, g, d = GRANITE_SHAPE
+    dec = check_fused_decode(torch, dev, g=g, seed=31, n_kv=n_kv, d=d)
+    pre = check_sparse_prefill(torch, dev, g=g, seed=32, n_kv=n_kv, d=d)
+    flash_off = check_flash_offset(torch, dev, hq=n_kv * g, hkv=n_kv, d=d)
+    n_kv, g, d = INTERNVL_SHAPE
+    dec_v = check_fused_decode(torch, dev, g=g, seed=33, n_kv=n_kv, d=d)
+    return {"granite": {"dec": dec, "err": {"fused_decode": dec["err"],
+                                            "sparse_prefill": pre["err"],
+                                            "flash_attention": flash_off["err"]}},
+            "internvl": {"dec": dec_v, "err": {"fused_decode": dec_v["err"]}}}
+
+
+def time_moe_kernels(torch, dev, moe):
+    """Phase 4 at phase 10's shapes: granite's ``fused_decode``,
+    ``sparse_prefill`` (the chunk at offset 8192) and ``flash_attention``
+    (the chunk shape), internvl's ``fused_decode``, by device time with
+    their bounds -> {"granite": {kernel: times}, "internvl": {...}}."""
+    n_kv, g, d = GRANITE_SHAPE
+    granite = {
+        "fused_decode": time_fused_decode(torch, moe["granite"]["dec"]),
+        "sparse_prefill": time_sparse_prefill(torch, dev, g=g, n_kv=n_kv, d=d,
+                                              offsets=(CTX // 2,)),
+        "flash_attention": time_flash_chunk(torch, dev, hq=n_kv * g, hkv=n_kv, d=d),
+    }
+    internvl = {"fused_decode": time_fused_decode(torch, moe["internvl"]["dec"])}
+    return {"granite": granite, "internvl": internvl}
+
+
+@contextlib.contextmanager
+def ffn_input(layer, probe, name):
+    """Within, the first input of ``layer``'s MoE FFN and its keyword
+    arguments are kept as ``probe[name] = (x, kwargs)``."""
+    from repro_torch.models import layers as tlayers
+
+    orig = tlayers.moe_ffn
+
+    def keep(p, x, cfg, **kw):
+        if p is layer and name not in probe:
+            probe[name] = (x.clone(), kw)
+        return orig(p, x, cfg, **kw)
+
+    tlayers.moe_ffn = keep
+    try:
+        yield
+    finally:
+        tlayers.moe_ffn = orig
+
+
+def moe_inputs(torch, view, dev):
+    """Phase 10b's inputs, layer ``MOE_PROBE_LAYER``'s MoE FFN inputs as
+    granite's entry points give them: ``prefill_chunk`` of request 0's
+    first 512 tokens (a whole chunk) and of its next ``MOE_PADDED_VALID``
+    in a 512-token buffer (a padded chunk; its groups and capacity come
+    from the buffer), and one eager ``decode_step`` of ``MAX_BATCH`` slots
+    (group ``MAX_BATCH``) on phase 6's random cache -> {"chunk" |
+    "padded" | "decode": (x, kwargs)}."""
+    layer, probe = view.layers[MOE_PROBE_LAYER], {}
+    prompt = traffic(view.cfg.vocab_size)[0]
+    cache = view.init_cache(1, CTX)
+    with ffn_input(layer, probe, "chunk"):
+        view.prefill_chunk(cache, 0, prompt[:CHUNK], 0, CHUNK)
+    with ffn_input(layer, probe, "padded"):
+        view.prefill_chunk(cache, 0, prompt[CHUNK:2 * CHUNK], CHUNK, MOE_PADDED_VALID)
+    del cache
+    cache = random_cache(torch, view, CTX, dev)
+    cache["seq_len"].copy_(step_lens(torch, CTX, dev))
+    with ffn_input(layer, probe, "decode"):
+        view.decode_step(cache, torch.arange(MAX_BATCH, device=dev))
+    del cache
+    for name in ("chunk", "padded", "decode"):
+        if name not in probe:
+            fail(f"phase 10b: no {name} input of layer {MOE_PROBE_LAYER} reached the MoE FFN")
+    return probe
+
+
+def prefix_embeddings(torch, cfg, req_ids):
+    """Per request a ``[n_prefix_embeddings, d_model]`` bf16 block of patch
+    embeddings (``torch.Generator`` seed 100 + request, on the CPU), at
+    the scale of the token embeddings' rows."""
+    out = {}
+    for i in req_ids:
+        gen = torch.Generator().manual_seed(100 + i)
+        out[i] = (torch.randn((cfg.n_prefix_embeddings, cfg.d_model), generator=gen)
+                  * 0.02).to(torch.bfloat16)
+    return out
+
+
+def make_prefix_engine(torch, cfg, model, dev, req_ids, new_tokens, prefix):
+    """``make_engine`` with requests ``req_ids`` of ``traffic`` each after
+    its ``prefix`` embeddings."""
+    from repro_torch.serving import Request
+
+    eng = make_engine(cfg, model, dev, (), new_tokens)
+    prompts = traffic(cfg.vocab_size)
+    for i in req_ids:
+        eng.submit(Request(req_id=i, prompt=prompts[i], max_new_tokens=new_tokens,
+                           prefix_emb=prefix[i]))
+    return eng
+
+
+def moe_step(torch, view, dev, x, kw):
+    """Phase 10c: granite's fused decode step eager and graphed from the
+    same state (``compiled_step``: bitwise, times, device-busy share), and
+    the MoE FFN's device time at the step's shape (B 4 slots, group 4, on
+    phase 10b's decode input ``x``): the whole FFN and its expert products
+    alone (``moe._experts`` on the ``[E, C = 4, d]`` dispatch), times the
+    layers, against the step."""
+    from repro_torch.models import moe as tmoe
+
+    cfg = view.cfg
+    cache = random_cache(torch, view, CTX, dev)
+    res = compiled_step(torch, GRANITE, {"fused": (view, cache, step_lens(torch, CTX, dev))},
+                        dev)["fused"]
+    del cache
+    layer = view.layers[MOE_PROBE_LAYER]
+    E = cfg.moe.n_experts
+    C = tmoe.capacity(x.shape[0], E, cfg.moe.experts_per_token, cfg.moe.capacity_factor)
+    xe = torch.randn((E, C, cfg.d_model), device=dev).to(torch.bfloat16)
+    ffn_ms = device_ms(torch, lambda: tmoe.moe_ffn(layer, x, cfg, **kw), 20)
+    experts_ms = device_ms(torch, lambda: tmoe._experts(layer, xe, cfg.activation), 20)
+    L, busy = cfg.n_layers, max(res["busy_graphed"], 1e-9)
+    res["moe"] = {"ffn_ms_per_layer": ffn_ms, "experts_ms_per_layer": experts_ms,
+                  "route_dispatch_combine_ms_per_layer": ffn_ms - experts_ms,
+                  "share_of_step": L * ffn_ms / busy,
+                  "experts_share_of_step": L * experts_ms / busy,
+                  "route_dispatch_combine_share_of_step": L * (ffn_ms - experts_ms) / busy}
+    log(f"phase 10c {GRANITE}: the MoE FFN at the step's shape (B {x.shape[0]}, C {C}): "
+        f"{ffn_ms:.4f} ms a layer (device), its expert products {experts_ms:.4f}, routing, "
+        f"dispatch and combine {ffn_ms - experts_ms:.4f}; x {L} layers against the "
+        f"graphed step's {busy:.4f} device-busy ms: {json.dumps(res['moe'])}")
+    return res
+
+
+def serve_moe(torch, dev):
+    """Phase 10.  granite-moe-3b-a800m at full width and depth (bf16, random
+    weights from ``torch.Generator`` seed 0, capacity factor 1.25 as
+    published, run D's settings of phase 9) is not served here: its
+    end-to-end gate against the plain versions waits for an oracle that
+    holds under lossy expert capacity (``ROADMAP.md`` §3).  b) the MoE FFN
+    on the card against the same function in f32 on the CPU
+    (``moe_check.compare_moe_ffn``) on the inputs of one layer that its
+    entry points give it (``moe_inputs``): a whole chunk, a padded chunk, a
+    decode step.  c) the decode step graphed vs eager and the MoE FFN's
+    share of it (``moe_step``), peak memory.  d) internvl2-2b at full width
+    and depth, requests 0, 1 and 3 each after 256 patch embeddings
+    (single-shot prefill through ``flash_attention``, fused decode), then
+    through the plain versions fed its tokens: cosine ``LOGIT_COS``.
+    -> summary."""
+    from repro_torch.models import Transformer
+    from repro_torch.models.moe_check import compare_moe_ffn
+
+    out = {}
+    t_arch = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(family_runs(GRANITE)["D"][0], device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    if cfg.moe.capacity_factor != 1.25:
+        fail(f"{GRANITE}: capacity factor {cfg.moe.capacity_factor}, not the published 1.25")
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"{GRANITE} weights: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
+        f"params ({w_bytes / 1e9:.2f} GB; router f32), {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.experts_per_token} of d_ff {cfg.d_ff}, "
+        f"capacity factor {cfg.moe.capacity_factor}, init {time.perf_counter() - t0:.1f}s")
+    view = model.with_sparse(**dataclasses.asdict(cfg.sparse))
+    summary = {}
+
+    # b) the MoE FFN on the card against the CPU's f32 run
+    probe = moe_inputs(torch, view, dev)
+    for what in ("chunk", "padded", "decode"):
+        x, kw = probe[what]
+        try:
+            res = compare_moe_ffn(model.layers[MOE_PROBE_LAYER], x, cfg, **kw)
+        except AssertionError as e:
+            fail(f"phase 10b {what}: {e}")
+        log(f"phase 10b {GRANITE} layer {MOE_PROBE_LAYER}, {what} (x {tuple(x.shape)}, "
+            f"{json.dumps(kw)}): card vs the CPU's f32 run: {json.dumps(res)}")
+        summary[f"ffn_{what}"] = res
+
+    # c) the decode step as a CUDA graph
+    summary["step"] = moe_step(torch, view, dev, *probe["decode"])
+    del probe
+    peak = torch.cuda.max_memory_allocated()
+    summary["peak_gib"] = peak / 2**30
+    log(f"{GRANITE}: peak device memory allocated {peak / 2**30:.2f} GiB; phase 10 "
+        f"{GRANITE} took {time.perf_counter() - t_arch:.1f}s")
+    out[GRANITE] = summary
+    del model, view
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d) internvl2-2b with prefix embeddings
+    t_arch = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rcfg, launched = family_runs(INTERNVL)["D"]
+    model = Transformer(rcfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    log(f"{INTERNVL} weights: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
+        f"params bf16, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, {cfg.n_prefix_embeddings} "
+        f"prefix embeddings a request")
+    prefix = prefix_embeddings(torch, cfg, FAMILY_REQS)
+    eng = make_prefix_engine(torch, rcfg, model, dev, FAMILY_REQS, FAMILY_NEW, prefix)
+    monolithic = []
+    orig = eng._prefill_monolithic
+    eng._prefill_monolithic = lambda seq: (monolithic.append(seq.req.req_id), orig(seq))
+    run = run_engine(torch, eng, record=True)
+    check_served(eng, run["done"], len(FAMILY_REQS), FAMILY_NEW, cfg.vocab_size,
+                 prefix_hit=False)
+    expect_path(f"{INTERNVL} run D", run["counts"], launched)
+    snap = eng.metrics.snapshot()
+    log_serving(f"{INTERNVL} D (prefix embeddings, single-shot prefill)", run, snap)
+    if sorted(monolithic) != sorted(FAMILY_REQS) or run["steps"]["prefill_chunk"] or snap[
+            "prefix_hit_tokens"]:
+        fail(f"{INTERNVL}: prefix requests must prefill in one shot each, outside the "
+             f"prefix cache (single-shot {monolithic}, prefill steps "
+             f"{run['steps']['prefill_chunk']}, prefix hits {snap['prefix_hit_tokens']})")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    pcfg = dataclasses.replace(rcfg, sparse=dataclasses.replace(rcfg.sparse,
+                                                                backend="reference"))
+    eng = make_prefix_engine(torch, pcfg, model, dev, FAMILY_REQS, AGREE_NEW, prefix)
+    plain = run_engine(torch, eng, forced=run["tokens"], record=True)
+    check_served(eng, plain["done"], len(FAMILY_REQS), AGREE_NEW, cfg.vocab_size,
+                 prefix_hit=False)
+    expect_path(f"{INTERNVL} run D, plain", plain["counts"], set())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_plain, same, n_steps = agree_logits(
+        torch, f"{INTERNVL} D", run["logits"], plain["logits"], cfg.vocab_size,
+        FAMILY_REQS, fatal=False)
+    peak = torch.cuda.max_memory_allocated()
+    out[INTERNVL] = {"D": {"launches": {k: c["launches"] for k, c in run["counts"].items()
+                                        if c["launches"]},
+                           "decode_steps": run["steps"]["decode_step"],
+                           "single_shot_prefills": len(monolithic),
+                           "wall_s": run["wall"], "ttft_p50": snap["ttft_p50"],
+                           "tpot_p50": snap["tpot_p50"], "c_plain": c_plain,
+                           "greedy_equal": [same, n_steps]},
+                     "peak_gib": peak / 2**30}
+    log(f"{INTERNVL}: peak device memory allocated {peak / 2**30:.2f} GiB; phase 10d "
+        f"took {time.perf_counter() - t_arch:.1f}s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if c_plain < LOGIT_COS:
+        log(f"phase 10 summary: {json.dumps(out)}")
+        fail(f"phase 10: {INTERNVL} D: c_plain {c_plain}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3498,6 +3823,8 @@ def main() -> int:
     # the same kernels at phase 9's new shapes (head_dim 256, g * BQ 512,
     # 20 kv heads of group 1)
     fam = check_family_kernels(torch, dev)
+    # ... and at phase 10's (granite's head_dim 64, internvl's group 2)
+    moe = check_moe_kernels(torch, dev)
     phase_done("2")
 
     cal = calibrate_phase(torch, dev)
@@ -3517,8 +3844,18 @@ def main() -> int:
     t_chunk = time_flash_chunk(torch, dev)
     t_ident = time_paged_identity(torch, ident)
     t_fam = time_family_kernels(torch, dev, fam)
+    t_moe = time_moe_kernels(torch, dev, moe)
     fam = {k: {"err": f["err"]} for k, f in fam.items()}   # free their inputs
+    fam.update({k: {"err": f["err"]} for k, f in moe.items()})
+    del moe
     phase_done("4")
+    # phase 4's numbers now, so that a later phase's failure keeps them
+    log(f"phase 4 ({card}): " + json.dumps({
+        "fused_decode": t_dec, "sparse_prefill": t_pre,
+        "centroid_scores_quantized": t_csq, "centroid_scores_f32": t_csf,
+        "paged_attention": t_pa, "pool_rank_keys": t_pool, "topk_threshold": t_topk,
+        "flash_attention": t_chunk, "flash_attention_sxs": t_flash,
+        "paged_identity": t_ident, "phase9_shapes": t_fam, "phase10_shapes": t_moe}))
 
     mem0 = torch.cuda.memory_allocated()
     paths = serve(torch, dev, cal["cfg"], profile=args.profile)
@@ -3539,6 +3876,8 @@ def main() -> int:
     phase_done(f"3b and phase 6 ({QWEN})")
     family = serve_family(torch, dev)
     phase_done("9")
+    moe_run = serve_moe(torch, dev)
+    phase_done("10")
     log(f"phase 6 summary (ms; busy = device-busy ms per step): "
         f"{json.dumps({ARCH: paths['step'], QWEN: qwen['step']})}")
     tiered = paths["tiered"]
@@ -3602,11 +3941,19 @@ def main() -> int:
         # phase 7's tiered run (T: fused, plus the page masks' scoring)
         k["ladder_launches"] = paths["ladder"]["counts"][k["name"]]["launches"]
         k["tiered_launches"] = paths["tiered"]["T"]["counts"][k["name"]]["launches"]
-        # max_abs_err over the checks at phase 9's shapes too
+        # max_abs_err over the checks at phase 9's and 10's shapes too
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             f["err"][k["name"]] for f in fam.values() if k["name"] in f["err"]])
-    log(f"phase 4 at phase 9's shapes ({card}): " + json.dumps(t_fam))
+        # phase 10's run: launches, and the times at granite's head_dim 64
+        k["moe_launches"] = {f"{INTERNVL} D": moe_run[INTERNVL]["D"]["launches"].get(
+            k["name"], 0)}
+        for model_name, times in t_moe.items():
+            if k["name"] in times:
+                t = times[k["name"]]
+                k.update({f"{model_name}_{key}": t[key]
+                          for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
     log(f"phase 9 summary ({card}): " + json.dumps(family))
+    log(f"phase 10 summary ({card}): " + json.dumps(moe_run))
     for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "

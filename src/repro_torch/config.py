@@ -1,7 +1,8 @@
 """Configuration schema of the PyTorch port (counterpart of ``repro.config``).
 
-Only what the serving path of a dense decoder reads: the AB-Sparse knobs
-(:class:`SparseConfig`), the architecture (:class:`ModelConfig`), the
+Only what the serving path of a decoder reads: the AB-Sparse knobs
+(:class:`SparseConfig`), the architecture (:class:`ModelConfig`, with
+:class:`MoEConfig` for a mixture-of-experts FFN), the
 serving engine's knobs (:class:`ServeConfig`, tiered KV memory included)
 and its failure-domain policy (:class:`ResilienceConfig`).  Field names and defaults
 match the JAX package so one set of values configures both.
@@ -75,10 +76,24 @@ class SparseConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    experts_per_token: int
+    #: load-balancing aux loss weight (training only)
+    router_aux_weight: float = 0.01
+    #: expert capacity ``int(cf * group tokens * K / E)``; >= E / K is
+    #: lossless
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """Dense decoder architecture (the port serves the ``("attn",)``
-    pattern; ``activation`` is "swiglu", "geglu", "relu2" or "gelu", as
-    JAX's ``mlp`` computes them)."""
+    """Decoder architecture (the port serves the ``("attn",)`` pattern;
+    ``activation`` is "swiglu", "geglu", "relu2" or "gelu", as JAX's
+    ``mlp`` computes them).  ``family`` is "dense", "moe" (``moe`` set:
+    every layer's FFN is :func:`repro_torch.models.moe.moe_ffn`) or "vlm"
+    (``frontend`` "vision_patches": a request may carry
+    ``n_prefix_embeddings`` rows of embeddings that precede its tokens)."""
 
     name: str
     n_layers: int
@@ -94,7 +109,12 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    family: str = "dense"
+    moe: Optional[MoEConfig] = None
     layer_pattern: Tuple[str, ...] = ("attn",)
+    #: modality front-end stub: None | "vision_patches" | "audio_frames"
+    frontend: Optional[str] = None
+    n_prefix_embeddings: int = 0
     sparse: SparseConfig = field(default_factory=SparseConfig)
 
     @property

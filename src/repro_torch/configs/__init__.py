@@ -6,10 +6,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, MoEConfig
 
 from . import (
     gemma_7b,
+    granite_moe_3b,
+    grok1_314b,
+    internvl2_2b,
     llama31_8b,
     llama32_3b,
     nemotron4_340b,
@@ -18,12 +21,16 @@ from . import (
     qwen15_4b,
 )
 
-#: the JAX package's dense ``("attn",)`` decoders, in its registry's order
+#: the JAX package's ``("attn",)`` decoders (dense, MoE and the vision
+#: front-end's backbone), in its registry's order
 _MODULES = {
     "qwen1.5-4b": qwen15_4b,
     "gemma-7b": gemma_7b,
     "llama3.2-3b": llama32_3b,
     "nemotron-4-340b": nemotron4_340b,
+    "granite-moe-3b-a800m": granite_moe_3b,
+    "grok-1-314b": grok1_314b,
+    "internvl2-2b": internvl2_2b,
     "llama3.1-8b": llama31_8b,
     "qwen3-8b": qwen3_8b,
     "qwen3-32b": qwen3_32b,
@@ -44,7 +51,9 @@ def get_config(name: str) -> ModelConfig:
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
-    """Tiny widths, two layers, vocab 256, float32."""
+    """Tiny widths, two layers, vocab 256, float32; an MoE keeps top-K up
+    to 2 of 4 experts at lossless capacity, a front-end up to 8 prefix
+    embeddings."""
     n_heads = 4
     if cfg.n_kv_heads == cfg.n_heads:
         n_kv = n_heads
@@ -52,6 +61,13 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         n_kv = 1
     else:
         n_kv = 2
+    moe = cfg.moe
+    if moe is not None:
+        k = min(2, moe.experts_per_token)
+        # lossless capacity (C == group tokens), as in JAX's smoke variant
+        moe = MoEConfig(n_experts=4, experts_per_token=k,
+                        router_aux_weight=moe.router_aux_weight,
+                        capacity_factor=4.0 / k)
     sparse = dataclasses.replace(
         cfg.sparse, token_budget=64, block_sizes=None, sink_pages=1,
         local_pages=1,
@@ -66,6 +82,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         head_dim=16 if cfg.head_dim else 0,
         d_ff=128,
         vocab_size=256,
+        moe=moe,
+        n_prefix_embeddings=min(cfg.n_prefix_embeddings, 8),
         sparse=sparse,
         dtype="float32",
     )

@@ -4,7 +4,8 @@
 ``Transformer.init`` as numpy arrays (stacked ``cycles.pos0.{norm1,norm2,
 attn.{wq,wk,wv,wo},ffn.{up,gate,down}}``, the attention biases with
 ``qkv_bias``, no ``gate`` for a non-gated activation, ``embed``,
-``final_norm``, optional ``lm_head``) and returns a port
+``final_norm``, optional ``lm_head``; an MoE's ``ffn.router.w`` in f32 and
+its ``ffn.{up,gate,down}`` as raw ``[E, ...]`` arrays) and returns a port
 :class:`Transformer` holding the same weights.  bfloat16 arrays travel bit-exactly through a uint16 view.
 """
 from __future__ import annotations
@@ -44,6 +45,14 @@ _LAYER_KEYS = {
     "up": ("ffn", "up", "w"), "gate": ("ffn", "gate", "w"),
     "down": ("ffn", "down", "w"),
 }
+#: an MoE layer's FFN leaves: the experts' arrays have no ``"w"`` level
+_MOE_KEYS = {"router": ("ffn", "router", "w"), "up": ("ffn", "up"),
+             "gate": ("ffn", "gate"), "down": ("ffn", "down")}
+
+
+def layer_keys(cfg: ModelConfig) -> dict:
+    """Port parameter name -> its path under ``cycles.pos0`` for ``cfg``."""
+    return _LAYER_KEYS if cfg.moe is None else {**_LAYER_KEYS, **_MOE_KEYS}
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig, device="cuda") -> Transformer:
@@ -55,11 +64,11 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device="cuda") -> Transform
         model.final_norm.copy_(to_torch(tree["final_norm"]["scale"], dev))
         if model.lm_head is not None:
             model.lm_head.copy_(to_torch(tree["lm_head"], dev))
-        cyc = tree["cycles"]["pos0"]
+        cyc, keys = tree["cycles"]["pos0"], layer_keys(cfg)
         for l, layer in enumerate(model.layers):
             for name, p in layer.named_parameters():
                 node = cyc
-                for key in _LAYER_KEYS[name]:
+                for key in keys[name]:
                     node = node[key]
                 p.copy_(to_torch(np.asarray(node)[l], dev))
     return model

@@ -1,6 +1,7 @@
 """Common layers (counterpart of ``repro.models.layers``): RMSNorm, rotary
-positions, the MLP (SwiGLU, GeGLU, ReLU^2, GELU), attention projections,
-and the plain chunked causal attention of dense prefill.  Weights keep the
+positions, the MLP (SwiGLU, GeGLU, ReLU^2, GELU) or the MoE FFN
+(``ffn``), attention projections, and the plain chunked causal attention
+of dense prefill.  Weights keep the
 JAX package's ``[d_in, d_out]`` layout, so converted parameters copy as
 they are.
 """
@@ -12,6 +13,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models.moe import moe_ffn
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -55,8 +58,10 @@ GATED = {"swiglu", "geglu"}
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm attention + MLP block's weights (``gate`` only for a
-    gated activation)."""
+    """One pre-norm attention + FFN block's weights (``gate`` only for a
+    gated activation).  With ``cfg.moe`` the FFN is the experts' (``up`` /
+    ``gate`` ``[E, d, ff]``, ``down`` ``[E, ff, d]``) and their router
+    (``[d, E]``, f32 in any model dtype, as JAX keeps it)."""
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
@@ -73,10 +78,24 @@ class DecoderLayer(nn.Module):
             self.bv = _weight((cfg.n_kv_heads * hd,), dtype, device)
         else:
             self.bq = self.bk = self.bv = None
-        self.up = _weight((d, cfg.d_ff), dtype, device)
-        self.gate = (_weight((d, cfg.d_ff), dtype, device)
+        ff = cfg.d_ff
+        E = () if cfg.moe is None else (cfg.moe.n_experts,)
+        self.router = (None if cfg.moe is None else
+                       _weight((d, cfg.moe.n_experts), torch.float32, device))
+        self.up = _weight(E + (d, ff), dtype, device)
+        self.gate = (_weight(E + (d, ff), dtype, device)
                      if cfg.activation in GATED else None)
-        self.down = _weight((cfg.d_ff, d), dtype, device)
+        self.down = _weight(E + (ff, d), dtype, device)
+
+
+def ffn(p: DecoderLayer, x: torch.Tensor, cfg, group_size: int = 512,
+        n_tokens=None) -> torch.Tensor:
+    """The block's FFN: :func:`mlp`, or with ``cfg.moe`` the MoE FFN over
+    groups of ``group_size`` tokens (``n_tokens``: see
+    :func:`repro_torch.models.moe.moe_ffn`)."""
+    if cfg.moe is None:
+        return mlp(p, x, cfg.activation)
+    return moe_ffn(p, x, cfg, group_size=group_size, n_tokens=n_tokens)
 
 
 def mlp(p: DecoderLayer, x: torch.Tensor, activation: str) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""Dense decoder with AB-Sparse attention (counterpart of
-``repro.models.transformer`` for the ``("attn",)`` pattern).
+"""Decoder with AB-Sparse attention (counterpart of
+``repro.models.transformer`` for the ``("attn",)`` pattern): each block's
+FFN is the MLP, or with ``cfg.moe`` the MoE FFN (:mod:`.moe`) over JAX's
+token groups (512 tokens in prefill, the ``B`` slots in decode).
 
 Entry points:
-  prefill          prompt -> KV cache + decode store (+ prefill score
-                   segment under sparse prefill)
+  prefill          prompt (after optional prefix embeddings) -> KV cache +
+                   decode store (+ prefill score segment under sparse
+                   prefill)
   prefill_chunk    one prompt chunk of one batch slot
   decode_step      one token for every slot: score -> top-K_h -> attend
                    (fused kernel or staged, ``SparseConfig.fused_decode``)
@@ -119,7 +122,8 @@ class Transformer(nn.Module):
                 elif name.startswith("b"):
                     p.zero_()
                 else:
-                    trunc(p, p.shape[0] ** -0.5)
+                    # fan-in: the row count of [d_in, d_out], expert or not
+                    trunc(p, p.shape[-2] ** -0.5)
         return self
 
     # -------------------------------------------------------------- layouts
@@ -129,6 +133,26 @@ class Transformer(nn.Module):
 
     def use_sparse(self, context_len: int) -> bool:
         return self.attention_plan(context_len).active
+
+    def prefix_rows(self, prefix_emb) -> int:
+        """Rows that prefix embeddings ``[..., P, d]`` take before the
+        tokens: ``P`` in a ``"vlm"`` / ``"audio"`` model, 0 in any other
+        (which embeds the tokens alone, as JAX's ``embed_inputs`` does)."""
+        if prefix_emb is None or self.cfg.family not in ("vlm", "audio"):
+            return 0
+        return prefix_emb.shape[-2]
+
+    def embed_inputs(self, tokens: torch.Tensor,
+                     prefix_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens ``[B, S]`` -> ``[B, P + S, d]``: the prefix embeddings
+        ``[B, P, d]`` (cast to the model dtype) before the token embeddings,
+        ``P`` by :meth:`prefix_rows`, as JAX's ``embed_inputs`` (whose
+        MusicGen positions are not ported)."""
+        x = self.embed[tokens]
+        if self.prefix_rows(prefix_emb):
+            pre = torch.as_tensor(prefix_emb, device=self.device).to(x.dtype)
+            x = torch.cat([pre, x], dim=1)
+        return x
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         w = self.embed.T if self.lm_head is None else self.lm_head
@@ -219,12 +243,15 @@ class Transformer(nn.Module):
     # --------------------------------------------------------------- prefill
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor,
+    def prefill(self, tokens: torch.Tensor, prefix_emb=None,
                 max_context: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
-        """tokens ``[B, S]`` -> (last-token logits [B, vocab], cache)."""
+        """tokens ``[B, S]`` (after ``prefix_emb`` ``[B, P, d]``, see
+        :meth:`embed_inputs`) -> (last-token logits [B, vocab], cache of
+        ``P + S`` rows)."""
         cfg, sp = self.cfg, self.cfg.sparse
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        B, S = tokens.shape
+        x = self.embed_inputs(tokens, prefix_emb)
+        B, S = x.shape[:2]
         max_context = S if max_context is None else max_context
         cache = self.init_cache(B, max_context)
         active, use_sp = self._active(cache), self._sparse_prefill(cache)
@@ -233,7 +260,6 @@ class Transformer(nn.Module):
         positions = torch.arange(S, device=self.device)[None]
         if use_sp:
             n_valid = torch.full((B,), S, dtype=torch.int32, device=self.device)
-        x = self.embed[tokens]
         for layer, e, la in zip(self.layers, cache["layers"], cache["la"]):
             h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
             q, k, v = layers.qkv_project(layer, h, cfg, positions)
@@ -261,7 +287,7 @@ class Transformer(nn.Module):
                 attn = self.backend.causal_attention(q.transpose(1, 2), kd, vd)
             x = x + layers.out_project(layer, attn.transpose(1, 2))
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
-            x = x + layers.mlp(layer, h, cfg.activation)
+            x = x + layers.ffn(layer, h, cfg)
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         cache["seq_len"].fill_(S)
         return self.unembed(x[:, -1]), cache
@@ -327,7 +353,9 @@ class Transformer(nn.Module):
                     offset + n_valid)
             x = x + layers.out_project(layer, attn.transpose(1, 2))
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
-            x = x + layers.mlp(layer, h, cfg.activation)
+            # an MoE groups and sizes its queues by the buffer's C tokens,
+            # as JAX's call does (its padding rows come last)
+            x = x + layers.ffn(layer, h, cfg, n_tokens=C)
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.unembed(x[0, n_valid - 1]), cache
 
@@ -432,7 +460,7 @@ class Transformer(nn.Module):
                         masks[i] = m if masks[i] is None else masks[i] | m
             x = x + layers.out_project(layer, out[:, None])
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
-            x = x + layers.mlp(layer, h, cfg.activation)
+            x = x + layers.ffn(layer, h, cfg, group_size=B)
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         if masks is not None:
             cache["_sel_pages"].copy_(masks[0])

@@ -602,9 +602,11 @@ class Engine:
     # -- admission -----------------------------------------------------------
 
     def submit(self, req: Request):
-        if len(req.prompt) + req.max_new_tokens > self.max_context:
+        P = self.model.prefix_rows(req.prefix_emb)
+        if P + len(req.prompt) + req.max_new_tokens > self.max_context:
+            rows = f"{P} prefix rows + " if P else ""
             raise ValueError(
-                f"request {req.req_id}: prompt {len(req.prompt)} + "
+                f"request {req.req_id}: {rows}prompt {len(req.prompt)} + "
                 f"{req.max_new_tokens} new tokens exceeds max_context "
                 f"{self.max_context}"
             )
@@ -688,23 +690,29 @@ class Engine:
             self._finish_prefill(seq, logits[None])
 
     def _prefill_monolithic(self, seq: SeqState):
-        """Single-shot prefill (``prefill_chunk`` 0): one
-        ``Transformer.prefill`` of the prompt at ``max_context``, its
-        one-sequence cache scattered into the batch slot."""
+        """Single-shot prefill (``prefill_chunk`` 0, or a request with prefix
+        embeddings): one ``Transformer.prefill`` of the prompt, after the
+        request's embeddings, at ``max_context``, its one-sequence cache
+        scattered into the batch slot.  The slot's length counts the rows
+        the model gave the embeddings too (``Transformer.prefix_rows``), so
+        decode goes on after the last prompt row (JAX's engine sets the
+        prompt's length alone: ``ROADMAP.md`` §3)."""
         if self._fault is not None:
             self._fault.check_raise(
                 "prefill", tick=self.metrics.ticks, seq_id=seq.seq_id
             )
-        if seq.req.prefix_emb is not None:
-            raise NotImplementedError("prefix embeddings are not ported")
+        prefix = seq.req.prefix_emb
+        if prefix is not None:
+            prefix = torch.as_tensor(prefix)[None]
         tokens = torch.as_tensor(np.asarray(seq.prefill_tokens, np.int64))[None]
-        logits, one = self.model.prefill(tokens, max_context=self.max_context)
+        logits, one = self.model.prefill(tokens, prefix,
+                                         max_context=self.max_context)
         slot = seq.slot
         for e, e1 in zip(self.cache["layers"], one["layers"]):
             for name, t in e1.items():
                 e[name][slot] = t[0]
         del one
-        self._seq_len[slot] = seq.n_prefill
+        self._seq_len[slot] = self.model.prefix_rows(seq.req.prefix_emb) + seq.n_prefill
         self.metrics.on_prefill(seq.n_prefill)
         self._finish_prefill(seq, logits)
 

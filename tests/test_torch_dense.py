@@ -334,6 +334,8 @@ def test_dense_backend_with_sparse_prefill_matches_jax():
     _decode_both(jm, params, jc, tm, tc, jl, steps=2)
 
 
+#: chunked against single-shot K, f32 (see the test)
+CHUNK_K_ATOL = 5e-6
 #: chunk buffers of 64 at offsets that are not query-block aligned
 CHUNKS = ((0, 50), (50, 64), (114, 13), (127, 64), (191, 9))
 
@@ -357,8 +359,14 @@ def test_chunked_dense_prefill_matches_single_shot_and_jax(case):
     single, cs = tm.prefill(torch.from_numpy(tokens), max_context=max_ctx)
     last, cc = _port_chunked(tm, tokens, max_ctx)
     np.testing.assert_allclose(last.numpy(), single[0].numpy(), atol=1e-5)
+    # K of the chunks against K of the whole prompt: the CPU BLAS blocks a
+    # 64-row projection otherwise than a 264-row one, so even layer 0's K
+    # (a per-row projection of equal inputs; no attention) differs by up to
+    # 2.4e-7, and layer 1 adds that of its attention (1.24e-6 seen).  The
+    # bound is the f32 rounding a two-layer stack accumulates, still 20x
+    # under the JAX comparison's ATOL
     for a, b in zip(cc["layers"], cs["layers"]):
-        np.testing.assert_allclose(a["k"].numpy(), b["k"].numpy(), atol=1e-6)
+        np.testing.assert_allclose(a["k"].numpy(), b["k"].numpy(), atol=CHUNK_K_ATOL)
     tm.refresh_slot_store(cc, 0)
     assert ("codes" in cc["layers"][0]) == tm.use_sparse(max_ctx)
 

@@ -68,11 +68,14 @@ def prompts(vocab=256):
 
 
 def serve_both(arch, t_backend, fused, j_backend, serve_kw, new_tokens, seed=3,
-               attach=None):
+               attach=None, adjust=None):
     """Serve ``prompts()`` through the JAX and the port engine -> (JAX
     engine, port engine, JAX outputs, port outputs) by request id;
-    ``attach(port engine)`` runs before the engines do."""
+    ``attach(port engine)`` runs before the engines do, ``adjust(config)``
+    (given each package's smoke config) changes both models alike."""
     jb, tb = j_smoke(j_get_config(arch)), t_smoke(t_get_config(arch))
+    if adjust is not None:
+        jb, tb = adjust(jb), adjust(tb)
     jcfg = dataclasses.replace(
         jb, sparse=dataclasses.replace(jb.sparse, backend=j_backend, **SPARSE))
     tcfg = dataclasses.replace(

@@ -129,7 +129,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for m in ("kernels.fused_decode", "kernels.block_centroid", "kernels.topk_threshold",
               "kernels.flash_attention", "core.calibration", "core.recall",
               "memory.manager", "memory.page_io", "obs.trace", "obs.validate",
-              "obs.cost", "serving.frontend", "launch.serve"):
+              "obs.cost", "serving.frontend", "launch.serve", "models.moe", "models.moe_check",
+              "configs.granite_moe_3b", "configs.grok1_314b", "configs.internvl2_2b"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"

@@ -75,6 +75,7 @@ from repro_torch.backends import get_backend
 from repro_torch.kernels import block_centroid, centroid_score, flash_attention
 from repro_torch.kernels import fused_decode, ops, paged_attention, parity
 from repro_torch.kernels import sparse_prefill, topk_threshold
+from repro_torch.models import moe_check
 
 pytestmark = pytest.mark.gpu
 
@@ -523,8 +524,8 @@ def _identity_case(cuda, seq, n_kv, g, D):
 # -- the degradation ladder on the card ------------------------------------------
 
 
-def _smoke_model(dev, **sparse_kw):
-    """llama3.2-3b's smoke variant at 2 layers, d_model 256, 4 / 2 heads of
+def _smoke_model(dev, arch="llama3.2-3b", **sparse_kw):
+    """``arch``'s smoke variant at 2 layers, d_model 256, 4 / 2 heads of
     64, bf16, block sizes ((16, 32), (64, 16)), T 128, ``sparse_kw`` on
     top; random weights (generator seed 0)."""
     import dataclasses
@@ -532,7 +533,7 @@ def _smoke_model(dev, **sparse_kw):
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.models import Transformer
 
-    base = smoke_variant(get_config("llama3.2-3b"))
+    base = smoke_variant(get_config(arch))
     cfg = dataclasses.replace(
         base, d_model=256, n_heads=4, n_kv_heads=2, dtype="bfloat16",
         sparse=dataclasses.replace(
@@ -645,10 +646,10 @@ GRAPH_KINDS = {
 }
 
 
-def _graph_case(dev, kind, telemetry):
+def _graph_case(dev, kind, telemetry, arch="llama3.2-3b"):
     """-> (model, cache of random K/V with rebuilt stores, lengths)."""
     overrides, ctx, lens = GRAPH_KINDS[kind]
-    model = _smoke_model(dev, **overrides)
+    model = _smoke_model(dev, arch, **overrides)
     gen = torch.Generator(device=dev).manual_seed(3)
     cache = model.init_cache(2, ctx)
     for e in cache["layers"]:
@@ -677,10 +678,22 @@ def test_graphed_decode_step_matches_eager(cuda, kind, telemetry):
     """A ``DecodeGraph``'s first call (warm-up, capture, replay) and a later
     replay give the eager step's logits and cache bytes, bitwise, and the
     bookkeeping counts one eager step's launches per replay."""
+    _graphed_matches_eager(cuda, kind, telemetry)
+
+
+@pytest.mark.parametrize("kind", ["fused", "staged", "dense"])
+def test_graphed_granite_decode_step_matches_eager(cuda, kind):
+    """The same for granite-moe-3b-a800m's smoke variant (4 experts top-2):
+    the MoE FFN's routing, dispatch and combine run inside the graph."""
+    _graphed_matches_eager(cuda, kind, False, arch="granite-moe-3b-a800m")
+
+
+def _graphed_matches_eager(cuda, kind, telemetry, arch="llama3.2-3b"):
     from repro_torch import kernels
     from repro_torch.serving import DecodeGraph
 
-    model, cache, lens = _graph_case(cuda, kind, telemetry)
+    model, cache, lens = _graph_case(cuda, kind, telemetry, arch)
+    assert (model.cfg.moe is not None) == (arch != "llama3.2-3b")
     tokens = torch.tensor([7, 100], device=cuda)
     cache["seq_len"].copy_(lens)
     kernels.reset_counts()
@@ -967,3 +980,35 @@ def test_graphed_engine_toggles_tracing(cuda):
         rec.to_chrome(), ["engine.tick", "engine.decode", "prefill.chunk", "seq.decode"],
         ["pool", "queue", "sparsity"], ["sched.admit"]) == []
     assert eng.metrics.snapshot()["sparsity_steps"] > 0
+
+
+# -- the MoE FFN (repro_torch.models.moe) on the card ------------------------------
+
+
+@pytest.mark.parametrize("case", ["chunk", "padded-chunk", "decode"])
+def test_moe_ffn_on_cuda_matches_cpu(cuda, case):
+    """granite-moe-3b-a800m's published routing (40 experts top-8, capacity
+    factor 1.25) at d_model 256, d_ff 128, bf16: the card's ``moe_ffn``
+    against the same function in f32 (and bf16) on the CPU
+    (``moe_check.compare_moe_ffn``): a 512-token chunk, 300 live rows of a
+    512-row buffer, a decode step of 4 slots (``group_size`` 4)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import DecoderLayer
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), d_model=256, d_ff=128)
+    layer = DecoderLayer(cfg, torch.bfloat16, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for p in layer.parameters():
+        if p.dim() > 1:
+            p.copy_(torch.randn(p.shape, generator=gen, device=cuda) * p.shape[-2] ** -0.5)
+    shape, kw, live = {"chunk": ((1, 512), {}, 512),
+                       "padded-chunk": ((1, 512), {"n_tokens": 512}, 300),
+                       "decode": ((4, 1), {"group_size": 4}, 4)}[case]
+    x = torch.randn(shape + (256,), generator=gen, device=cuda)
+    x = (x + 1.5 * torch.randn(256, generator=gen, device=cuda)).to(torch.bfloat16)
+    res = moe_check.compare_moe_ffn(layer, x[:, :live] if case == "padded-chunk" else x,
+                                    cfg, **kw)
+    assert res["tie_tokens"] <= 2 and res["max_rel_l2"] <= parity.REL_L2
+    assert (res["dropped"] > 0) == (case != "decode")

@@ -173,7 +173,7 @@ def test_launcher_serves_another_arch(capsys):
     from repro_torch.configs import list_archs
 
     assert set(list_archs()) == {a for a in j_list_archs()
-                                 if j_get_config(a).family == "dense"}
+                                 if j_get_config(a).family in ("dense", "moe", "vlm")}
     eng = tserve.main([
         "--arch", "qwen1.5-4b", "--smoke", "--device", "cpu", "--fused-decode",
         "--requests", "3", "--max-context", "512", "--max-batch", "2",
