@@ -26,9 +26,10 @@ Phases (each failure is fatal, exit code != 0):
    staged scoring and paged attention, flash S x S and at the chunk
    shape, the identity table; qwen3-32b's group 8, 512 query rows a
    prefill cell, at offsets 0 and 8192, and its fused decode; qwen1.5-4b's
-   20 kv heads of group 1 in the fused decode) and at phase 10's
-   (``check_moe_kernels``: granite-moe-3b-a800m's 24 / 8 heads of 64 with
-   Dp 128 for the fused decode, the sparse prefill and flash at a chunk
+   20 kv heads of group 1 in the fused decode) and at phase 10's and
+   11's (``check_late_kernels``: granite-moe-3b-a800m's 24 / 8 heads of
+   64 with Dp 128 and musicgen-large's 32 / 32 heads of 64 with Dp 128 at
+   group 1 for the fused decode, the sparse prefill and flash at a chunk
    offset; internvl2-2b's 16 / 8 heads of 128 for the fused decode);
 3. serve full-width llama3.2-3b (28 layers, bf16, random weights from a
    seeded generator) through ``Engine``: 6 requests of 4-12k prompt tokens,
@@ -61,7 +62,7 @@ Phases (each failure is fatal, exit code != 0):
    every other request end ok, and every committed position's logits
    must be within a cosine of 0.9995 of F's.  Every serving run without an
    injector must end on rung 0 with no degradation (no hidden fallback);
-3b. serve full-width qwen3-8b (9 of its 36 layers, d_model 4096, 32 / 8
+3b. serve full-width qwen3-8b (5 of its 36 layers, d_model 4096, 32 / 8
    heads, untied head, bf16, random weights from a seeded generator) through
    ``Engine`` at max_batch 4, chunks of 512, 32 new tokens, temperature 0,
    in five runs, each of which must launch its path's kernels and no
@@ -222,10 +223,10 @@ launched the pooling and scoring kernels and called no plain version.
 10. (after phase 9; ``serve_moe``) granite-moe-3b-a800m at full width
    and depth (32 layers, 24 / 8 heads of 64, 40 experts top-8 of d_ff
    512, vocab 49155, tied, bf16, capacity factor 1.25 as published,
-   random weights from ``torch.Generator`` seed 0, phase 9's settings of
-   run D) is not served end to end: that gate waits for an oracle that
-   holds under lossy expert capacity (``ROADMAP.md`` §3).  b) the MoE FFN
-   on the card against the same function in f32 on the CPU
+   random weights from ``torch.Generator`` seed 0).  a) is not run:
+   granite served end to end has no oracle with teeth yet (``noise_gate``
+   passed a faulty pass on the card: ``ROADMAP.md`` §3).  b) the MoE FFN on the card
+   against the same function in f32 on the CPU
    (``repro_torch.models.moe_check.compare_moe_ffn``) on the inputs of one
    layer that granite's entry points give it: a whole chunk, a padded
    chunk, a decode step.  c) granite's decode step graphed vs eager
@@ -234,6 +235,18 @@ launched the pooling and scoring kernels and called no plain version.
    and depth, requests 0, 1 and 3 each after 256 patch embeddings
    (single-shot prefill through ``flash_attention``, fused decode), then
    through the plain versions fed its tokens: cosine ``LOGIT_COS``.
+
+11. (after phase 10; ``serve_musicgen``) musicgen-large at full width and
+   depth (48 layers, 32 / 32 heads of 64, GELU MLP of 8192, vocab 2048,
+   untied head, sinusoidal absolute positions on top of RoPE; bf16,
+   random weights from ``torch.Generator`` seed 0) in phase 9's runs D
+   (cosine ``LOGIT_COS``) and S (``s_gate``, each plain sparse prefill
+   call held on its own inputs) on its traffic; run A: request 3 after
+   256 bf16 audio-frame embeddings (single-shot prefill, the frames at
+   positions 0-255, decode from 4256 on), then the plain versions fed its
+   tokens at cosine ``LOGIT_COS``; and the fused decode step graphed vs
+   eager, which must be bitwise equal (the positions are an op inside the
+   captured graph).
 
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -319,6 +332,8 @@ QWEN_PREFILL_VALID = (PROMPT_LENS[0], QWEN_PREFILL_OFF + CHUNK,
 LLAMA31, QWEN15, GEMMA, QWEN32 = "llama3.1-8b", "qwen1.5-4b", "gemma-7b", "qwen3-32b"
 #: phase 10, the MoE family and prefix-embedding requests
 GRANITE, INTERNVL = "granite-moe-3b-a800m", "internvl2-2b"
+#: phase 11, musicgen-large on the sparse kernels
+MUSICGEN = "musicgen-large"
 FAMILY_SHAPES = {GEMMA: (16, 256), QWEN32: (8, 8), QWEN15: (20, 1)}
 
 #: phase 5, the degradation ladder and a fault storm on phase 3's weights
@@ -328,9 +343,9 @@ FAMILY_SHAPES = {GEMMA: (16, 256), QWEN32: (8, 8), QWEN15: (20, 1)}
 #: of the default 8), and the request the storm poisons on every tick
 LADDER_REQS, LADDER_NEW, LADDER_REPROMOTE, STORM_VICTIM = (0, 1, 3, 5), 24, 4, 5
 #: layers of llama3.2-3b that phases 5 and 8c run (the first 8 of its 28:
-#: cut in depth for the script's time limit, which phase 10 shares; their
-#: gates read rungs, ticks and launches per layer, not the depth; phase 3
-#: serves the same path at full depth)
+#: cut in depth for the script's time limit, which phases 10 and 11 share;
+#: their gates read rungs, ticks and launches per layer, not the depth;
+#: phase 3 serves the same path at full depth)
 LADDER_LAYERS = COST_LAYERS = 8
 #: the kernels of the rungs' decode steps: (launched per layer, never)
 RUNG_DECODE = {
@@ -3171,6 +3186,13 @@ QWEN32_REQS, QWEN32_PLAIN_REQS, QWEN32_BATCH = (1, 2), (1,), 2
 #: is the plain run's least logit cosine to the kernel run and c_ctrl the
 #: control run's (the kernel with one split a call)
 S_GATE_FLOOR, S_GATE_RATIO, S_MIN_COS = 5e-4, 2.0, 0.999
+#: phase 10a's gate (fixed before any run, the same for D and S):
+#: ``1 - c_plain <= max(NOISE_GATE_FLOOR, NOISE_GATE_RATIO * (1 -
+#: c_noise))`` with ``c_plain >= NOISE_MIN_PLAIN`` and ``c_noise >=
+#: NOISE_MIN_NOISE``, where c_noise is the least logit cosine to the kernel
+#: run of a noise control (the kernel run with a seeded 1% of every
+#: attention output moved by one bf16 step)
+NOISE_GATE_FLOOR, NOISE_GATE_RATIO, NOISE_MIN_PLAIN, NOISE_MIN_NOISE = 5e-4, 2.0, 0.998, 0.995
 
 
 def family_runs(arch):
@@ -3327,207 +3349,256 @@ def s_gate(what, c_plain, c_ctrl):
     return ok, limit
 
 
-def serve_family(torch, dev):
-    """Phase 9: llama3.1-8b, qwen1.5-4b, gemma-7b and qwen3-32b at full
-    width and depth (bf16, random weights from ``torch.Generator`` seed 0),
-    one model on the card at a time, served through ``Engine`` at
-    temperature 0 in the runs of ``family_runs``, each run's counts zeroed
-    just before and read just after: its path's kernels launched and no
-    other, no plain version called, rung 0 kept.  Each run is served again
+def noise_gate(what, c_plain, c_noise):
+    """Phase 10a's gate of a run, D and S alike -> (passed, the limit on
+    1 - c_plain): ``1 - c_plain <= max(NOISE_GATE_FLOOR, NOISE_GATE_RATIO
+    * (1 - c_noise))`` with ``c_plain >= NOISE_MIN_PLAIN`` and ``c_noise
+    >= NOISE_MIN_NOISE`` (a control that moves the logits further is a
+    broken control).  Phase 10a does not run: on the card this gate
+    passed granite's runs and also a pass with a page left out in one
+    layer's decode (``ROADMAP.md`` §3)."""
+    limit = max(NOISE_GATE_FLOOR, NOISE_GATE_RATIO * (1 - c_noise))
+    ok = (1 - c_plain <= limit and c_plain >= NOISE_MIN_PLAIN
+          and c_noise >= NOISE_MIN_NOISE)
+    log(f"{what}: noise gate 1 - c_plain = {1 - c_plain:.3e} against max("
+        f"{NOISE_GATE_FLOOR}, {NOISE_GATE_RATIO} x (1 - c_noise) = "
+        f"{NOISE_GATE_RATIO * (1 - c_noise):.3e}) = {limit:.3e}; c_plain {c_plain:.6f} "
+        f"(>= {NOISE_MIN_PLAIN}), c_noise {c_noise:.6f} (>= {NOISE_MIN_NOISE}): "
+        f"{'passed' if ok else 'FAILED'}")
+    return ok, limit
+
+
+def serve_pass(torch, dev, what, model, cfg, launched, reqs, new_tokens, hit,
+               forced=None, selecting=None, **serve_kw):
+    """Requests ``reqs`` of ``traffic`` served through ``Engine`` on
+    ``model`` with ``cfg``, fed ``forced`` tokens when given, inside
+    ``selecting`` (a context), every row's logits recorded; the run's
+    counts zeroed just before and read just after: ``launched``'s kernels
+    launched and no other (the plain versions only when empty), no plain
+    version called, rung 0 kept.  -> ``run_engine``'s record, with the
+    engine's ``snap``shot and ``max_batch``."""
+    eng = make_engine(cfg, model, dev, reqs, new_tokens, **serve_kw)
+    with selecting or contextlib.nullcontext():
+        run = run_engine(torch, eng, forced=forced, record=True)
+    check_served(eng, run["done"], len(reqs), new_tokens, cfg.vocab_size, prefix_hit=hit)
+    expect_path(what, run["counts"], launched)
+    run.update(snap=eng.metrics.snapshot(), max_batch=eng.serve.max_batch)
+    del run["probe"], eng       # the probe holds the engine and its cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def family_model(torch, dev, arch, cfg):
+    """``arch`` at full width and depth on the card under ``cfg``: bf16,
+    random weights from ``torch.Generator`` seed 0 (peak memory counted
+    from here)."""
+    from repro_torch.models import Transformer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()        # the init's f32 staging, still cached
+    cfg = model.cfg
+    n_par = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    ffn = (f"{cfg.moe.n_experts} experts top-{cfg.moe.experts_per_token} of d_ff "
+           f"{cfg.d_ff}, capacity factor {cfg.moe.capacity_factor} (router f32)"
+           if cfg.moe else f"d_ff {cfg.d_ff}")
+    log(f"{arch} weights: {n_par / 1e9:.3f}B params bf16 ({w_bytes / 1e9:.2f} GB), "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, {cfg.activation}, {ffn}, "
+        f"qkv_bias {cfg.qkv_bias}, tied {cfg.tie_embeddings}, vocab {cfg.vocab_size}, "
+        f"init {time.perf_counter() - t0:.1f}s")
+    return model
+
+
+def serve_arch(torch, dev, arch, missed, extra=None):
+    """The runs of ``family_runs(arch)`` on one model at full width and
+    depth (``family_model``), each served through ``Engine`` at
+    temperature 0 (``serve_pass``: its path's kernels only, rung 0), then
     through the plain versions (the ``"reference"`` backend) for
     ``AGREE_NEW`` tokens, fed the kernel run's tokens, every step's logits
-    finite.  D and G runs: least logit cosine to the kernel run at least
-    ``LOGIT_COS``.  S runs: every plain sparse prefill call selects on its
-    own inputs and is held against the kernel on the same inputs
-    (``prefill_selections``); a control run of the kernel with one split a
-    call, fed the same tokens, sets the tolerance (``s_gate``).
+    finite; in an S run every plain sparse prefill call selects on its own
+    inputs and is held against the kernel on the same inputs
+    (``prefill_selections``).  D and G are gated at a least logit cosine
+    of ``LOGIT_COS``; S by ``s_gate``, whose control run is the kernel with
+    one split a call, fed the same tokens.
+
     qwen3-32b (65.5 GB of weights) runs at max_batch 2, a reduced batch
     (the script fails if the free memory after the weights cannot hold two
     16384-token KV rows), its plain and control runs on its shorter
-    request at max_batch 1.  A run that misses its gate fails the phase
-    after every run has been served.  -> {arch: {run: summary}}."""
-    from repro_torch.models import Transformer
+    request at max_batch 1.  A run that misses its gate is added to
+    ``missed``.  ``extra(model, summary)`` runs on the model before it is
+    dropped.  -> {run: summary, "peak_gib": ...}."""
+    t_arch = time.perf_counter()
+    runs_cfg = family_runs(arch)
+    model = family_model(torch, dev, arch, runs_cfg["D"][0])
+    cfg = model.cfg
+    reqs, plain_reqs, serve_kw, plain_kw, hit = FAMILY_REQS, FAMILY_REQS, {}, {}, True
+    if arch == QWEN32:
+        kv_row = (2 * cfg.n_layers * cfg.n_kv_heads * CTX * cfg.resolved_head_dim * 2)
+        free = torch.cuda.mem_get_info(dev)[0]
+        if free < QWEN32_BATCH * kv_row:
+            fail(f"{arch}: {free / 2**30:.2f} GiB free after the weights cannot "
+                 f"hold {QWEN32_BATCH} KV rows of {CTX} tokens")
+        reqs, plain_reqs, hit = QWEN32_REQS, QWEN32_PLAIN_REQS, False
+        serve_kw, plain_kw = {"max_batch": QWEN32_BATCH}, {"max_batch": 1}
+        log(f"{arch}: {free / 2**30:.2f} GiB free after the weights, a KV row of "
+            f"{CTX} tokens takes {kv_row / 2**30:.2f} GiB: max_batch {QWEN32_BATCH} "
+            f"(a reduced batch on one card, not the full serving configuration)")
+    vocab = cfg.vocab_size
+    summary = {}
+    for name, (rcfg, launched) in runs_cfg.items():
+        sparse = rcfg.sparse.sparse_prefill
+        sel = {"kernel": {}, "plain": {}, "control": {}}
+        held = {"calls": 0, "cells": 0, "tie_cells": 0}
 
+        def selecting(mode):
+            return prefill_selections(mode, sel[mode], held) if sparse else None
+
+        t_run = time.perf_counter()
+        what = f"{arch} run {name}"
+        run = serve_pass(torch, dev, what, model, rcfg, launched, reqs, FAMILY_NEW, hit,
+                         selecting=selecting("kernel"), **serve_kw)
+        snap = run["snap"]
+        log_serving(f"{arch} {name} (sparse_prefill {sparse}, fused_decode "
+                    f"{rcfg.sparse.fused_decode}, max_batch {run['max_batch']})",
+                    run, snap)
+        plain_cfg = dataclasses.replace(rcfg, sparse=dataclasses.replace(
+            rcfg.sparse, backend="reference"))
+
+        plain = serve_pass(torch, dev, f"{what}, plain", model, plain_cfg, set(),
+                           plain_reqs, AGREE_NEW, hit, forced=run["tokens"],
+                           selecting=selecting("plain"), **plain_kw)
+        floor = S_MIN_COS if sparse else LOGIT_COS
+        c_plain, same, n_steps = agree_logits(
+            torch, f"{arch} {name}", run["logits"], plain["logits"], vocab,
+            plain_reqs, floor=floor, fatal=False)
+        ok = c_plain >= floor
+        row = {"launches": {k: c["launches"] for k, c in run["counts"].items()
+                            if c["launches"]},
+               "decode_steps": run["steps"]["decode_step"],
+               "prefill_chunks": run["steps"]["prefill_chunk"],
+               "wall_s": run["wall"], "ttft_p50": snap["ttft_p50"],
+               "tpot_p50": snap["tpot_p50"], "c_plain": c_plain,
+               "greedy_equal": [same, n_steps]}
+        if sparse:
+            # the control: the kernel with one split a call, same tokens
+            ctrl = serve_pass(torch, dev, f"{what}, control", model, rcfg, launched,
+                              plain_reqs, AGREE_NEW, hit, forced=run["tokens"],
+                              selecting=selecting("control"), **plain_kw)
+            c_ctrl, same_c, _ = agree_logits(
+                torch, f"{arch} {name}", run["logits"], ctrl["logits"], vocab,
+                plain_reqs, floor=S_MIN_COS, fatal=False,
+                other="the control (the kernel at n_split 1)")
+            ok, limit = s_gate(f"{arch} {name}", c_plain, c_ctrl)
+            row.update(c_ctrl=c_ctrl, greedy_equal_ctrl=same_c, gate_limit=limit)
+        if sparse:
+            log(f"{arch} {name}: every sparse prefill call of the plain run "
+                f"({held['calls']} calls, {held['cells']} cells) selected on its own "
+                f"inputs and was held against the kernel on the same inputs: "
+                f"selections equal up to {held['tie_cells']} near-tie cells (the "
+                f"plain run attends the kernel's blocks there), outputs within the "
+                f"bf16 rule")
+            drift = {m: selection_drift(f"{arch} {name} {m}", sel["kernel"], sel[m])
+                     for m in ("plain", "control") if sel[m]}
+            for m, shares in drift.items():
+                log(f"{arch} {name}: share of cells the {m} run selects otherwise "
+                    f"than the kernel run, by layer: "
+                    + " ".join(f"{s:.3f}" for s in shares))
+            row.update(prefill_calls_held=held["calls"], prefill_cells=held["cells"],
+                       prefill_tie_cells=held["tie_cells"],
+                       **{f"drift_{m}_max": max(s) for m, s in drift.items()})
+        if not ok:
+            missed.append(f"{arch} {name}: c_plain {c_plain}"
+                          + (f", c_ctrl {row['c_ctrl']}" if sparse else ""))
+        del sel
+        row["run_s"] = time.perf_counter() - t_run
+        log(f"{arch} {name} took {row['run_s']:.1f}s")
+        summary[name] = row
+    if extra is not None:
+        use_config(model, runs_cfg["D"][0])
+        extra(model, summary)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{arch}: peak device memory allocated {peak / 2**30:.2f} GiB; {arch} took "
+        f"{time.perf_counter() - t_arch:.1f}s")
+    summary["peak_gib"] = peak / 2**30
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def serve_family(torch, dev):
+    """Phase 9: llama3.1-8b, qwen1.5-4b, gemma-7b and qwen3-32b, one model
+    on the card at a time, through ``serve_arch`` with its ``"control"``
+    oracle.  A run that misses its gate fails the phase after every run
+    has been served.  -> {arch: {run: summary}}."""
     out, missed = {}, []
     for arch in (LLAMA31, QWEN15, GEMMA, QWEN32):
-        t_arch = time.perf_counter()
-        runs_cfg = family_runs(arch)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        model = Transformer(runs_cfg["D"][0], device=dev).init(
-            torch.Generator(device=dev).manual_seed(0))
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()        # the init's f32 staging, still cached
-        cfg = model.cfg
-        n_par = sum(p.numel() for p in model.parameters())
-        w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-        log(f"{arch} weights: {n_par / 1e9:.3f}B params bf16 ({w_bytes / 1e9:.2f} GB), "
-            f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
-            f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, {cfg.activation}, "
-            f"qkv_bias {cfg.qkv_bias}, tied {cfg.tie_embeddings}, init "
-            f"{time.perf_counter() - t0:.1f}s")
-        reqs, plain_reqs, serve_kw, plain_kw, hit = FAMILY_REQS, FAMILY_REQS, {}, {}, True
-        if arch == QWEN32:
-            kv_row = (2 * cfg.n_layers * cfg.n_kv_heads * CTX * cfg.resolved_head_dim * 2)
-            free = torch.cuda.mem_get_info(dev)[0]
-            if free < QWEN32_BATCH * kv_row:
-                fail(f"{arch}: {free / 2**30:.2f} GiB free after the weights cannot "
-                     f"hold {QWEN32_BATCH} KV rows of {CTX} tokens")
-            reqs, plain_reqs, hit = QWEN32_REQS, QWEN32_PLAIN_REQS, False
-            serve_kw, plain_kw = {"max_batch": QWEN32_BATCH}, {"max_batch": 1}
-            log(f"{arch}: {free / 2**30:.2f} GiB free after the weights, a KV row of "
-                f"{CTX} tokens takes {kv_row / 2**30:.2f} GiB: max_batch {QWEN32_BATCH} "
-                f"(a reduced batch on one card, not the full serving configuration)")
-        vocab = cfg.vocab_size
-        summary = {}
-        for name, (rcfg, launched) in runs_cfg.items():
-            sparse = rcfg.sparse.sparse_prefill
-            sel = {"kernel": {}, "plain": {}, "control": {}}
-            held = {"calls": 0, "cells": 0, "tie_cells": 0}
-
-            def selecting(mode):
-                return (prefill_selections(mode, sel[mode], held) if sparse
-                        else contextlib.nullcontext())
-
-            t_run = time.perf_counter()
-            eng = make_engine(rcfg, model, dev, reqs, FAMILY_NEW, **serve_kw)
-            with selecting("kernel"):
-                run = run_engine(torch, eng, record=True)
-            check_served(eng, run["done"], len(reqs), FAMILY_NEW, vocab, prefix_hit=hit)
-            expect_path(f"{arch} run {name}", run["counts"], launched)
-            snap = eng.metrics.snapshot()
-            log_serving(f"{arch} {name} (sparse_prefill {sparse}, fused_decode "
-                        f"{rcfg.sparse.fused_decode}, max_batch {eng.serve.max_batch})",
-                        run, snap)
-            del eng
-            gc.collect()
-            torch.cuda.empty_cache()
-            # the plain run, fed the kernel run's tokens
-            plain_cfg = dataclasses.replace(rcfg, sparse=dataclasses.replace(
-                rcfg.sparse, backend="reference"))
-            eng = make_engine(plain_cfg, model, dev, plain_reqs, AGREE_NEW, **plain_kw)
-            with selecting("plain"):
-                plain = run_engine(torch, eng, forced=run["tokens"], record=True)
-            check_served(eng, plain["done"], len(plain_reqs), AGREE_NEW, vocab,
-                         prefix_hit=hit)
-            expect_path(f"{arch} run {name}, plain", plain["counts"], set())
-            del eng
-            gc.collect()
-            torch.cuda.empty_cache()
-            floor = S_MIN_COS if sparse else LOGIT_COS
-            c_plain, same, n_steps = agree_logits(
-                torch, f"{arch} {name}", run["logits"], plain["logits"], vocab,
-                plain_reqs, floor=floor, fatal=False)
-            ok = c_plain >= floor
-            row = {"launches": {k: c["launches"] for k, c in run["counts"].items()
-                                if c["launches"]},
-                   "decode_steps": run["steps"]["decode_step"],
-                   "prefill_chunks": run["steps"]["prefill_chunk"],
-                   "wall_s": run["wall"], "ttft_p50": snap["ttft_p50"],
-                   "tpot_p50": snap["tpot_p50"], "c_plain": c_plain,
-                   "greedy_equal": [same, n_steps]}
-            if sparse:
-                # the control: the kernel with one split a call, same tokens
-                eng = make_engine(rcfg, model, dev, plain_reqs, AGREE_NEW, **plain_kw)
-                with selecting("control"):
-                    ctrl = run_engine(torch, eng, forced=run["tokens"], record=True)
-                check_served(eng, ctrl["done"], len(plain_reqs), AGREE_NEW, vocab,
-                             prefix_hit=hit)
-                expect_path(f"{arch} run {name}, control", ctrl["counts"], launched)
-                del eng
-                gc.collect()
-                torch.cuda.empty_cache()
-                c_ctrl, same_c, _ = agree_logits(
-                    torch, f"{arch} {name}", run["logits"], ctrl["logits"], vocab,
-                    plain_reqs, floor=S_MIN_COS, fatal=False,
-                    other="the control (the kernel at n_split 1)")
-                ok, limit = s_gate(f"{arch} {name}", c_plain, c_ctrl)
-                drift = {m: selection_drift(f"{arch} {name} {m}", sel["kernel"], sel[m])
-                         for m in ("plain", "control")}
-                log(f"{arch} {name}: every sparse prefill call of the plain run "
-                    f"({held['calls']} calls, {held['cells']} cells) selected on its own "
-                    f"inputs and was held against the kernel on the same inputs: "
-                    f"selections equal up to {held['tie_cells']} near-tie cells (the "
-                    f"plain run attends the kernel's blocks there), outputs within the "
-                    f"bf16 rule")
-                for m, shares in drift.items():
-                    log(f"{arch} {name}: share of cells the {m} run selects otherwise "
-                        f"than the kernel run, by layer: "
-                        + " ".join(f"{s:.3f}" for s in shares))
-                row.update(c_ctrl=c_ctrl, greedy_equal_ctrl=same_c, gate_limit=limit,
-                           prefill_calls_held=held["calls"],
-                           prefill_cells=held["cells"],
-                           prefill_tie_cells=held["tie_cells"],
-                           drift_plain_max=max(drift["plain"]),
-                           drift_control_max=max(drift["control"]))
-            if not ok:
-                missed.append(f"{arch} {name}: c_plain {c_plain}"
-                              + (f", c_ctrl {row['c_ctrl']}" if sparse else ""))
-            del sel
-            row["run_s"] = time.perf_counter() - t_run
-            log(f"phase 9 {arch} {name} took {row['run_s']:.1f}s")
-            summary[name] = row
-        peak = torch.cuda.max_memory_allocated()
-        log(f"{arch}: peak device memory allocated {peak / 2**30:.2f} GiB; phase 9 "
-            f"{arch} took {time.perf_counter() - t_arch:.1f}s")
-        summary["peak_gib"] = peak / 2**30
-        out[arch] = summary
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
+        out[arch] = serve_arch(torch, dev, arch, missed)
     if missed:
         log(f"phase 9 summary: {json.dumps(out)}")
         fail("phase 9: " + "; ".join(missed))
     return out
-
 
 # ---------------------------------------------------------------------------
 # phase 10: the MoE family (granite-moe-3b-a800m) and prefix-embedding
 # requests (internvl2-2b) at full width and depth
 # ---------------------------------------------------------------------------
 
-#: granite's attention (24 / 8 heads of 64, Dp 128) and internvl's (16 / 8
-#: heads of 128, group 2), as phases 2 and 4 check and time them
-GRANITE_SHAPE, INTERNVL_SHAPE = (8, 3, 64), (8, 2, 128)
+#: granite's attention (24 / 8 heads of 64, Dp 128), internvl's (16 / 8
+#: heads of 128, group 2) and musicgen's (32 / 32 heads of 64, Dp 128,
+#: group 1), as phases 2 and 4 check and time them: (kv heads, group,
+#: head_dim)
+GRANITE_SHAPE, INTERNVL_SHAPE, MUSICGEN_SHAPE = (8, 3, 64), (8, 2, 128), (32, 1, 64)
 #: the layer whose MoE FFN inputs phase 10b takes, and the valid rows of
 #: its padded chunk (a 512-token buffer)
 MOE_PROBE_LAYER, MOE_PADDED_VALID = 16, 296
 
 
-def check_moe_kernels(torch, dev):
-    """Phase 2 at phase 10's new shapes: granite's ``fused_decode`` (planned
-    and forced splits, the page-left-out power check), ``sparse_prefill``
-    (planned and forced splits) and ``flash_attention`` at a chunk offset
-    (the tile-left-out power check), all at head_dim 64 / Dp 128;
-    internvl's ``fused_decode`` at group 2."""
-    n_kv, g, d = GRANITE_SHAPE
-    dec = check_fused_decode(torch, dev, g=g, seed=31, n_kv=n_kv, d=d)
-    pre = check_sparse_prefill(torch, dev, g=g, seed=32, n_kv=n_kv, d=d)
-    flash_off = check_flash_offset(torch, dev, hq=n_kv * g, hkv=n_kv, d=d)
+def check_late_kernels(torch, dev):
+    """Phase 2 at phase 10's and 11's shapes: granite's ``fused_decode``
+    (planned and forced splits, the page-left-out power check),
+    ``sparse_prefill`` (planned and forced splits) and ``flash_attention``
+    at a chunk offset (the tile-left-out power check), all at head_dim 64
+    / Dp 128; internvl's ``fused_decode`` at group 2; musicgen's three at
+    32 kv heads of group 1 (64 query rows a prefill cell)."""
+    out = {}
+    for name, (n_kv, g, d), seed in (("granite", GRANITE_SHAPE, 31),
+                                     ("musicgen", MUSICGEN_SHAPE, 34)):
+        dec = check_fused_decode(torch, dev, g=g, seed=seed, n_kv=n_kv, d=d)
+        pre = check_sparse_prefill(torch, dev, g=g, seed=seed + 1, n_kv=n_kv, d=d)
+        flash_off = check_flash_offset(torch, dev, hq=n_kv * g, hkv=n_kv, d=d)
+        out[name] = {"dec": dec, "err": {"fused_decode": dec["err"],
+                                         "sparse_prefill": pre["err"],
+                                         "flash_attention": flash_off["err"]}}
     n_kv, g, d = INTERNVL_SHAPE
     dec_v = check_fused_decode(torch, dev, g=g, seed=33, n_kv=n_kv, d=d)
-    return {"granite": {"dec": dec, "err": {"fused_decode": dec["err"],
-                                            "sparse_prefill": pre["err"],
-                                            "flash_attention": flash_off["err"]}},
-            "internvl": {"dec": dec_v, "err": {"fused_decode": dec_v["err"]}}}
+    out["internvl"] = {"dec": dec_v, "err": {"fused_decode": dec_v["err"]}}
+    return out
 
 
-def time_moe_kernels(torch, dev, moe):
-    """Phase 4 at phase 10's shapes: granite's ``fused_decode``,
-    ``sparse_prefill`` (the chunk at offset 8192) and ``flash_attention``
-    (the chunk shape), internvl's ``fused_decode``, by device time with
-    their bounds -> {"granite": {kernel: times}, "internvl": {...}}."""
-    n_kv, g, d = GRANITE_SHAPE
-    granite = {
-        "fused_decode": time_fused_decode(torch, moe["granite"]["dec"]),
-        "sparse_prefill": time_sparse_prefill(torch, dev, g=g, n_kv=n_kv, d=d,
-                                              offsets=(CTX // 2,)),
-        "flash_attention": time_flash_chunk(torch, dev, hq=n_kv * g, hkv=n_kv, d=d),
-    }
-    internvl = {"fused_decode": time_fused_decode(torch, moe["internvl"]["dec"])}
-    return {"granite": granite, "internvl": internvl}
+def time_late_kernels(torch, dev, late):
+    """Phase 4 at phase 10's and 11's shapes: granite's and musicgen's
+    ``fused_decode``, ``sparse_prefill`` (the chunk at offset 8192) and
+    ``flash_attention`` (the chunk shape), internvl's ``fused_decode``, by
+    device time with their bounds -> {"granite" | "musicgen" | "internvl":
+    {kernel: times}}."""
+    out = {}
+    for name, (n_kv, g, d) in (("granite", GRANITE_SHAPE), ("musicgen", MUSICGEN_SHAPE)):
+        out[name] = {
+            "fused_decode": time_fused_decode(torch, late[name]["dec"]),
+            "sparse_prefill": time_sparse_prefill(torch, dev, g=g, n_kv=n_kv, d=d,
+                                                  offsets=(CTX // 2,)),
+            "flash_attention": time_flash_chunk(torch, dev, hq=n_kv * g, hkv=n_kv, d=d),
+        }
+    out["internvl"] = {"fused_decode": time_fused_decode(torch, late["internvl"]["dec"])}
+    return out
 
 
 @contextlib.contextmanager
@@ -3577,15 +3648,14 @@ def moe_inputs(torch, view, dev):
     return probe
 
 
-def prefix_embeddings(torch, cfg, req_ids):
-    """Per request a ``[n_prefix_embeddings, d_model]`` bf16 block of patch
+def prefix_embeddings(torch, cfg, req_ids, n):
+    """Per request a ``[n, d_model]`` bf16 block of patch or frame
     embeddings (``torch.Generator`` seed 100 + request, on the CPU), at
     the scale of the token embeddings' rows."""
     out = {}
     for i in req_ids:
         gen = torch.Generator().manual_seed(100 + i)
-        out[i] = (torch.randn((cfg.n_prefix_embeddings, cfg.d_model), generator=gen)
-                  * 0.02).to(torch.bfloat16)
+        out[i] = (torch.randn((n, cfg.d_model), generator=gen) * 0.02).to(torch.bfloat16)
     return out
 
 
@@ -3635,96 +3705,27 @@ def moe_step(torch, view, dev, x, kw):
     return res
 
 
-def serve_moe(torch, dev):
-    """Phase 10.  granite-moe-3b-a800m at full width and depth (bf16, random
-    weights from ``torch.Generator`` seed 0, capacity factor 1.25 as
-    published, run D's settings of phase 9) is not served here: its
-    end-to-end gate against the plain versions waits for an oracle that
-    holds under lossy expert capacity (``ROADMAP.md`` §3).  b) the MoE FFN
-    on the card against the same function in f32 on the CPU
-    (``moe_check.compare_moe_ffn``) on the inputs of one layer that its
-    entry points give it (``moe_inputs``): a whole chunk, a padded chunk, a
-    decode step.  c) the decode step graphed vs eager and the MoE FFN's
-    share of it (``moe_step``), peak memory.  d) internvl2-2b at full width
-    and depth, requests 0, 1 and 3 each after 256 patch embeddings
-    (single-shot prefill through ``flash_attention``, fused decode), then
-    through the plain versions fed its tokens: cosine ``LOGIT_COS``.
-    -> summary."""
-    from repro_torch.models import Transformer
-    from repro_torch.models.moe_check import compare_moe_ffn
-
-    out = {}
-    t_arch = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = Transformer(family_runs(GRANITE)["D"][0], device=dev).init(
-        torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+def prefix_run(torch, dev, arch, model, rcfg, launched, reqs, n_prefix):
+    """Requests ``reqs`` of ``traffic``, each after ``n_prefix`` embeddings
+    (``prefix_embeddings``), served on ``model`` with ``rcfg`` (each in
+    one single-shot prefill, outside the prefix cache), then through the
+    plain versions fed its tokens -> (summary, least logit cosine)."""
     cfg = model.cfg
-    if cfg.moe.capacity_factor != 1.25:
-        fail(f"{GRANITE}: capacity factor {cfg.moe.capacity_factor}, not the published 1.25")
-    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log(f"{GRANITE} weights: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
-        f"params ({w_bytes / 1e9:.2f} GB; router f32), {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
-        f"{cfg.moe.n_experts} experts top-{cfg.moe.experts_per_token} of d_ff {cfg.d_ff}, "
-        f"capacity factor {cfg.moe.capacity_factor}, init {time.perf_counter() - t0:.1f}s")
-    view = model.with_sparse(**dataclasses.asdict(cfg.sparse))
-    summary = {}
-
-    # b) the MoE FFN on the card against the CPU's f32 run
-    probe = moe_inputs(torch, view, dev)
-    for what in ("chunk", "padded", "decode"):
-        x, kw = probe[what]
-        try:
-            res = compare_moe_ffn(model.layers[MOE_PROBE_LAYER], x, cfg, **kw)
-        except AssertionError as e:
-            fail(f"phase 10b {what}: {e}")
-        log(f"phase 10b {GRANITE} layer {MOE_PROBE_LAYER}, {what} (x {tuple(x.shape)}, "
-            f"{json.dumps(kw)}): card vs the CPU's f32 run: {json.dumps(res)}")
-        summary[f"ffn_{what}"] = res
-
-    # c) the decode step as a CUDA graph
-    summary["step"] = moe_step(torch, view, dev, *probe["decode"])
-    del probe
-    peak = torch.cuda.max_memory_allocated()
-    summary["peak_gib"] = peak / 2**30
-    log(f"{GRANITE}: peak device memory allocated {peak / 2**30:.2f} GiB; phase 10 "
-        f"{GRANITE} took {time.perf_counter() - t_arch:.1f}s")
-    out[GRANITE] = summary
-    del model, view
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # d) internvl2-2b with prefix embeddings
-    t_arch = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    rcfg, launched = family_runs(INTERNVL)["D"]
-    model = Transformer(rcfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    cfg = model.cfg
-    log(f"{INTERNVL} weights: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
-        f"params bf16, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, {cfg.n_prefix_embeddings} "
-        f"prefix embeddings a request")
-    prefix = prefix_embeddings(torch, cfg, FAMILY_REQS)
-    eng = make_prefix_engine(torch, rcfg, model, dev, FAMILY_REQS, FAMILY_NEW, prefix)
+    prefix = prefix_embeddings(torch, cfg, reqs, n_prefix)
+    eng = make_prefix_engine(torch, rcfg, model, dev, reqs, FAMILY_NEW, prefix)
     monolithic = []
     orig = eng._prefill_monolithic
     eng._prefill_monolithic = lambda seq: (monolithic.append(seq.req.req_id), orig(seq))
     run = run_engine(torch, eng, record=True)
-    check_served(eng, run["done"], len(FAMILY_REQS), FAMILY_NEW, cfg.vocab_size,
-                 prefix_hit=False)
-    expect_path(f"{INTERNVL} run D", run["counts"], launched)
+    check_served(eng, run["done"], len(reqs), FAMILY_NEW, cfg.vocab_size, prefix_hit=False)
+    expect_path(f"{arch} prefix run", run["counts"], launched)
     snap = eng.metrics.snapshot()
-    log_serving(f"{INTERNVL} D (prefix embeddings, single-shot prefill)", run, snap)
-    if sorted(monolithic) != sorted(FAMILY_REQS) or run["steps"]["prefill_chunk"] or snap[
+    del run["probe"]            # it holds the engine and its cache
+    log_serving(f"{arch} ({n_prefix} prefix embeddings a request, single-shot prefill)",
+                run, snap)
+    if sorted(monolithic) != sorted(reqs) or run["steps"]["prefill_chunk"] or snap[
             "prefix_hit_tokens"]:
-        fail(f"{INTERNVL}: prefix requests must prefill in one shot each, outside the "
+        fail(f"{arch}: prefix requests must prefill in one shot each, outside the "
              f"prefix cache (single-shot {monolithic}, prefill steps "
              f"{run['steps']['prefill_chunk']}, prefix hits {snap['prefix_hit_tokens']})")
     del eng
@@ -3732,34 +3733,134 @@ def serve_moe(torch, dev):
     torch.cuda.empty_cache()
     pcfg = dataclasses.replace(rcfg, sparse=dataclasses.replace(rcfg.sparse,
                                                                 backend="reference"))
-    eng = make_prefix_engine(torch, pcfg, model, dev, FAMILY_REQS, AGREE_NEW, prefix)
+    eng = make_prefix_engine(torch, pcfg, model, dev, reqs, AGREE_NEW, prefix)
     plain = run_engine(torch, eng, forced=run["tokens"], record=True)
-    check_served(eng, plain["done"], len(FAMILY_REQS), AGREE_NEW, cfg.vocab_size,
+    check_served(eng, plain["done"], len(reqs), AGREE_NEW, cfg.vocab_size,
                  prefix_hit=False)
-    expect_path(f"{INTERNVL} run D, plain", plain["counts"], set())
-    del eng
+    expect_path(f"{arch} prefix run, plain", plain["counts"], set())
+    del plain["probe"], eng
     gc.collect()
     torch.cuda.empty_cache()
     c_plain, same, n_steps = agree_logits(
-        torch, f"{INTERNVL} D", run["logits"], plain["logits"], cfg.vocab_size,
-        FAMILY_REQS, fatal=False)
+        torch, f"{arch} prefix run", run["logits"], plain["logits"], cfg.vocab_size,
+        reqs, fatal=False)
+    return {"launches": {k: c["launches"] for k, c in run["counts"].items()
+                         if c["launches"]},
+            "decode_steps": run["steps"]["decode_step"],
+            "single_shot_prefills": len(monolithic), "prefix_rows": n_prefix,
+            "wall_s": run["wall"], "ttft_p50": snap["ttft_p50"],
+            "tpot_p50": snap["tpot_p50"], "c_plain": c_plain,
+            "greedy_equal": [same, n_steps]}, c_plain
+
+
+def serve_moe(torch, dev):
+    """Phase 10 on granite-moe-3b-a800m at full width and depth (bf16,
+    random weights from ``torch.Generator`` seed 0, capacity factor 1.25
+    as published; a), granite served end to end, is not run: ``ROADMAP.md``
+    §3).  b) the MoE FFN on the card against the same function in f32 on
+    the CPU (``moe_check.compare_moe_ffn``) on the inputs of one layer that
+    its entry points give it (``moe_inputs``): a whole chunk, a padded
+    chunk, a decode step.  c) the decode step graphed vs eager and the MoE FFN's
+    share of it (``moe_step``), peak memory.  d) internvl2-2b at full
+    width and depth, requests 0, 1 and 3 each after 256 patch embeddings
+    (single-shot prefill through ``flash_attention``, fused decode), then
+    through the plain versions fed its tokens: cosine ``LOGIT_COS``
+    (``prefix_run``).  -> summary, with the gates it missed under
+    ``"missed"`` (the script fails on them after its summary lines)."""
+    from repro_torch.models.moe_check import compare_moe_ffn
+
+    if family_runs(GRANITE)["D"][0].moe.capacity_factor != 1.25:
+        fail(f"{GRANITE}: capacity factor not the published 1.25")
+    out, missed = {}, []
+
+    def moe_checks(model, summary):
+        cfg = model.cfg
+        view = model.with_sparse(**dataclasses.asdict(cfg.sparse))
+        # b) the MoE FFN on the card against the CPU's f32 run
+        probe = moe_inputs(torch, view, dev)
+        for what in ("chunk", "padded", "decode"):
+            x, kw = probe[what]
+            try:
+                res = compare_moe_ffn(model.layers[MOE_PROBE_LAYER], x, cfg, **kw)
+            except AssertionError as e:
+                fail(f"phase 10b {what}: {e}")
+            log(f"phase 10b {GRANITE} layer {MOE_PROBE_LAYER}, {what} (x "
+                f"{tuple(x.shape)}, {json.dumps(kw)}): card vs the CPU's f32 run: "
+                f"{json.dumps(res)}")
+            summary[f"ffn_{what}"] = res
+        # c) the decode step as a CUDA graph
+        summary["step"] = moe_step(torch, view, dev, *probe["decode"])
+
+    model = family_model(torch, dev, GRANITE, family_runs(GRANITE)["D"][0])
+    out[GRANITE] = {}
+    moe_checks(model, out[GRANITE])
     peak = torch.cuda.max_memory_allocated()
-    out[INTERNVL] = {"D": {"launches": {k: c["launches"] for k, c in run["counts"].items()
-                                        if c["launches"]},
-                           "decode_steps": run["steps"]["decode_step"],
-                           "single_shot_prefills": len(monolithic),
-                           "wall_s": run["wall"], "ttft_p50": snap["ttft_p50"],
-                           "tpot_p50": snap["tpot_p50"], "c_plain": c_plain,
-                           "greedy_equal": [same, n_steps]},
-                     "peak_gib": peak / 2**30}
-    log(f"{INTERNVL}: peak device memory allocated {peak / 2**30:.2f} GiB; phase 10d "
-        f"took {time.perf_counter() - t_arch:.1f}s")
+    out[GRANITE]["peak_gib"] = peak / 2**30
+    log(f"{GRANITE}: peak device memory allocated {peak / 2**30:.2f} GiB")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d) internvl2-2b with prefix embeddings
+    rcfg, launched = family_runs(INTERNVL)["D"]
+    model = family_model(torch, dev, INTERNVL, rcfg)
+    row, c_plain = prefix_run(torch, dev, INTERNVL, model, rcfg, launched, FAMILY_REQS,
+                              model.cfg.n_prefix_embeddings)
+    peak = torch.cuda.max_memory_allocated()
+    out[INTERNVL] = {"D": row, "peak_gib": peak / 2**30}
+    log(f"{INTERNVL}: peak device memory allocated {peak / 2**30:.2f} GiB")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     if c_plain < LOGIT_COS:
-        log(f"phase 10 summary: {json.dumps(out)}")
-        fail(f"phase 10: {INTERNVL} D: c_plain {c_plain}")
+        missed.append(f"{INTERNVL} D: c_plain {c_plain}")
+    out["missed"] = missed
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: musicgen-large on the sparse kernels, with its sinusoidal
+# positions and audio frames
+# ---------------------------------------------------------------------------
+
+#: run A: the request served after ``AUDIO_FRAMES`` bf16 audio-frame
+#: embeddings (single-shot prefill; the frames take positions 0 .. 255)
+AUDIO_REQS, AUDIO_FRAMES = (3,), 256
+
+
+def serve_musicgen(torch, dev):
+    """Phase 11: musicgen-large at full width and depth (48 layers, 32 / 32
+    heads of 64, GELU MLP, vocab 2048, untied head, sinusoidal positions
+    on top of RoPE; bf16, random weights from ``torch.Generator`` seed 0)
+    in runs D and S through ``serve_arch`` with phase 9's oracle; then on
+    the same model run A (``AUDIO_REQS`` after ``AUDIO_FRAMES`` audio-frame
+    embeddings, D's path, ``prefix_run``) at cosine ``LOGIT_COS``, and its
+    fused decode step graphed vs eager (``compiled_step``), which must be
+    bitwise equal (the positions are an op inside the captured graph).
+    -> summary, with the gates it missed under ``"missed"`` (the script
+    fails on them after its summary lines)."""
+    missed = []
+
+    def audio_and_graph(model, summary):
+        rcfg, launched = family_runs(MUSICGEN)["D"]
+        summary["A"], c_plain = prefix_run(torch, dev, MUSICGEN, model, rcfg, launched,
+                                           AUDIO_REQS, AUDIO_FRAMES)
+        if c_plain < LOGIT_COS:
+            missed.append(f"{MUSICGEN} A: c_plain {c_plain}")
+        view = model.with_sparse(**dataclasses.asdict(rcfg.sparse))
+        gc.collect()
+        torch.cuda.empty_cache()
+        cache = random_cache(torch, view, CTX, dev)
+        res = compiled_step(torch, MUSICGEN, {"fused": (view, cache,
+                                                        step_lens(torch, CTX, dev))},
+                            dev)["fused"]
+        del cache
+        if not (res["bitwise_first"] and res["bitwise_replay"]):
+            missed.append(f"{MUSICGEN}: the graphed decode step is not bitwise the eager one")
+        summary["step"] = res
+
+    out = serve_arch(torch, dev, MUSICGEN, missed, extra=audio_and_graph)
+    out["missed"] = missed
     return out
 
 
@@ -3823,8 +3924,9 @@ def main() -> int:
     # the same kernels at phase 9's new shapes (head_dim 256, g * BQ 512,
     # 20 kv heads of group 1)
     fam = check_family_kernels(torch, dev)
-    # ... and at phase 10's (granite's head_dim 64, internvl's group 2)
-    moe = check_moe_kernels(torch, dev)
+    # ... and at phase 10's and 11's (granite's head_dim 64, internvl's
+    # group 2, musicgen's 32 kv heads of 64 at group 1)
+    late = check_late_kernels(torch, dev)
     phase_done("2")
 
     cal = calibrate_phase(torch, dev)
@@ -3844,10 +3946,10 @@ def main() -> int:
     t_chunk = time_flash_chunk(torch, dev)
     t_ident = time_paged_identity(torch, ident)
     t_fam = time_family_kernels(torch, dev, fam)
-    t_moe = time_moe_kernels(torch, dev, moe)
+    t_late = time_late_kernels(torch, dev, late)
     fam = {k: {"err": f["err"]} for k, f in fam.items()}   # free their inputs
-    fam.update({k: {"err": f["err"]} for k, f in moe.items()})
-    del moe
+    fam.update({k: {"err": f["err"]} for k, f in late.items()})
+    del late
     phase_done("4")
     # phase 4's numbers now, so that a later phase's failure keeps them
     log(f"phase 4 ({card}): " + json.dumps({
@@ -3855,7 +3957,7 @@ def main() -> int:
         "centroid_scores_quantized": t_csq, "centroid_scores_f32": t_csf,
         "paged_attention": t_pa, "pool_rank_keys": t_pool, "topk_threshold": t_topk,
         "flash_attention": t_chunk, "flash_attention_sxs": t_flash,
-        "paged_identity": t_ident, "phase9_shapes": t_fam, "phase10_shapes": t_moe}))
+        "paged_identity": t_ident, "phase9_shapes": t_fam, "phase10_11_shapes": t_late}))
 
     mem0 = torch.cuda.memory_allocated()
     paths = serve(torch, dev, cal["cfg"], profile=args.profile)
@@ -3878,6 +3980,8 @@ def main() -> int:
     phase_done("9")
     moe_run = serve_moe(torch, dev)
     phase_done("10")
+    music = serve_musicgen(torch, dev)
+    phase_done("11")
     log(f"phase 6 summary (ms; busy = device-busy ms per step): "
         f"{json.dumps({ARCH: paths['step'], QWEN: qwen['step']})}")
     tiered = paths["tiered"]
@@ -3941,19 +4045,25 @@ def main() -> int:
         # phase 7's tiered run (T: fused, plus the page masks' scoring)
         k["ladder_launches"] = paths["ladder"]["counts"][k["name"]]["launches"]
         k["tiered_launches"] = paths["tiered"]["T"]["counts"][k["name"]]["launches"]
-        # max_abs_err over the checks at phase 9's and 10's shapes too
+        # max_abs_err over the checks at phase 9's, 10's and 11's shapes too
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             f["err"][k["name"]] for f in fam.values() if k["name"] in f["err"]])
-        # phase 10's run: launches, and the times at granite's head_dim 64
-        k["moe_launches"] = {f"{INTERNVL} D": moe_run[INTERNVL]["D"]["launches"].get(
-            k["name"], 0)}
-        for model_name, times in t_moe.items():
+        # the served runs of phases 10 and 11: launches, and the times at
+        # granite's, internvl's and musicgen's shapes
+        k["served_launches"] = {f"{arch} {run}": row["launches"].get(k["name"], 0)
+                                for arch, rows in ((GRANITE, moe_run[GRANITE]),
+                                                   (INTERNVL, moe_run[INTERNVL]),
+                                                   (MUSICGEN, music))
+                                for run, row in rows.items()
+                                if isinstance(row, dict) and "launches" in row}
+        for model_name, times in t_late.items():
             if k["name"] in times:
                 t = times[k["name"]]
-                k.update({f"{model_name}_{key}": t[key]
-                          for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+                k.update({f"{model_name}_{key}": t.get(key) for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     log(f"phase 9 summary ({card}): " + json.dumps(family))
     log(f"phase 10 summary ({card}): " + json.dumps(moe_run))
+    log(f"phase 11 summary ({card}): " + json.dumps(music))
     for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "
@@ -3987,9 +4097,15 @@ def main() -> int:
         f"its S x S numbers under sxs_*")
     log(f"seconds by phase: {json.dumps(phase_seconds())}")
     log(f"total {time.perf_counter() - T_START:.1f}s")
+    missed = [f"phase {n}: {m}" for n, run in (("10", moe_run), ("11", music))
+              for m in run["missed"]]
+    if missed:
+        log(f"FAILED gates: {json.dumps(missed)}")
     (out_dir / "chip_smoke.log").write_text("\n".join(LOG) + "\n")
     print(card)
     print(json.dumps({"kernels": kernels_line}))
+    if missed:
+        fail("; ".join(missed))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -91,9 +91,10 @@ class ModelConfig:
     """Decoder architecture (the port serves the ``("attn",)`` pattern;
     ``activation`` is "swiglu", "geglu", "relu2" or "gelu", as JAX's
     ``mlp`` computes them).  ``family`` is "dense", "moe" (``moe`` set:
-    every layer's FFN is :func:`repro_torch.models.moe.moe_ffn`) or "vlm"
-    (``frontend`` "vision_patches": a request may carry
-    ``n_prefix_embeddings`` rows of embeddings that precede its tokens)."""
+    every layer's FFN is :func:`repro_torch.models.moe.moe_ffn`), "vlm"
+    (``frontend`` "vision_patches") or "audio" (``frontend``
+    "audio_frames"); in the last two a request may carry rows of
+    embeddings that precede its tokens."""
 
     name: str
     n_layers: int

@@ -15,15 +15,17 @@ from . import (
     internvl2_2b,
     llama31_8b,
     llama32_3b,
+    musicgen_large,
     nemotron4_340b,
     qwen3_8b,
     qwen3_32b,
     qwen15_4b,
 )
 
-#: the JAX package's ``("attn",)`` decoders (dense, MoE and the vision
-#: front-end's backbone), in its registry's order
+#: the JAX package's ``("attn",)`` decoders (dense, MoE and the vision and
+#: audio front-ends' backbones), in its registry's order
 _MODULES = {
+    "musicgen-large": musicgen_large,
     "qwen1.5-4b": qwen15_4b,
     "gemma-7b": gemma_7b,
     "llama3.2-3b": llama32_3b,

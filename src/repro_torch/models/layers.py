@@ -1,5 +1,5 @@
 """Common layers (counterpart of ``repro.models.layers``): RMSNorm, rotary
-positions, the MLP (SwiGLU, GeGLU, ReLU^2, GELU) or the MoE FFN
+and sinusoidal positions, the MLP (SwiGLU, GeGLU, ReLU^2, GELU) or the MoE FFN
 (``ffn``), attention projections, and the plain chunked causal attention
 of dense prefill.  Weights keep the
 JAX package's ``[d_in, d_out]`` layout, so converted parameters copy as
@@ -39,6 +39,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1 = x[..., :half].to(torch.float32)
     x2 = x[..., half:].to(torch.float32)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoidal_embedding(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Absolute positions ``[...]`` -> ``[..., d]`` f32 ``[sin, cos]`` over
+    ``d / 2`` frequencies (JAX's ``sinusoidal_embedding``), computed on the
+    positions' device."""
+    half = d // 2
+    freqs = torch.exp(
+        -math.log(10000.0)
+        * torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    )
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:

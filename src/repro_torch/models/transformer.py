@@ -1,7 +1,9 @@
 """Decoder with AB-Sparse attention (counterpart of
 ``repro.models.transformer`` for the ``("attn",)`` pattern): each block's
 FFN is the MLP, or with ``cfg.moe`` the MoE FFN (:mod:`.moe`) over JAX's
-token groups (512 tokens in prefill, the ``B`` slots in decode).
+token groups (512 tokens in prefill, the ``B`` slots in decode).  A
+MusicGen model adds sinusoidal absolute positions to its embeddings on
+top of RoPE, as JAX's does (the test is on the config's name).
 
 Entry points:
   prefill          prompt (after optional prefix embeddings) -> KV cache +
@@ -146,13 +148,24 @@ class Transformer(nn.Module):
                      prefix_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens ``[B, S]`` -> ``[B, P + S, d]``: the prefix embeddings
         ``[B, P, d]`` (cast to the model dtype) before the token embeddings,
-        ``P`` by :meth:`prefix_rows`, as JAX's ``embed_inputs`` (whose
-        MusicGen positions are not ported)."""
+        ``P`` by :meth:`prefix_rows`, then MusicGen's positions ``0 .. P +
+        S - 1`` (:meth:`add_positions`), as JAX's ``embed_inputs``."""
         x = self.embed[tokens]
         if self.prefix_rows(prefix_emb):
             pre = torch.as_tensor(prefix_emb, device=self.device).to(x.dtype)
             x = torch.cat([pre, x], dim=1)
-        return x
+        return self.add_positions(x)
+
+    def add_positions(self, x: torch.Tensor,
+                      positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Embeddings ``[B, S, d]`` plus MusicGen's sinusoidal absolute
+        positions at ``positions`` (``[B or 1, S]``; ``0 .. S - 1`` when
+        None), cast to the model dtype; ``x`` itself for any other model."""
+        if not self.cfg.name.startswith("musicgen"):
+            return x
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=self.device)[None]
+        return x + layers.sinusoidal_embedding(positions, self.cfg.d_model).to(x.dtype)
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         w = self.embed.T if self.lm_head is None else self.lm_head
@@ -307,7 +320,9 @@ class Transformer(nn.Module):
         score segment is refreshed with the blocks the chunk completes,
         then each query block attends its forced + top-scored blocks.  The
         decode store is not maintained: call :meth:`refresh_slot_store`
-        after the last chunk.  When the cache carries ``"_ptel"``
+        after the last chunk.  A MusicGen chunk adds its positions at
+        ``offset``, so chunked equals single-shot prefill (JAX's chunk adds
+        none: the port diverges on purpose).  When the cache carries ``"_ptel"``
         (``[n_layers]`` int32), each sparse layer's entry is set to the
         number of (query block, key block) pairs it attended.
         -> (logits [vocab] at the last valid position, cache)."""
@@ -324,7 +339,7 @@ class Transformer(nn.Module):
         bmax = sp.max_block_size
         window = min(-(-(C + 2 * bmax) // bmax) * bmax, S_max)
         positions = (offset + torch.arange(n_valid, device=self.device))[None]
-        x = self.embed[tok][None]                           # [1, n, d]
+        x = self.add_positions(self.embed[tok][None], positions)   # [1, n, d]
         ptel = cache.get("_ptel")
         for l, (layer, e, la) in enumerate(
                 zip(self.layers, cache["layers"], cache["la"])):
@@ -428,7 +443,7 @@ class Transformer(nn.Module):
         if dense or self.backend.full_attention:
             live = torch.clamp(seq_len + 1, max=S_lim)
             table = self.backend.full_page_table(k0, live)
-        x = self.embed[tok][:, None]                        # [B, 1, d]
+        x = self.add_positions(self.embed[tok][:, None], positions)  # [B, 1, d]
         tel = cache.get("_telemetry")
         # tiered KV memory plants "_sel_pages" / "_pre_pages" [B, n_pages]:
         # every sparse layer then reports its selected and margin-predicted

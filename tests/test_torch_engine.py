@@ -130,7 +130,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
               "kernels.flash_attention", "core.calibration", "core.recall",
               "memory.manager", "memory.page_io", "obs.trace", "obs.validate",
               "obs.cost", "serving.frontend", "launch.serve", "models.moe", "models.moe_check",
-              "configs.granite_moe_3b", "configs.grok1_314b", "configs.internvl2_2b"):
+              "configs.granite_moe_3b", "configs.grok1_314b", "configs.internvl2_2b",
+              "configs.musicgen_large"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"

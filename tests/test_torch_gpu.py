@@ -58,7 +58,11 @@ pinned, in-place, bitwise round trip, and a poisoned selected page that
 stalls its sequence without a non-finite row.  Last, tracing toggled on ->
 off -> on a graphed engine: one capture per telemetry variant, replayed
 after every toggle, and logits bitwise equal to an untraced graphed
-engine's.
+engine's.  musicgen-large's attention shape (32 / 32 heads of 64: the
+fused decode and the sparse prefill at group 1 and head_dim 64, flash
+with an offset), and the compiled decode step of granite's and
+musicgen's smoke variants (the MoE routing, the sinusoidal positions
+inside the graph) bitwise the eager one.
 """
 import pytest
 import torch
@@ -127,7 +131,7 @@ def test_fused_decode_kernel_matches_plain(cuda, quant, blocks, sink, local):
 @pytest.mark.parametrize("seq", [(1, 17), (31, 100), (2047, 513)],
                          ids=["edge", "tiny", "ragged"])
 @pytest.mark.parametrize("D,g", [(128, 3), (64, 2), (128, 8), (128, 4), (256, 1),
-                                 (256, 4)])
+                                 (256, 4), (64, 1)])
 def test_fused_decode_kernel_shapes_and_lengths(cuda, seq, D, g):
     _decode(cuda, LAYOUTS["nonuniform"], "int4_asym", seq, 1, 4, D=D, g=g, seed=5)
 
@@ -179,7 +183,7 @@ def test_sparse_prefill_kernel_chunks_and_scales(cuda, off, sq, n_valid, scale):
 
 
 @pytest.mark.parametrize("D,g", [(64, 4), (128, 1), (64, 2), (128, 4), (256, 1),
-                                 (256, 2), (128, 8)])
+                                 (256, 2), (128, 8), (64, 1)])
 def test_sparse_prefill_kernel_shapes(cuda, D, g):
     """Head dims 64, 128 and 256 (one warpgroup a block at 256), groups up
     to 8: g 8 at the default query block of 64 is 512 query rows a cell,
@@ -437,9 +441,9 @@ FLASH_CHUNKS = {
 
 
 @pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (24, 8, 128), (32, 8, 64),
-                                      (24, 8, 64), (16, 16, 256)],
+                                      (24, 8, 64), (16, 16, 256), (32, 32, 64)],
                          ids=["32-8-128", "24-8-128", "32-8-64", "24-8-64",
-                              "16-16-256"])
+                              "16-16-256", "32-32-64"])
 @pytest.mark.parametrize("case", list(FLASH_CHUNKS))
 def test_flash_attention_kernel_with_offset(cuda, case, hq, hkv, d):
     """Queries at an offset over a prefix of the keys, as chunked dense
@@ -688,12 +692,20 @@ def test_graphed_granite_decode_step_matches_eager(cuda, kind):
     _graphed_matches_eager(cuda, kind, False, arch="granite-moe-3b-a800m")
 
 
+@pytest.mark.parametrize("kind", ["fused", "staged", "dense"])
+def test_graphed_musicgen_decode_step_matches_eager(cuda, kind):
+    """The same for musicgen-large's smoke variant: its sinusoidal
+    positions, read from the device lengths, run inside the graph."""
+    _graphed_matches_eager(cuda, kind, False, arch="musicgen-large")
+
+
 def _graphed_matches_eager(cuda, kind, telemetry, arch="llama3.2-3b"):
     from repro_torch import kernels
     from repro_torch.serving import DecodeGraph
 
     model, cache, lens = _graph_case(cuda, kind, telemetry, arch)
-    assert (model.cfg.moe is not None) == (arch != "llama3.2-3b")
+    assert (model.cfg.moe is not None) == (arch == "granite-moe-3b-a800m")
+    assert model.cfg.name.startswith("musicgen") == (arch == "musicgen-large")
     tokens = torch.tensor([7, 100], device=cuda)
     cache["seq_len"].copy_(lens)
     kernels.reset_counts()

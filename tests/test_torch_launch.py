@@ -12,7 +12,8 @@
   replaced by recorders (``monkeypatch``; nothing in ``src/repro``
   changes).
 - ``--arch qwen1.5-4b --smoke`` serves to the end, and ``--arch`` takes
-  every dense decoder of the JAX package;
+  every ``("attn",)`` decoder of the JAX package (dense, MoE, vision and
+  audio);
 - ``--mesh`` exits with the message that multi-device serving is not
   ported.
 """
@@ -166,14 +167,14 @@ def test_requests_equal_jax_launchers(flags, tmp_path, monkeypatch):
 
 def test_launcher_serves_another_arch(capsys):
     """``--arch qwen1.5-4b --smoke`` (QKV bias, MHA: 4 / 4 heads) serves to
-    the end on the CPU, and every dense decoder of the JAX package is one
-    ``--arch`` takes."""
+    the end on the CPU, and every ``("attn",)`` decoder of the JAX package
+    (dense, MoE, vision and audio) is one ``--arch`` takes."""
     from repro.configs import get_config as j_get_config
     from repro.configs import list_archs as j_list_archs
     from repro_torch.configs import list_archs
 
-    assert set(list_archs()) == {a for a in j_list_archs()
-                                 if j_get_config(a).family in ("dense", "moe", "vlm")}
+    assert set(list_archs()) == {a for a in j_list_archs() if j_get_config(a).family
+                                 in ("dense", "moe", "vlm", "audio")}
     eng = tserve.main([
         "--arch", "qwen1.5-4b", "--smoke", "--device", "cpu", "--fused-decode",
         "--requests", "3", "--max-context", "512", "--max-batch", "2",

@@ -1,0 +1,70 @@
+"""The end-to-end gates of ``chip_smoke.py``, on the CPU (the script runs on
+the card only; its gates are plain functions of cosines):
+
+- phase 10a's ``noise_gate`` (``1 - c_plain <= max(5e-4, 2 (1 -
+  c_noise))``, ``c_plain >= 0.998``, ``c_noise >= 0.995``; its constants
+  pinned) passes granite-moe-3b-a800m's runs as measured on an H100
+  before the gate was fixed (D: ``1 - c_plain`` 6.90e-4, S: ``c_plain``
+  0.998967, a one-bf16-step noise control at 0.998953), and fails a
+  control that moves the logits too far, a plain pass under 0.998 and a
+  plain pass past the limit; it also passes the faulty pass that was to
+  fail it on the card (D's plain pass with one selected page left out of
+  layer 16's every decode call: c_plain 0.999300 under c_noise
+  0.997784), which is why phase 10a does not run;
+- phase 9's ``s_gate`` at its own constants.
+
+A few seconds.
+"""
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+#: granite's runs D and S on the card, and its one-step noise control
+GRANITE_D_PLAIN, GRANITE_S_PLAIN, GRANITE_NOISE = 1 - 6.90e-4, 0.998967, 0.998953
+#: the power check on the card: D's faulty plain pass and D's noise control
+GRANITE_FAULT, GRANITE_D_NOISE = 0.999300, 0.997784
+
+
+def test_noise_gate_constants():
+    assert (chip_smoke.NOISE_GATE_FLOOR, chip_smoke.NOISE_GATE_RATIO,
+            chip_smoke.NOISE_MIN_PLAIN, chip_smoke.NOISE_MIN_NOISE) == (5e-4, 2.0, 0.998, 0.995)
+
+
+@pytest.mark.parametrize("c_plain", [GRANITE_D_PLAIN, GRANITE_S_PLAIN], ids=["D", "S"])
+def test_noise_gate_passes_granite_runs(c_plain):
+    ok, limit = chip_smoke.noise_gate("granite", c_plain, GRANITE_NOISE)
+    assert ok
+    assert limit == pytest.approx(2 * (1 - GRANITE_NOISE))
+    # about 2x inside the limit (D) or 1.5x (S)
+    assert 1 - c_plain < limit / 1.5
+
+
+@pytest.mark.parametrize("c_plain,c_noise", [
+    (0.999, 0.9949),            # the control moves the logits too far: broken
+    (0.9979, 0.996),            # the plain pass under 0.998, inside 2 (1 - c_noise)
+    (GRANITE_D_PLAIN, 0.99999),  # past the 5e-4 floor, the control near 1
+    (0.9985, 0.9995),           # past 2 (1 - c_noise)
+], ids=["wide-control", "plain-floor", "floor", "ratio"])
+def test_noise_gate_fails(c_plain, c_noise):
+    ok, _ = chip_smoke.noise_gate("case", c_plain, c_noise)
+    assert not ok
+
+
+@pytest.mark.parametrize("c_plain,c_ctrl,ok", [
+    (1 - 5.05e-4, 1 - 2.92e-4, True),
+    (1 - 6e-4, 1 - 2e-4, False),
+    (0.9989, 0.9989, False),
+])
+def test_s_gate(c_plain, c_ctrl, ok):
+    assert chip_smoke.s_gate("case", c_plain, c_ctrl)[0] == ok
+
+
+def test_noise_gate_passes_the_power_checks_fault():
+    ok, limit = chip_smoke.noise_gate("power check", GRANITE_FAULT, GRANITE_D_NOISE)
+    assert ok and limit == pytest.approx(4.43e-3, rel=1e-3)
