@@ -201,7 +201,8 @@ launched the pooling and scoring kernels and called no plain version.
    ``COST_LAYERS`` layers.
 
 9. (after phase 3b; ``serve_family``) the JAX package's other dense
-   decoders at full width and depth, one on the card at a time (bf16,
+   decoders at full width, cut in depth to a quarter of their layers
+   (``FAMILY_LAYERS``), one on the card at a time (bf16,
    random weights from ``torch.Generator`` seed 0, INT4-asym quest store,
    T 4096, block sizes ``(16, 32, 64)[(layer + head) % 3]``, chunks of
    512, 16 new tokens, temperature 0): llama3.1-8b, qwen1.5-4b and
@@ -211,7 +212,7 @@ launched the pooling and scoring kernels and called no plain version.
    (``sparse_prefill`` + ``fused_decode``), gemma-7b also G (the staged
    rung: ``flash_attention``, ``centroid_scores_quantized``,
    ``paged_attention`` at head_dim 256 / Dp 512); qwen3-32b (65.5 GB of
-   weights) at a reduced max_batch of 2 on requests 1 and 2 (6500 and
+   weights at full depth) at a reduced max_batch of 2 on requests 1 and 2 (6500 and
    12000 tokens).  Each run launches its path's kernels and no other,
    calls no plain version and ends on rung 0; each is served again through
    the plain versions, fed its tokens (qwen3-32b: request 1 alone at
@@ -223,9 +224,18 @@ launched the pooling and scoring kernels and called no plain version.
 10. (after phase 9; ``serve_moe``) granite-moe-3b-a800m at full width
    and depth (32 layers, 24 / 8 heads of 64, 40 experts top-8 of d_ff
    512, vocab 49155, tied, bf16, capacity factor 1.25 as published,
-   random weights from ``torch.Generator`` seed 0).  a) is not run:
-   granite served end to end has no oracle with teeth yet (``noise_gate``
-   passed a faulty pass on the card: ``ROADMAP.md`` §3).  b) the MoE FFN on the card
+   random weights from ``torch.Generator`` seed 0).  a) granite served
+   end to end (``serve_oracle``) in phase 9's runs D and S with step
+   graphs off, every ``flash_attention``, ``sparse_prefill`` and
+   ``fused_decode`` call held against its plain version on its own inputs
+   under ``kernels.parity``'s rules (``call_oracle``), the run going on
+   with the kernels' outputs; power checks on layer 16's calls, each
+   faulted copy of which must be flagged while every clean call is held:
+   one selected page per (sequence, kv head) swapped for the
+   lowest-scored live page the plain selection left out (every decode),
+   a seeded 1% of the output moved by 4 bf16 steps (D's flash calls).
+   (``noise_gate``, the end-to-end gate this replaces, passed a faulty
+   pass on the card: ``ROADMAP.md`` §3.)  b) the MoE FFN on the card
    against the same function in f32 on the CPU
    (``repro_torch.models.moe_check.compare_moe_ffn``) on the inputs of one
    layer that granite's entry points give it: a whole chunk, a padded
@@ -236,8 +246,9 @@ launched the pooling and scoring kernels and called no plain version.
    (single-shot prefill through ``flash_attention``, fused decode), then
    through the plain versions fed its tokens: cosine ``LOGIT_COS``.
 
-11. (after phase 10; ``serve_musicgen``) musicgen-large at full width and
-   depth (48 layers, 32 / 32 heads of 64, GELU MLP of 8192, vocab 2048,
+11. (after phase 10; ``serve_musicgen``) musicgen-large at full width,
+   24 of its 48 layers (``FAMILY_LAYERS``; 32 / 32 heads of 64, GELU MLP
+   of 8192, vocab 2048,
    untied head, sinusoidal absolute positions on top of RoPE; bf16,
    random weights from ``torch.Generator`` seed 0) in phase 9's runs D
    (cosine ``LOGIT_COS``) and S (``s_gate``, each plain sparse prefill
@@ -247,6 +258,27 @@ launched the pooling and scoring kernels and called no plain version.
    tokens at cosine ``LOGIT_COS``; and the fused decode step graphed vs
    eager, which must be bitwise equal (the positions are an op inside the
    captured graph).
+
+12. (after phase 11; ``serve_recurrent``) the recurrent families at full
+   width and depth (bf16, random weights from ``torch.Generator`` seed 0,
+   ``SparseConfig(enabled=False)``: no kernel of the port lies on their
+   path, since JAX computes RG-LRU, wkv6 and local attention in plain
+   jnp): recurrentgemma-9b (38 layers: 12 cycles of rglru, rglru,
+   local_attn, then rglru, rglru; d 4096, MQA 16 heads of 256, window
+   2048, GeGLU 12288, vocab 256000, tied) and rwkv6-3b (32 layers, d 2560,
+   40 heads of 64, ReLU^2 8960, vocab 65536).  a) prompts of 700, 2040,
+   3000 and 5000 tokens x 16 served at batch 4, context 8192, each
+   prefilled in one shot (``_chunkable`` False, no prefix cache), the
+   graphed decode step.  b) a single-shot prefill of each prompt and its
+   first 0, 8, 15 served tokens against the engine's logits there
+   (cosine ``LOGIT_COS``).  c) the 3000-token prompt prefilled, then fed
+   its tokens: every layer's state (ring buffers, ``h``, ``conv``, ``S``,
+   ``xprev``) against a single-shot prefill after 1 and 16 fed tokens,
+   relative L2 5e-2.  d) power checks (``REC_FAULTS``) that must fail c).
+   e) one layer of each kind on its served inputs, card against the CPU
+   in f32 (rows within 2e-2).  f) the graphed step bitwise the eager one,
+   its ms, kernels and peak memory.  No kernel launches and no plain
+   version runs.
 
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -303,10 +335,10 @@ PREFILL_FORCED_SPLITS = (1, 5)
 #: dense flash attention: sequence length of the check against the plain
 #: version (its [24, S, S] f32 logits fit in memory) and of the timing
 FLASH_CHECK_S, FLASH_TIME_S = 4096, CTX
-#: qwen3-8b at full width (phase 3b) and its GQA group; it runs 9 of its 36
+#: qwen3-8b at full width (phase 3b) and its GQA group; it runs 5 of its 36
 #: layers (cut in depth to keep the whole script well inside its time
-#: limit: llama3.1-8b serves the same layer shapes at full depth in phase 9)
-QWEN, QG, QWEN_LAYERS = "qwen3-8b", 4, 9
+#: limit: llama3.1-8b serves the same layer shapes, at 8 layers, in phase 9)
+QWEN, QG, QWEN_LAYERS = "qwen3-8b", 4, 5
 #: flash attention as chunked dense prefill calls it: a chunk at the middle
 #: of the context over the keys written so far of a CTX-row cache row, and
 #: at an offset that is no multiple of the 64-key tile
@@ -2155,7 +2187,9 @@ def random_cache(torch, model, ctx, dev):
 
 
 def written_state(cache):
-    """Clones of every cache tensor a decode step writes."""
+    """Clones of every cache tensor a decode step writes (KV pages or ring
+    buffers, store codes, recurrent states)."""
+    from repro_torch.models.transformer import CARRIED
     from repro_torch.serving.graphs import _PLANTED
 
     out = {"seq_len": cache["seq_len"].clone()}
@@ -2163,10 +2197,25 @@ def written_state(cache):
         if key in cache:
             out[key] = cache[key].clone()
     for l, e in enumerate(cache["layers"]):
-        for name in ("k", "v", "codes"):
+        for name in ("k", "v", "codes") + CARRIED:
             if name in e:
                 out[f"{name}[{l}]"] = e[name].clone()
     return out
+
+
+def carried_state(cache):
+    """-> a function that puts back the recurrent states a decode step
+    advances from their own values (``models.transformer.CARRIED``) as they
+    are now."""
+    from repro_torch.models.transformer import CARRIED
+
+    kept = [(t, t.clone()) for e in cache["layers"] for n, t in e.items() if n in CARRIED]
+
+    def restore():
+        for t, k in kept:
+            t.copy_(k)
+
+    return restore
 
 
 def state_diff(torch, want, cache) -> dict:
@@ -2212,8 +2261,9 @@ def step_variants(torch, model, cfgs, dev, qwen: bool):
 
 def compiled_step(torch, label, variants, dev):
     """Phase 6 a) and c) for one model: each variant's ``decode_step`` run
-    eagerly and through a ``DecodeGraph`` from the same state (first call:
-    warm-up, capture, replay; then one more replay), logits and every
+    eagerly and through a ``DecodeGraph`` from the same state (the lengths
+    and recurrent states put back; first call: warm-up, capture, replay;
+    then one more replay), logits and every
     written cache tensor compared (bitwise; else max |diff| per tensor is
     printed and the logits must reach cosine ``GRAPH_COS`` with the same
     argmax); then ``STEP_ROUNDS`` rounds in turns of ``STEP_WARMUP`` +
@@ -2229,11 +2279,13 @@ def compiled_step(torch, label, variants, dev):
     graphs, out = {}, {}
     for name, (view, cache, lens) in variants.items():
         cache["seq_len"].copy_(lens)
+        restore = carried_state(cache)
         want_logits = view.decode_step(cache, tokens)[0].clone()
         want = written_state(cache)
         graph = graphs[name] = DecodeGraph(view.decode_step, cache)
         for call in ("first call", "replay"):
             cache["seq_len"].copy_(lens)
+            restore()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits = graph(cache, tokens)[0]
@@ -3114,7 +3166,7 @@ def serve_qwen(torch, dev):
     log(f"{QWEN} weights: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params "
         f"bf16 ({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} "
         f"GB), untied head, {model.cfg.n_layers} of its 36 layers (a depth cut: "
-        f"phase 9 serves its layer shapes at full depth), init "
+        f"phase 9 serves its layer shapes in llama3.1-8b), init "
         f"{time.perf_counter() - t0:.1f}s")
     runs = {}
     for name, (cfg, reqs, prompts, serve_kw, launched, hit) in runs_cfg.items():
@@ -3180,13 +3232,21 @@ def serve_qwen(torch, dev):
 #: at max_batch 2, a reduced batch on one card, and its plain and control
 #: runs request 1 alone at max_batch 1
 FAMILY_REQS, FAMILY_NEW = (0, 1, 3), 16
+#: phase 9's models and phase 11's musicgen run their first layers only
+#: (full width, cut in depth to keep the whole script inside its time
+#: limit with phases 10a and 12; every gate as before): llama3.1-8b 8 of
+#: 32, qwen1.5-4b 10 of 40, gemma-7b 7 of 28, qwen3-32b 16 of 64,
+#: musicgen-large 24 of 48
+FAMILY_LAYERS = {"llama3.1-8b": 8, "qwen1.5-4b": 10, "gemma-7b": 7, "qwen3-32b": 16,
+                 "musicgen-large": 24}
 QWEN32_REQS, QWEN32_PLAIN_REQS, QWEN32_BATCH = (1, 2), (1,), 2
 #: the S runs' gate: ``1 - c_plain <= max(S_GATE_FLOOR, S_GATE_RATIO *
 #: (1 - c_ctrl))`` with both cosines at least ``S_MIN_COS``, where c_plain
 #: is the plain run's least logit cosine to the kernel run and c_ctrl the
 #: control run's (the kernel with one split a call)
 S_GATE_FLOOR, S_GATE_RATIO, S_MIN_COS = 5e-4, 2.0, 0.999
-#: phase 10a's gate (fixed before any run, the same for D and S):
+#: the end-to-end gate phase 10a had before its per-call oracle (kept and
+#: tested, called by no phase: it passed a faulty pass on the card):
 #: ``1 - c_plain <= max(NOISE_GATE_FLOOR, NOISE_GATE_RATIO * (1 -
 #: c_noise))`` with ``c_plain >= NOISE_MIN_PLAIN`` and ``c_noise >=
 #: NOISE_MIN_NOISE``, where c_noise is the least logit cosine to the kernel
@@ -3196,8 +3256,9 @@ NOISE_GATE_FLOOR, NOISE_GATE_RATIO, NOISE_MIN_PLAIN, NOISE_MIN_NOISE = 5e-4, 2.0
 
 
 def family_runs(arch):
-    """Phase 9's runs of ``arch`` at full width and depth: name -> (config,
-    kernels the run must launch).  D is the repo's default configuration
+    """Phase 9's runs of ``arch`` at full width, at full depth or the depth
+    ``FAMILY_LAYERS`` cuts it to: name -> (config, kernels the run must
+    launch).  D is the repo's default configuration
     (``"cuda"``, fused decode, dense chunked prefill through
     ``flash_attention``), S the sparse main path (``sparse_prefill`` and
     the fused decode), G (gemma-7b only) the staged rung (scoring kernel,
@@ -3206,6 +3267,8 @@ def family_runs(arch):
     from repro_torch.configs import get_config
 
     base = get_config(arch)
+    if arch in FAMILY_LAYERS:
+        base = dataclasses.replace(base, n_layers=FAMILY_LAYERS[arch])
     pattern = tuple(
         tuple((16, 32, 64)[(l + h) % 3] for h in range(base.n_kv_heads))
         for l in range(base.n_layers))
@@ -3220,6 +3283,33 @@ def family_runs(arch):
             d.sparse, fused_decode=False)),
             {"flash_attention", "centroid_scores_quantized", "paged_attention"})
     return runs
+
+
+def hold_prefill_call(torch, args, kw, kernel):
+    """Hold one sparse prefill call's kernel outputs ``kernel`` = (out,
+    n_attended, selected) against the plain version (``sparse_prefill_ref``
+    with its extras) on the wrapper's own inputs ``args`` / ``kw``, under
+    ``parity``'s rules: ``n_attended`` equal, a block chosen by one version
+    only a scored candidate within ``TIE_RTOL`` of its cell's K-th score,
+    every output row of the other cells within one bf16 step and 1e-2
+    relative L2 -> ({"cells", "tie_cells", "ties", "max_abs_err",
+    "max_rel_l2", "tol_use"}, the plain (out, n_attended, selected));
+    raises ``AssertionError`` otherwise."""
+    from repro_torch.kernels import parity, ref
+
+    q6, rq6, kp, vp, codes, scale, zero, la, k_sel, n_valid, qb0 = args
+    out_k, att_k, sel_k = kernel
+    rows = ref.dequant_score_rows(codes, scale, zero, kw["bits"], kw["symmetric"])
+    out, n_att, extra = ref.sparse_prefill_ref(
+        q6, rq6, kp, vp, rows, la, k_sel, n_valid, int(qb0), kw["block_q"],
+        kw["sink_pages"], kw["local_pages"], extras=True)
+    sel = extra["selected"]
+    assert torch.equal(att_k, n_att), "sparse_prefill: n_attended differs"
+    ties = parity.check_prefill_ties(sel_k ^ sel, extra, k_sel)
+    keep = (~ties)[..., None, None].expand(out.shape[:-1])
+    err, rel, use = parity.check_outputs(out_k, out, keep, "sparse_prefill while serving")
+    return ({"cells": ties.numel(), "tie_cells": int(ties.sum()), "ties": ties,
+             "max_abs_err": err, "max_rel_l2": rel, "tol_use": use}, (out, n_att, sel))
 
 
 @contextlib.contextmanager
@@ -3285,27 +3375,21 @@ def prefill_selections(mode, record, stats=None):
         key = next_key()
         sp.plain_calls += 1
         args = (q6, rq6, kp, vp, codes, scale, zero, la, k_sel, n_valid, qb0)
-        rows = ref.dequant_score_rows(codes, scale, zero, bits, symmetric)
-        out, n_att, extra = ref.sparse_prefill_ref(
-            q6, rq6, kp, vp, rows, la, k_sel, n_valid, int(qb0), block_q,
-            sink_pages, local_pages, extras=True)
-        sel = extra["selected"]
+        kw = dict(bits=bits, symmetric=symmetric, block_q=block_q,
+                  sink_pages=sink_pages, local_pages=local_pages)
         launched = sp.launches
-        out_k, att_k, sel_k = orig_kernel(
-            *args, bits=bits, symmetric=symmetric, block_q=block_q,
-            sink_pages=sink_pages, local_pages=local_pages, return_selected=True)
+        out_k, att_k, sel_k = orig_kernel(*args, return_selected=True, **kw)
         sp.launches = launched          # a comparison launch, not the run's path
         try:
-            assert torch.equal(att_k, n_att), "sparse_prefill: n_attended differs"
-            ties = parity.check_prefill_ties(sel_k ^ sel, extra, k_sel)
-            keep = (~ties)[..., None, None].expand(out.shape[:-1])
-            parity.check_outputs(out_k, out, keep, "sparse_prefill while serving")
+            res, (out, n_att, sel) = hold_prefill_call(torch, args, kw,
+                                                       (out_k, att_k, sel_k))
         except AssertionError as e:
             fail(f"{key}: {e}")
         stats["calls"] += 1
-        stats["cells"] += ties.numel()
-        stats["tie_cells"] += int(ties.sum())
-        if bool(ties.any()):
+        stats["cells"] += res["cells"]
+        stats["tie_cells"] += res["tie_cells"]
+        if res["tie_cells"]:
+            ties = res["ties"]
             sel = torch.where(ties[..., None], sel_k, sel)
             out = ref.prefill_attention_ref(q6, kp, vp, sel, la, n_valid, int(qb0),
                                             block_q)[0]
@@ -3338,6 +3422,278 @@ def selection_drift(what, ref_sel, other):
     return [moved[l] / cells[l] for l in sorted(cells)]
 
 
+#: phase 10a's power checks: the layer whose kernel calls are faulted (a
+#: copy of each output, held as the clean one is; the run keeps the
+#: clean output), the bf16 steps the flash fault moves an element by and
+#: the share of elements it moves
+ORACLE_FAULT_LAYER, FLASH_FAULT_STEPS, FLASH_FAULT_SHARE = 16, 4, 0.01
+#: the kernels phase 10a holds call by call
+ORACLE_KERNELS = ("flash_attention", "sparse_prefill", "fused_decode")
+
+
+def oracle_stats():
+    """Per kernel: calls held, calls flagged (clean calls whose kernel
+    output broke a rule), near ties, largest element and row errors; per
+    fault: calls faulted, those the rules flagged, and each faulted call's
+    change and clean difference over its live (sequence, kv head) rows."""
+    return {"calls": {k: {"held": 0, "flagged": [], "near_ties": 0, "max_abs_err": 0.0,
+                          "max_rel_l2": 0.0, "tol_use": 0.0} for k in ORACLE_KERNELS},
+            "faults": {"fused_decode": {"calls": 0, "flagged": 0, "missed": [],
+                                        "change": [], "clean": [], "swapped": [],
+                                        "unfaultable": []},
+                       "flash_attention": {"calls": 0, "flagged": 0, "missed": [],
+                                           "change": [], "clean": []}}}
+
+
+def kv_rows_rel(torch, a, b, n_kv, live=None):
+    """Relative L2 distance of ``a`` from ``b`` per (sequence, kv head):
+    each kv head's query heads flattened into one row (decode ``[B, Hq,
+    D]``, flash ``[B, Hq, S, D]``), sequences where ``live`` holds ->
+    list."""
+    a, b = a.float(), b.float()
+    a, b = a.reshape(a.shape[0], n_kv, -1), b.reshape(b.shape[0], n_kv, -1)
+    rel = (a - b).norm(dim=-1) / b.norm(dim=-1).clamp(min=1e-30)
+    if live is not None:
+        rel = rel[live]
+    return rel.flatten().tolist()
+
+
+def median_max(vals):
+    v = sorted(vals)
+    return [v[len(v) // 2], v[-1]] if v else [0.0, 0.0]
+
+
+def decode_fault(torch, args, kw, kernel, plain):
+    """Power check 1 on one fused decode call: in a copy of the kernel's
+    page table, one selected page per (sequence, kv head) — the first page
+    of its lowest-scored selected block, a forced one only when no other
+    is selected — is swapped for the first page of the live block with the
+    lowest score that the plain selection did not choose (none: the row
+    keeps its table); the output is recomputed over the faulted table
+    (the plain paged attention) -> ((out, table, valid), rows swapped [B,
+    H] bool)."""
+    from repro_torch.core.selection import NEG_INF, POS_INF, mask_and_pin_scores
+    from repro_torch.kernels import paged_attention, parity
+
+    q, rq, kp, vp, codes, scale, zero, la, seq_len = args
+    out_k, tbl_k, vld = kernel
+    _, tbl_p, _ = plain
+    s = parity.decode_block_scores(rq, codes, scale, zero, la, kw["bits"],
+                                   kw["symmetric"])
+    m = mask_and_pin_scores(s, la, seq_len, kw["sink_pages"], kw["local_pages"])
+    B, H, M = m.shape
+    ppb = la.pages_per_block.long()[None, :, None]
+
+    def chosen(tbl):
+        blk = torch.where(vld, tbl.long() // ppb, M).clamp(max=M)
+        sel = torch.zeros((B, H, M + 1), dtype=torch.bool, device=m.device)
+        return sel.scatter(-1, blk, True)[..., :M]
+
+    live = m > NEG_INF / 2
+    cand = torch.where(live & (m < POS_INF / 2) & ~chosen(tbl_p), m, float("inf"))
+    new_blk = cand.argmin(-1)                                  # [B, H]
+    ok = torch.isfinite(cand.min(-1).values)
+    # the kernel's lowest-scored selected block (a forced one when no other)
+    old_blk = torch.where(live & chosen(tbl_k), m, float("inf")).argmin(-1)
+    slot_blk = torch.where(vld, tbl_k.long() // ppb, -1)
+    first = (slot_blk == old_blk[..., None]).long().argmax(-1)  # its first slot
+    tbl_f = tbl_k.clone()
+    new_page = (new_blk * la.pages_per_block.long()[None, :]).to(tbl_f.dtype)
+    cur = tbl_f.gather(-1, first[..., None])[..., 0]
+    tbl_f.scatter_(-1, first[..., None], torch.where(ok, new_page, cur)[..., None])
+    out_f = paged_attention.paged_attention_plain(q, kp, vp, tbl_f, vld, seq_len,
+                                                  la.page_size)
+    return (out_f, tbl_f, vld), ok
+
+
+def flash_fault(torch, out, seed):
+    """Power check 2 on one flash call: a copy of its output with a seeded
+    ``FLASH_FAULT_SHARE`` of the elements moved away from zero by
+    ``FLASH_FAULT_STEPS`` bf16 steps (``torch.Generator`` ``seed``, on the
+    CPU)."""
+    gen = torch.Generator().manual_seed(seed)
+    pick = (torch.rand(out.shape, generator=gen) < FLASH_FAULT_SHARE).to(out.device)
+    x = out.float()
+    step = torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126))) - 7)
+    moved = x + torch.sign(x) * FLASH_FAULT_STEPS * step
+    return torch.where(pick, moved, x).to(out.dtype)
+
+
+@contextlib.contextmanager
+def call_oracle(stats, fault_layer=None):
+    """Phase 10a's per-call oracle.  Within, every ``flash_attention``,
+    ``sparse_prefill`` and ``fused_decode`` kernel call of
+    ``Transformer.prefill_chunk`` / ``decode_step`` also runs its plain
+    version on the same inputs, and the two are held under
+    ``kernels.parity``'s rules (``hold_flash_attention``,
+    ``hold_prefill_call``, ``hold_fused_decode``); the call returns the
+    kernel's outputs, so the run's tokens are the kernels'.  Calls are
+    keyed as ``prefill_selections`` keys them: the chunk (its tokens'
+    hash, offset, length) or the decode step (its index), then the layer.
+    A clean call that breaks a rule is recorded under ``stats["calls"][k]
+    ["flagged"]``.  On ``fault_layer``'s calls the comparator runs a
+    second time on a faulted copy of the kernel's output
+    (``decode_fault``, ``flash_fault``), which must be flagged; its change
+    and the clean difference are logged per call over the live (sequence,
+    kv head) rows.  The comparison's own work (plain calls, the faulted
+    copy's paged attention) is taken off the kernels' counts."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import parity
+    from repro_torch.kernels import sparse_prefill as sp
+    from repro_torch.models import Transformer
+
+    cur = {"key": None, "layer": 0, "step": 0}
+    saved = (Transformer.prefill_chunk, Transformer.decode_step, fd.fused_decode,
+             fa.flash_attention, sp.sparse_prefill)
+    orig_chunk, orig_step, orig_fd, orig_fa, orig_sp = saved
+
+    def keyed_chunk(self, cache, slot, tokens, offset, n_valid):
+        digest = hashlib.sha1(np.asarray(tokens[:n_valid]).tobytes()).hexdigest()
+        cur.update(key=("chunk", digest[:12], int(offset), int(n_valid)), layer=0)
+        try:
+            return orig_chunk(self, cache, slot, tokens, offset, n_valid)
+        finally:
+            cur["key"] = None
+
+    def keyed_step(self, cache, tokens):
+        cur.update(key=("decode", cur["step"]), layer=0)
+        cur["step"] += 1
+        try:
+            return orig_step(self, cache, tokens)
+        finally:
+            cur["key"] = None
+
+    def next_key():
+        if cur["key"] is None:
+            fail("a kernel call outside a prefill chunk or a decode step")
+        cur["layer"] += 1
+        return cur["key"] + (cur["layer"] - 1,)
+
+    def record(name, key, res):
+        st = stats["calls"][name]
+        st["held"] += 1
+        st["near_ties"] += res.get("near_ties", res.get("tie_cells", 0))
+        for f in ("max_abs_err", "max_rel_l2", "tol_use"):
+            st[f] = max(st[f], res[f])
+
+    def hold(name, key, fn):
+        try:
+            record(name, key, fn())
+            return True
+        except AssertionError as e:
+            stats["calls"][name]["flagged"].append(f"{key}: {e}")
+            return False
+
+    def faulted(name, key, fn, change, clean):
+        st = stats["faults"][name]
+        st["calls"] += 1
+        try:
+            fn()
+            st["missed"].append(str(key))
+        except AssertionError:
+            st["flagged"] += 1
+        st["change"].append(median_max(change))
+        st["clean"].append(median_max(clean))
+
+    def oracle_fd(q, rq, kp, vp, codes, scale, zero, la, seq_len, *, bits, symmetric,
+                  sink_pages, local_pages, n_split=None):
+        key = next_key()
+        args = (q, rq, kp, vp, codes, scale, zero, la, seq_len)
+        kw = dict(bits=bits, symmetric=symmetric, sink_pages=sink_pages,
+                  local_pages=local_pages)
+        kernel = orig_fd(*args, n_split=n_split, **kw)
+        counts = kernels.counts()
+        plain = fd.fused_decode_plain(*args, **kw)
+
+        def held(out):
+            return lambda: parity.hold_fused_decode(
+                q, rq, codes, scale, zero, la, bits, symmetric, sink_pages,
+                local_pages, seq_len, out, plain)
+
+        hold("fused_decode", key, held(kernel))
+        if key[-1] == fault_layer:
+            bad, swapped = decode_fault(torch, args, kw, kernel, plain)
+            if bool(swapped.any()):
+                live = seq_len > 1
+                n_kv = kp.shape[1]
+                faulted("fused_decode", key, held(bad),
+                        kv_rows_rel(torch, bad[0], kernel[0], n_kv, live),
+                        kv_rows_rel(torch, kernel[0], plain[0], n_kv, live))
+                stats["faults"]["fused_decode"]["swapped"].append(int(swapped.sum()))
+            else:
+                # every live block of every live row selected: no page to swap
+                stats["faults"]["fused_decode"]["unfaultable"].append(str(key))
+        kernels.reset_counts()
+        kernels.add_counts(counts)
+        return kernel
+
+    def oracle_fa(q, k, v, causal=True, q_offset=0, k_len=None):
+        key = next_key()
+        out = orig_fa(q, k, v, causal, q_offset, k_len)
+        counts = kernels.counts()
+        plain = fa.flash_attention_plain(q, k, v, causal, q_offset, k_len)
+        hold("flash_attention", key, lambda: parity.hold_flash_attention(out, plain))
+        if key[-1] == fault_layer:
+            bad = flash_fault(torch, out, seed=len(stats["faults"]["flash_attention"]
+                                                   ["change"]))
+            n_kv = k.shape[1]
+            faulted("flash_attention", key, lambda: parity.hold_flash_attention(bad, plain),
+                    kv_rows_rel(torch, bad, out, n_kv), kv_rows_rel(torch, out, plain, n_kv))
+        kernels.reset_counts()
+        kernels.add_counts(counts)
+        return out
+
+    def oracle_sp(*args, return_selected=False, n_split=None, **kw):
+        key = next_key()
+        out_k, att_k, sel_k = orig_sp(*args, return_selected=True, n_split=n_split, **kw)
+        counts = kernels.counts()
+        hold("sparse_prefill", key,
+             lambda: hold_prefill_call(torch, args, kw, (out_k, att_k, sel_k))[0])
+        kernels.reset_counts()
+        kernels.add_counts(counts)
+        return (out_k, att_k, sel_k) if return_selected else (out_k, att_k)
+
+    Transformer.prefill_chunk, Transformer.decode_step = keyed_chunk, keyed_step
+    fd.fused_decode, fa.flash_attention, sp.sparse_prefill = oracle_fd, oracle_fa, oracle_sp
+    try:
+        yield
+    finally:
+        (Transformer.prefill_chunk, Transformer.decode_step, fd.fused_decode,
+         fa.flash_attention, sp.sparse_prefill) = saved
+
+
+def oracle_misses(what, stats, launched, fault_layer, n_layers):
+    """What phase 10a's oracle found wrong in one run -> list: a clean call
+    flagged, a faulted call held, a kernel launched more or fewer times
+    than its calls were held (``launched``: the run's launches), a
+    fault-layer call that was not faulted."""
+    out = []
+    for name, st in stats["calls"].items():
+        if st["flagged"]:
+            out.append(f"{what}: {len(st['flagged'])} clean {name} calls flagged, "
+                       f"first {st['flagged'][0]}")
+        if st["held"] != launched.get(name, 0):
+            out.append(f"{what}: {st['held']} {name} calls held of "
+                       f"{launched.get(name, 0)} launched")
+    for name, f in stats["faults"].items():
+        held = stats["calls"][name]["held"]
+        if f["missed"]:
+            out.append(f"{what}: the {name} fault was held at {f['missed'][:3]}")
+        unfaultable = len(f.get("unfaultable", ()))
+        if held and (f["calls"] + unfaultable != held // n_layers or not f["calls"]):
+            out.append(f"{what}: {f['calls']} {name} calls faulted at layer "
+                       f"{fault_layer} (and {unfaultable} with no page to swap) of "
+                       f"{held // n_layers}")
+    return out
+
+
 def s_gate(what, c_plain, c_ctrl):
     """Tentpole gate of an S run -> (passed, the limit on 1 - c_plain)."""
     limit = max(S_GATE_FLOOR, S_GATE_RATIO * (1 - c_ctrl))
@@ -3354,9 +3710,10 @@ def noise_gate(what, c_plain, c_noise):
     1 - c_plain): ``1 - c_plain <= max(NOISE_GATE_FLOOR, NOISE_GATE_RATIO
     * (1 - c_noise))`` with ``c_plain >= NOISE_MIN_PLAIN`` and ``c_noise
     >= NOISE_MIN_NOISE`` (a control that moves the logits further is a
-    broken control).  Phase 10a does not run: on the card this gate
-    passed granite's runs and also a pass with a page left out in one
-    layer's decode (``ROADMAP.md`` §3)."""
+    broken control).  No phase calls it now: on the card this gate passed
+    granite's runs and also a pass with a page left out in one layer's
+    decode (``ROADMAP.md`` §3), so phase 10a runs under the per-call
+    oracle (``call_oracle``) instead."""
     limit = max(NOISE_GATE_FLOOR, NOISE_GATE_RATIO * (1 - c_noise))
     ok = (1 - c_plain <= limit and c_plain >= NOISE_MIN_PLAIN
           and c_noise >= NOISE_MIN_NOISE)
@@ -3390,7 +3747,7 @@ def serve_pass(torch, dev, what, model, cfg, launched, reqs, new_tokens, hit,
 
 
 def family_model(torch, dev, arch, cfg):
-    """``arch`` at full width and depth on the card under ``cfg``: bf16,
+    """``arch`` on the card at ``cfg``'s width and depth: bf16,
     random weights from ``torch.Generator`` seed 0 (peak memory counted
     from here)."""
     from repro_torch.models import Transformer
@@ -3753,11 +4110,69 @@ def prefix_run(torch, dev, arch, model, rcfg, launched, reqs, n_prefix):
             "greedy_equal": [same, n_steps]}, c_plain
 
 
+def serve_oracle(torch, dev, arch, model, missed):
+    """Phase 10a: ``arch`` served end to end in phase 9's runs D and S
+    (``family_runs``: requests ``FAMILY_REQS`` x ``FAMILY_NEW``, batch 4,
+    context 16384, chunks of 512) with step graphs off, every kernel call
+    held against its plain version on its own inputs (``call_oracle``),
+    the power checks on layer ``ORACLE_FAULT_LAYER``'s calls.  No
+    plain-fed pass and no end-to-end cosine: the per-call oracle replaces
+    both.  What it finds wrong goes to ``missed`` -> {run: summary}."""
+    from repro_torch.serving.graphs import step_graphs_disabled
+
+    out = {}
+    n_layers = model.cfg.n_layers
+    runs = family_runs(arch)
+    for name, (rcfg, launched) in runs.items():
+        stats = oracle_stats()
+        t0 = time.perf_counter()
+        what = f"phase 10a {arch} run {name}"
+        with step_graphs_disabled():
+            run = serve_pass(torch, dev, what, model, rcfg, launched, FAMILY_REQS,
+                             FAMILY_NEW, True,
+                             selecting=call_oracle(stats, ORACLE_FAULT_LAYER))
+        launches = {k: c["launches"] for k, c in run["counts"].items() if c["launches"]}
+        miss = oracle_misses(what, stats, launches, ORACLE_FAULT_LAYER, n_layers)
+        missed.extend(miss)
+        calls = {k: dict(v, flagged=len(v["flagged"])) for k, v in stats["calls"].items()
+                 if v["held"] or v["flagged"]}
+        faults = {}
+        for k, f in stats["faults"].items():
+            if not f["calls"] and not f.get("unfaultable"):
+                continue
+            faults[k] = {"calls": f["calls"], "flagged": f["flagged"],
+                         "held": len(f["missed"]),
+                         "unfaultable": len(f.get("unfaultable", ())),
+                         "rows_swapped": f.get("swapped"),
+                         "change_median_max_per_call": f["change"],
+                         "clean_median_max_per_call": f["clean"],
+                         "change_median_of_medians": median_max(
+                             [c[0] for c in f["change"]])[0],
+                         "clean_max": max((c[1] for c in f["clean"]), default=0.0)}
+        tokens = {r: [run["tokens"][k] for k in sorted(run["tokens"]) if k[0] == r]
+                  for r in FAMILY_REQS}
+        row = {"launches": launches, "decode_steps": run["steps"]["decode_step"],
+               "prefill_chunks": run["steps"]["prefill_chunk"], "wall_s": run["wall"],
+               "calls": calls, "faults": faults, "greedy_tokens": tokens,
+               "missed": miss, "run_s": time.perf_counter() - t0}
+        log(f"{what} (step graphs off, sparse_prefill {rcfg.sparse.sparse_prefill}): "
+            f"every kernel call held against its plain version on its own inputs: "
+            f"{json.dumps(calls)}")
+        log(f"{what}: power checks on layer {ORACLE_FAULT_LAYER}'s calls (the run kept "
+            f"the clean outputs): {json.dumps(faults)}")
+        log(f"{what}: greedy tokens {json.dumps({str(r): t for r, t in tokens.items()})}; "
+            f"{'passed' if not miss else 'FAILED: ' + '; '.join(miss)}; "
+            f"took {row['run_s']:.1f}s")
+        out[name] = row
+    use_config(model, runs["D"][0])
+    return out
+
+
 def serve_moe(torch, dev):
     """Phase 10 on granite-moe-3b-a800m at full width and depth (bf16,
     random weights from ``torch.Generator`` seed 0, capacity factor 1.25
-    as published; a), granite served end to end, is not run: ``ROADMAP.md``
-    §3).  b) the MoE FFN on the card against the same function in f32 on
+    as published).  a) granite served end to end in runs D and S under the
+    per-call oracle (``serve_oracle``).  b) the MoE FFN on the card against the same function in f32 on
     the CPU (``moe_check.compare_moe_ffn``) on the inputs of one layer that
     its entry points give it (``moe_inputs``): a whole chunk, a padded
     chunk, a decode step.  c) the decode step graphed vs eager and the MoE FFN's
@@ -3792,7 +4207,8 @@ def serve_moe(torch, dev):
         summary["step"] = moe_step(torch, view, dev, *probe["decode"])
 
     model = family_model(torch, dev, GRANITE, family_runs(GRANITE)["D"][0])
-    out[GRANITE] = {}
+    out[GRANITE] = serve_oracle(torch, dev, GRANITE, model, missed)
+    phase_done("10a")
     moe_checks(model, out[GRANITE])
     peak = torch.cuda.max_memory_allocated()
     out[GRANITE]["peak_gib"] = peak / 2**30
@@ -3829,8 +4245,9 @@ AUDIO_REQS, AUDIO_FRAMES = (3,), 256
 
 
 def serve_musicgen(torch, dev):
-    """Phase 11: musicgen-large at full width and depth (48 layers, 32 / 32
-    heads of 64, GELU MLP, vocab 2048, untied head, sinusoidal positions
+    """Phase 11: musicgen-large at full width, 24 of its 48 layers
+    (``FAMILY_LAYERS``; 32 / 32 heads of 64, GELU MLP, vocab 2048, untied
+    head, sinusoidal positions
     on top of RoPE; bf16, random weights from ``torch.Generator`` seed 0)
     in runs D and S through ``serve_arch`` with phase 9's oracle; then on
     the same model run A (``AUDIO_REQS`` after ``AUDIO_FRAMES`` audio-frame
@@ -3860,6 +4277,405 @@ def serve_musicgen(torch, dev):
         summary["step"] = res
 
     out = serve_arch(torch, dev, MUSICGEN, missed, extra=audio_and_graph)
+    out["missed"] = missed
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent families (recurrentgemma-9b, rwkv6-3b)
+# ---------------------------------------------------------------------------
+
+RGEMMA, RWKV = "recurrentgemma-9b", "rwkv6-3b"
+#: phase 12's serving: context, batch, new tokens, and the prompts (numpy
+#: seed 12): 2040 tokens decode across recurrentgemma's 2048-token window
+REC_CTX, REC_BATCH, REC_NEW = 8192, 4, 16
+REC_PROMPTS = (700, 2040, 3000, 5000)
+#: b) the served steps whose logits a single-shot prefill of the prompt and
+#: the tokens before them must reproduce (cosine ``LOGIT_COS``)
+REC_JS = (0, 8, 15)
+#: c) the request whose prompt is prefilled and then decoded with its served
+#: tokens, the fed tokens after which every layer's state is compared with
+#: a single-shot prefill (1: the state a prefill hands over, before it
+#: decays; 16: after the issue's 16 tokens), and the relative L2 limit
+REC_STATE_REQ, REC_STATE_AT, REC_STATE_RTOL = 2, (1, 16), 5e-2
+#: d) the power checks: (layer, cache entries the prefill leaves zeroed,
+#: whether the check is gated); each gated fault must move its layer's
+#: state past ``REC_FAULT_MIN`` and fail c).  recurrentgemma's final
+#: ``h`` alone is logged, not gated: its decay exp(-8 softplus(lam) r) is
+#: about e^-8.5 or less a token at r near 0.5, so the recurrence forgets
+#: it within one token and no continuation can see it; its gated fault
+#: zeroes ``h`` and the conv tail, which the next decode steps read
+REC_FAULTS = {RGEMMA: ((19, ("h",), False), (19, ("h", "conv"), True),
+                       (20, ("k", "v"), True)),
+              RWKV: ((16, ("S",), True),)}
+REC_FAULT_MIN = 0.5
+#: e) the layers whose mixing runs on the card and in f32 on the CPU on
+#: their served inputs (request ``REC_STATE_REQ``'s prompt; rwkv's first
+#: 512 tokens), rows within relative L2 ``REC_CPU_RTOL``
+REC_CPU_LAYERS = {RGEMMA: (19, 20), RWKV: (16,)}
+REC_CPU_RWKV_TOKENS, REC_CPU_RTOL = 512, 2e-2
+#: calls of the prefill mixing timed on those layers' inputs
+MIX_WARMUP, MIX_ITERS = 1, 3
+
+
+def rec_traffic(vocab: int):
+    """Phase 12's prompts, ``REC_PROMPTS`` tokens (numpy seed 12)."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    return [rng.integers(0, vocab, n).astype(np.int64) for n in REC_PROMPTS]
+
+
+@contextlib.contextmanager
+def mixing_hook(layers_at, fn):
+    """Within, ``fn(l, entry, h)`` runs after layer ``l``'s prefill mixing
+    for ``l`` in ``layers_at`` (``h``: its input after the first norm)."""
+    from repro_torch.models import Transformer
+
+    orig = Transformer._mix_prefill
+
+    def hooked(self, l, layer, h, e, positions):
+        out = orig(self, l, layer, h, e, positions)
+        if l in layers_at:
+            fn(l, e, h)
+        return out
+
+    Transformer._mix_prefill = hooked
+    try:
+        yield
+    finally:
+        Transformer._mix_prefill = orig
+
+
+def rec_states(torch, model, cache):
+    """Every local-attention / recurrent layer's state, by layer and entry:
+    clones of the ring buffers (all slots: c) compares past the window,
+    where every slot is live) and states."""
+    return {(l, name): t.clone() for l, e in enumerate(cache["layers"])
+            for name, t in e.items()}
+
+
+def rel_l2(torch, a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def rec_continuation(torch, model, prompt, fed, dev, fault=None, refs=None):
+    """c) / d): ``prompt`` prefilled single-shot (under ``fault``: (layer,
+    entries zeroed after its prefill mixing)), then decoded with the
+    ``fed`` tokens; after each of ``REC_STATE_AT`` fed tokens every
+    layer's state against a single-shot prefill of the prompt and the
+    tokens fed so far (``refs``: {j: (logits, states)} of those prefills,
+    filled on first use) -> ({j: {(layer, entry): relative L2}}, the last
+    step's logits' cosine to the reference prefill's)."""
+    refs = {} if refs is None else refs
+    tok = torch.as_tensor(prompt, device=dev)[None]
+    fed_t = torch.as_tensor(fed, device=dev)
+    hook = contextlib.nullcontext()
+    if fault is not None:
+        layer, names = fault
+        hook = mixing_hook({layer}, lambda l, e, h: [e[n].zero_() for n in names])
+    with hook:
+        logits, cache = model.prefill(tok, max_context=REC_CTX)
+    out, cos = {}, None
+    for j in range(1, max(REC_STATE_AT) + 1):
+        logits, cache = model.decode_step(cache, fed_t[j - 1:j])
+        if j in REC_STATE_AT:
+            if j not in refs:
+                want, ref = model.prefill(torch.cat([tok, fed_t[None, :j]], 1),
+                                          max_context=REC_CTX)
+                refs[j] = (want, rec_states(torch, model, ref))
+                del ref
+            want, ref_states = refs[j]
+            got = rec_states(torch, model, cache)
+            out[j] = {key: rel_l2(torch, t, got[key]) for key, t in ref_states.items()}
+            cos = rec_cos(torch, logits, want)
+    return out, cos
+
+
+def rec_cpu_check(torch, model, inputs, dev):
+    """e) each captured layer's mixing (``models.transformer.mix_prefill``:
+    its served bf16 input after the first norm -> output) on the card and
+    in f32 on the CPU (the layer's weights upcast, a fresh cache entry) ->
+    {layer: worst and median row's relative L2}."""
+    from repro_torch.models.layers import DecoderLayer
+    from repro_torch.models.transformer import mix_prefill, state_entry
+
+    cpu_cfg = dataclasses.replace(model.cfg, dtype="float32")
+    out = {}
+    for l, h in inputs.items():
+        layer = model.layers[l]
+        if layer.kind == "rwkv":
+            h = h[:, :REC_CPU_RWKV_TOKENS]
+        S = h.shape[1]
+        e = state_entry(model.cfg, layer.kind, 1, REC_CTX, model.dtype, dev)
+        got = mix_prefill(model.cfg, layer, h, e,
+                          torch.arange(S, device=dev)[None]).float().cpu()
+        cpu_layer = DecoderLayer(cpu_cfg, torch.float32, "cpu", layer.kind)
+        with torch.no_grad():
+            for name, p in cpu_layer.named_parameters():
+                p.copy_(getattr(layer, name).float().cpu())
+        e = state_entry(cpu_cfg, layer.kind, 1, REC_CTX, torch.float32, "cpu")
+        want = mix_prefill(cpu_cfg, cpu_layer, h.float().cpu(), e, torch.arange(S)[None])
+        rows = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp(min=1e-30)
+        out[l] = {"kind": layer.kind, "tokens": S, "max_row_rel_l2": float(rows.max()),
+                  "median_row_rel_l2": float(rows.median())}
+    return out
+
+
+def rec_mixing_times(torch, model, inputs):
+    """The plain PyTorch mixing of each captured layer over its served
+    3000-token input by CUDA events (``MIX_WARMUP`` + ``MIX_ITERS`` calls,
+    a fresh state entry each), and for an RWKV layer its recurrence alone
+    (``rwkv6.wkv_chunked`` on the layer's own r, k, v, decays) in chunks
+    of ``rwkv6.CHUNK`` tokens and in chunks of one, the plain loop over
+    time -> {layer: {"kind", "tokens", "mix_ms", ...}}."""
+    from repro_torch.models import rwkv6
+    from repro_torch.models.transformer import mix_prefill, state_entry
+
+    out = {}
+    for l, h in inputs.items():
+        layer = model.layers[l]
+        S = h.shape[1]
+        pos = torch.arange(S, device=h.device)[None]
+        e = state_entry(model.cfg, layer.kind, 1, REC_CTX, model.dtype, h.device)
+        row = {"kind": layer.kind, "tokens": S, "mix_ms": cuda_time_ms(
+            torch, lambda: mix_prefill(model.cfg, layer, h, e, pos), MIX_WARMUP, MIX_ITERS)}
+        if layer.kind == "rwkv":
+            prev = torch.nn.functional.pad(h, (0, 0, 1, 0))[:, :-1]
+            r, k, v, _, logw = rwkv6._projections(layer, h, prev, model.cfg.rwkv_head_dim)
+            r, k, v = r.float(), k.float(), v.float()
+            S0 = torch.zeros(e["S"].shape, dtype=torch.float32, device=h.device)
+            for name, chunk in (("wkv_chunked_ms", rwkv6.CHUNK), ("wkv_loop_ms", 1)):
+                row[name] = cuda_time_ms(
+                    torch, lambda c=chunk: rwkv6.wkv_chunked(r, k, v, logw, layer.u, S0, c),
+                    1 if chunk == 1 else MIX_WARMUP, 1 if chunk == 1 else MIX_ITERS)
+        out[l] = row
+    return out
+
+
+def rec_graph_step(torch, model, dev):
+    """f) phase 6's ``compiled_step`` on a ``REC_BATCH`` x ``REC_CTX`` cache
+    of random ring buffers and recurrent states (generator seed 7) at
+    lengths near the end of the context: bitwise, times, kernels a step."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cache = model.init_cache(REC_BATCH, REC_CTX)
+    for e in cache["layers"]:
+        for t in e.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.5)
+    res = compiled_step(torch, model.cfg.name, {"fused": (
+        model, cache, step_lens(torch, REC_CTX, dev))}, dev)["fused"]
+    del cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def rec_cos(torch, a, b):
+    """Cosine of two logit rows in f64 (an f32 cosine over 256000 entries
+    is off by up to 3e-5)."""
+    return float(torch.nn.functional.cosine_similarity(
+        a.double().reshape(1, -1), b.double().reshape(1, -1))[0])
+
+
+def rec_serve(torch, dev, arch, model, what, keep=None):
+    """a) ``REC_PROMPTS`` x ``REC_NEW`` tokens through ``Engine`` at batch
+    ``REC_BATCH``, context ``REC_CTX``, the graphed decode step, each
+    prompt prefilled in one shot, nothing launched; ``keep`` (as
+    ``mixing_hook``'s ``fn``) sees the prefill's mixing inputs -> (summary,
+    the served tokens and logits by (request, step))."""
+    cfg = model.cfg
+    eng = make_engine(cfg, model, dev, range(len(REC_PROMPTS)), REC_NEW,
+                      prompts=rec_traffic(cfg.vocab_size), max_context=REC_CTX,
+                      max_batch=REC_BATCH)
+    if eng._chunkable or eng.prefix_cache is not None or eng.serve.prefill_chunk <= 0:
+        fail(f"{what}: the engine would chunk prompts or cache prefixes")
+    with mixing_hook(set(REC_CPU_LAYERS[arch]), keep or (lambda l, e, h: None)):
+        run = run_engine(torch, eng, record=True)
+    check_served(eng, run["done"], len(REC_PROMPTS), REC_NEW, cfg.vocab_size,
+                 prefix_hit=False)
+    snap = eng.metrics.snapshot()
+    log_serving(f"{what} (single-shot prefill, graphed decode)", run, snap)
+    used = {k: c for k, c in run["counts"].items() if c["launches"] or c["plain_calls"]}
+    if used:
+        fail(f"{what}: kernels or plain versions ran: {used}")
+    row = {"wall_s": run["wall"], "ttft_p50": snap["ttft_p50"], "tpot_p50": snap["tpot_p50"],
+           "graph_steps": run["graph_steps"], "decode_steps": run["steps"]["decode_step"]}
+    del run["probe"], eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = {r: [run["tokens"][(r, j)] for j in range(REC_NEW)]
+              for r in range(len(REC_PROMPTS))}
+    return row, served, run["logits"]
+
+
+def rec_oracles(torch, dev, arch, model, what, gated, missed):
+    """a) ``rec_serve``, b) the continuation oracle on the logits (not
+    ``gated``: at the last j only), c) on every layer's state, and with
+    ``gated`` d) the power checks; a missed gate goes to ``missed`` when
+    ``gated`` (else it is only logged) -> (summary, e)'s captured
+    inputs)."""
+    inputs = {}
+    want_len = REC_PROMPTS[REC_STATE_REQ]
+
+    def keep(l, e, h):
+        if h.shape[1] == want_len and l not in inputs:
+            inputs[l] = h.clone()
+
+    row, served, logits = rec_serve(torch, dev, arch, model, what, keep)
+    prompts = rec_traffic(model.cfg.vocab_size)
+    miss = []
+    # b) continuation oracle, logits
+    cos = {}
+    for r, prompt in enumerate(prompts):
+        for j in REC_JS if gated else REC_JS[-1:]:
+            toks = torch.as_tensor(list(prompt) + served[r][:j], device=dev)[None]
+            lg = model.prefill(toks, max_context=REC_CTX)[0][0].cpu()
+            cos[f"{r}@{j}"] = rec_cos(torch, lg, logits[(r, j)])
+    worst = min(cos.values())
+    row["continuation_cos"] = cos
+    log(f"{what} b): single-shot prefill of the prompt and the first j served tokens "
+        f"vs the engine's logits at step j (cosine in f64): {json.dumps(cos)}; min "
+        f"{worst:.7f} (>= {LOGIT_COS}{'' if gated else ', logged, not gated'})")
+    if not worst >= LOGIT_COS:
+        miss.append(f"{what} b): cosine {worst}")
+    # c) continuation oracle, every layer's state
+    prompt, fed = prompts[REC_STATE_REQ], served[REC_STATE_REQ]
+    refs = {}
+    states, c_cos = rec_continuation(torch, model, prompt, fed, dev, refs=refs)
+    worst_c = {j: max(v.values()) for j, v in states.items()}
+    row["state_rel_l2"] = {j: {f"{l}.{n}": x for (l, n), x in v.items()}
+                           for j, v in states.items()}
+    row["state_worst"] = worst_c
+    log(f"{what} c): prefill of {len(prompt)} tokens, then fed tokens, vs a "
+        f"single-shot prefill: every layer's state relative L2 at {REC_STATE_AT} fed "
+        f"tokens {json.dumps(row['state_rel_l2'])}; worst {json.dumps(worst_c)} (<= "
+        f"{REC_STATE_RTOL}{'' if gated else ', logged, not gated'}); logit cosine "
+        f"{c_cos:.7f}")
+    if max(worst_c.values()) > REC_STATE_RTOL:
+        miss.append(f"{what} c): state relative L2 {worst_c}")
+    if gated:
+        # d) power checks
+        row["faults"] = []
+        for layer, names, gate in REC_FAULTS[arch]:
+            f_states, f_cos = rec_continuation(torch, model, prompt, fed, dev,
+                                               fault=(layer, names), refs=refs)
+            own = {j: max(x for (l, n), x in v.items() if l == layer)
+                   for j, v in f_states.items()}
+            fails_c = max(max(v.values()) for v in f_states.values()) > REC_STATE_RTOL
+            seen = max(own.values()) > REC_FAULT_MIN and fails_c
+            row["faults"].append({"layer": layer, "zeroed": list(names), "gated": gate,
+                                  "layer_state_rel_l2": own, "fails_c": fails_c,
+                                  "logit_cos": f_cos})
+            log(f"{what} d): layer {layer} ({model.layers[layer].kind}) with "
+                f"{'/'.join(names)} zeroed after its prefill: its state's relative L2 by "
+                f"fed tokens {json.dumps(own)} (> {REC_FAULT_MIN}), c) "
+                f"{'fails' if fails_c else 'passes'}, logit cosine {f_cos:.7f}"
+                + ("" if gate else " (logged, not gated)"))
+            if gate and not seen:
+                miss.append(f"{what} d): the layer {layer} fault {names} passed its "
+                            f"gate ({own})")
+    del refs
+    if gated:
+        missed.extend(miss)
+    return row, inputs
+
+
+def upcast(torch, model, dev):
+    """A float32 copy of ``model`` (every weight upcast; the bf16 values
+    exactly)."""
+    from repro_torch.models import Transformer
+
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    out = Transformer(cfg, device=dev)
+    out.backend = model.backend
+    with torch.no_grad():
+        for (name, p), (_, q) in zip(out.named_parameters(), model.named_parameters()):
+            p.copy_(q)
+    return out
+
+
+def serve_recurrent(torch, dev):
+    """Phase 12: recurrentgemma-9b and rwkv6-3b at full width and depth
+    (random weights from ``torch.Generator`` seed 0), one on the card at a
+    time, no hand-written kernel launched and no plain version run (JAX
+    computes these layers in plain jnp: no Pallas kernel exists for them).
+
+    On the served bf16 model: a) ``rec_serve``; b) and c) as below, logged
+    only: cuBLAS rounds a one-row product otherwise than the same rows of
+    a prompt's, and the bf16 residual stream carries those steps through
+    every layer, so decode and prefill part by more than the gates allow
+    with no fault in either; e) ``rec_cpu_check`` on ``REC_CPU_LAYERS``;
+    f) ``rec_graph_step``.  Then on a float32 copy of the same weights
+    (JAX's own continuation invariant is an f32 one, ``tests/
+    test_models.py``), gated: a) again; b) for each request and each j of
+    ``REC_JS``, a single-shot prefill of the prompt and the first j served
+    tokens against the engine's logits at step j, cosine ``LOGIT_COS``; c)
+    request ``REC_STATE_REQ``'s prompt prefilled, then decoded with its
+    served tokens: every layer's state against a single-shot prefill at
+    each of ``REC_STATE_AT`` fed tokens, relative L2 ``REC_STATE_RTOL``;
+    d) ``REC_FAULTS``: each gated fault must move its layer's state past
+    ``REC_FAULT_MIN`` and fail c) -> summary with the gates it missed
+    under ``"missed"``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+
+    out, missed = {}, []
+    kernels.reset_counts()
+    for arch in (RGEMMA, RWKV):
+        t_arch = time.perf_counter()
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, sparse=dataclasses.replace(
+            base.sparse, backend="cuda", fused_decode=True))
+        model = family_model(torch, dev, arch, cfg)
+        row = {}
+        row["bf16"], inputs = rec_oracles(torch, dev, arch, model, f"phase 12 {arch} bf16",
+                                          False, missed)
+        # e) card against CPU
+        cpu = rec_cpu_check(torch, model, inputs, dev)
+        row["card_vs_cpu"] = cpu
+        log(f"phase 12 {arch} e): mixing on the served bf16 inputs, card vs the CPU "
+            f"in f32: {json.dumps(cpu)} (rows <= {REC_CPU_RTOL})")
+        row["mixing_ms"] = rec_mixing_times(torch, model, inputs)
+        log(f"phase 12 {arch}: the plain prefill mixing of one layer of each kind over "
+            f"{REC_PROMPTS[REC_STATE_REQ]} tokens, ms by CUDA events: "
+            f"{json.dumps(row['mixing_ms'])}")
+        if set(cpu) != set(REC_CPU_LAYERS[arch]) or any(
+                v["max_row_rel_l2"] > REC_CPU_RTOL for v in cpu.values()):
+            missed.append(f"{arch} e): {json.dumps(cpu)}")
+        del inputs
+        # f) the graphed step
+        step = rec_graph_step(torch, model, dev)
+        row["step"] = step
+        log(f"phase 12 {arch} f): graphed vs eager decode step: bitwise first call "
+            f"{step['bitwise_first']}, replay {step['bitwise_replay']}; ms min / median "
+            f"/ max eager {fmt_rounds(step['eager'])}, graphed "
+            f"{fmt_rounds(step['graphed'])}; device busy per step eager "
+            f"{step['busy_eager']:.4f}, graphed {step['busy_graphed']:.4f}; device "
+            f"kernels per step {step['kernels_eager']:.0f} / {step['kernels_graphed']:.0f}")
+        if not (step["bitwise_first"] and step["bitwise_replay"]):
+            missed.append(f"{arch} f): graphed step not bitwise: "
+                          f"{json.dumps({k: v for k, v in step.items() if 'diff' in k})}")
+        peak = torch.cuda.max_memory_allocated()
+        row["peak_gib_bf16"] = peak / 2**30
+        # a) - d) on a float32 copy of the weights, gated
+        model32 = upcast(torch, model, dev)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["f32"], _ = rec_oracles(torch, dev, arch, model32, f"phase 12 {arch} f32",
+                                    True, missed)
+        peak = torch.cuda.max_memory_allocated()
+        row["peak_gib"] = peak / 2**30
+        row["seconds"] = time.perf_counter() - t_arch
+        log(f"{arch}: peak device memory allocated {peak / 2**30:.2f} GiB (bf16 model "
+            f"{row['peak_gib_bf16']:.2f}); {arch} took {row['seconds']:.1f}s")
+        out[arch] = row
+        del model32
+        gc.collect()
+        torch.cuda.empty_cache()
+    used = {k: c for k, c in kernels.counts().items() if c["launches"] or c["plain_calls"]}
+    if used:
+        fail(f"phase 12 launched hand-written kernels or their plain versions: {used}")
     out["missed"] = missed
     return out
 
@@ -3982,6 +4798,8 @@ def main() -> int:
     phase_done("10")
     music = serve_musicgen(torch, dev)
     phase_done("11")
+    rec = serve_recurrent(torch, dev)
+    phase_done("12")
     log(f"phase 6 summary (ms; busy = device-busy ms per step): "
         f"{json.dumps({ARCH: paths['step'], QWEN: qwen['step']})}")
     tiered = paths["tiered"]
@@ -4064,6 +4882,7 @@ def main() -> int:
     log(f"phase 9 summary ({card}): " + json.dumps(family))
     log(f"phase 10 summary ({card}): " + json.dumps(moe_run))
     log(f"phase 11 summary ({card}): " + json.dumps(music))
+    log(f"phase 12 summary ({card}): " + json.dumps(rec))
     for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "
@@ -4097,7 +4916,8 @@ def main() -> int:
         f"its S x S numbers under sxs_*")
     log(f"seconds by phase: {json.dumps(phase_seconds())}")
     log(f"total {time.perf_counter() - T_START:.1f}s")
-    missed = [f"phase {n}: {m}" for n, run in (("10", moe_run), ("11", music))
+    missed = [f"phase {n}: {m}" for n, run in (("10", moe_run), ("11", music),
+                                                 ("12", rec))
               for m in run["missed"]]
     if missed:
         log(f"FAILED gates: {json.dumps(missed)}")

@@ -132,8 +132,12 @@ class AttentionPlan:
 
 @functools.lru_cache(maxsize=128)
 def build_plan(model_cfg: ModelConfig, context_len: int) -> AttentionPlan:
+    """The one place layouts are derived from a model config and context:
+    active when AB-Sparse is enabled, some layer attends and the context
+    holds at least twice the budget, as in JAX."""
     sp = model_cfg.sparse
-    active = context_len >= 2 * sp.budget_for(context_len)
+    active = (sp.enabled and not model_cfg.is_attention_free
+              and context_len >= 2 * sp.budget_for(context_len))
     layouts: Tuple[RaggedLayout, ...] = ()
     if active:
         budget = sp.budget_for(context_len)

@@ -20,6 +20,10 @@ PAGE_SIZE: int = 16  # finest granularity == B_min; physical page size.
 class SparseConfig:
     """AB-Sparse configuration (paper §3)."""
 
+    #: False turns AB-Sparse off: the plan is inactive at every context
+    #: (dense decode, no store), as for a model whose layers hold no
+    #: growing KV cache (recurrentgemma's local attention, rwkv6).
+    enabled: bool = True
     #: attention backend: "reference" (plain PyTorch) | "cuda" (hand-written
     #: Hopper kernels; their plain versions on CPU tensors).
     backend: str = "reference"
@@ -88,13 +92,17 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Decoder architecture (the port serves the ``("attn",)`` pattern;
-    ``activation`` is "swiglu", "geglu", "relu2" or "gelu", as JAX's
-    ``mlp`` computes them).  ``family`` is "dense", "moe" (``moe`` set:
-    every layer's FFN is :func:`repro_torch.models.moe.moe_ffn`), "vlm"
-    (``frontend`` "vision_patches") or "audio" (``frontend``
-    "audio_frames"); in the last two a request may carry rows of
-    embeddings that precede its tokens."""
+    """Decoder architecture (``activation`` is "swiglu", "geglu", "relu2"
+    or "gelu", as JAX's ``mlp`` computes them).  ``family`` is "dense",
+    "moe" (``moe`` set: every layer's FFN is
+    :func:`repro_torch.models.moe.moe_ffn`), "vlm" (``frontend``
+    "vision_patches"), "audio" (``frontend`` "audio_frames"; in these two
+    a request may carry rows of embeddings that precede its tokens),
+    "hybrid" or "ssm".  ``layer_pattern`` is cycled over the layers:
+    "attn" (global attention, AB-Sparse when enabled), "local_attn"
+    (sliding window of ``local_window`` tokens), "rglru" (Griffin's
+    recurrent block) or "rwkv" (RWKV-6 time mixing, heads of
+    ``rwkv_head_dim``)."""
 
     name: str
     n_layers: int
@@ -113,6 +121,8 @@ class ModelConfig:
     family: str = "dense"
     moe: Optional[MoEConfig] = None
     layer_pattern: Tuple[str, ...] = ("attn",)
+    local_window: int = 2048
+    rwkv_head_dim: int = 64
     #: modality front-end stub: None | "vision_patches" | "audio_frames"
     frontend: Optional[str] = None
     n_prefix_embeddings: int = 0
@@ -122,12 +132,22 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    def layer_kind(self, layer: int) -> str:
+        return self.layer_pattern[layer % len(self.layer_pattern)]
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        return tuple(self.layer_kind(i) for i in range(self.n_layers))
+
     @property
     def attn_layers(self) -> Tuple[int, ...]:
         """Indices of the attention layers (global or local), as in JAX."""
-        kinds = [self.layer_pattern[i % len(self.layer_pattern)]
-                 for i in range(self.n_layers)]
-        return tuple(i for i, k in enumerate(kinds) if k in ("attn", "local_attn"))
+        return tuple(i for i, k in enumerate(self.layer_kinds)
+                     if k in ("attn", "local_attn"))
+
+    @property
+    def is_attention_free(self) -> bool:
+        return len(self.attn_layers) == 0
 
 
 @dataclass(frozen=True)

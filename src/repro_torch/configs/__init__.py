@@ -20,10 +20,13 @@ from . import (
     qwen3_8b,
     qwen3_32b,
     qwen15_4b,
+    recurrentgemma_9b,
+    rwkv6_3b,
 )
 
-#: the JAX package's ``("attn",)`` decoders (dense, MoE and the vision and
-#: audio front-ends' backbones), in its registry's order
+#: every config of the JAX package's registry, in its order: the
+#: ``("attn",)`` decoders (dense, MoE, the vision and audio front-ends'
+#: backbones) and the recurrent families (recurrentgemma-9b, rwkv6-3b)
 _MODULES = {
     "musicgen-large": musicgen_large,
     "qwen1.5-4b": qwen15_4b,
@@ -32,7 +35,9 @@ _MODULES = {
     "nemotron-4-340b": nemotron4_340b,
     "granite-moe-3b-a800m": granite_moe_3b,
     "grok-1-314b": grok1_314b,
+    "recurrentgemma-9b": recurrentgemma_9b,
     "internvl2-2b": internvl2_2b,
+    "rwkv6-3b": rwkv6_3b,
     "llama3.1-8b": llama31_8b,
     "qwen3-8b": qwen3_8b,
     "qwen3-32b": qwen3_32b,
@@ -53,7 +58,8 @@ def get_config(name: str) -> ModelConfig:
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
-    """Tiny widths, two layers, vocab 256, float32; an MoE keeps top-K up
+    """Tiny widths, ``max(2, len(layer_pattern))`` layers, vocab 256,
+    float32, a local window of 64; MHA and MQA kept; an MoE keeps top-K up
     to 2 of 4 experts at lossless capacity, a front-end up to 8 prefix
     embeddings."""
     n_heads = 4
@@ -85,6 +91,7 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         d_ff=128,
         vocab_size=256,
         moe=moe,
+        local_window=64,
         n_prefix_embeddings=min(cfg.n_prefix_embeddings, 8),
         sparse=sparse,
         dtype="float32",

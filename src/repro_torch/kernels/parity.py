@@ -88,34 +88,54 @@ def compare_fused_decode(q, rq, k, v, store, la, sparse, seq_len, n_split=None):
     "tie_heads", "kernel": (out, table, valid), "plain": (out, table,
     valid)}; ``page_valid`` must match exactly."""
     args = (q, rq, k, v, store, la, sparse.sink_pages, sparse.local_pages, seq_len)
-    out_k, tbl_k, vld_k = ops.fused_decode(*args, **_split_kw(n_split))
-    out_p, tbl_p, vld_p = ops.fused_decode_reference(*args)
+    kernel = ops.fused_decode(*args, **_split_kw(n_split))
+    plain = ops.fused_decode_reference(*args)
     torch.cuda.synchronize()
+    res = hold_fused_decode(q, rq, store.codes, store.scale, store.zero, la,
+                            store.bits, store.symmetric, sparse.sink_pages,
+                            sparse.local_pages, seq_len, kernel, plain)
+    return dict(res, kernel=kernel, plain=plain)
+
+
+def decode_block_scores(rq, codes, scale, zero, la, bits, symmetric):
+    """The plain version's block scores ``[B, H, M]`` of a decode step (each
+    kv head's largest over its query group), before masking."""
+    B, n_kv = rq.shape[0], la.n_heads
+    g = rq.shape[1] // n_kv
+    rows = ref.dequant_store_rows(codes, scale, zero, la, bits, symmetric)
+    return ref.row_scores(rows[:, la.scatter_rows.long()],
+                          rq.float().reshape(B, n_kv, g, -1)).amax(dim=2)
+
+
+def hold_fused_decode(q, rq, codes, scale, zero, la, bits, symmetric,
+                      sink_pages, local_pages, seq_len, kernel, plain):
+    """Hold one fused decode call's outputs ``kernel`` = (out, table,
+    valid) against the plain version's ``plain`` on the same inputs (the
+    kernel wrapper's arguments): ``page_valid`` exactly, the page sets
+    equal up to near ties, every output row of a head without one within
+    the bf16 rule -> {"max_abs_err", "max_rel_l2", "tol_use", "near_ties",
+    "tie_heads"}; raises ``AssertionError`` otherwise."""
+    out_k, tbl_k, vld_k = kernel
+    out_p, tbl_p, vld_p = plain
     assert torch.equal(vld_k, vld_p), "fused_decode: page_valid differs"
-    B, n_q, _ = q.shape
-    n_kv = k.shape[1]
-    g = n_q // n_kv
-    rows = ref.dequant_store_rows(store.codes, store.scale, store.zero, la,
-                                  store.bits, store.symmetric)
-    s = ref.row_scores(rows[:, la.scatter_rows.long()],
-                       rq.float().reshape(B, n_kv, g, -1)).amax(dim=2)
-    diff = _selection_diff(s, la, sparse, seq_len, tbl_k, tbl_p, vld_k,
-                           "fused_decode")
+    g = q.shape[1] // la.n_heads
+    s = decode_block_scores(rq, codes, scale, zero, la, bits, symmetric)
+    diff = _selection_diff(s, la, sink_pages, local_pages, seq_len, tbl_k, tbl_p,
+                           vld_k, "fused_decode")
     tie_heads = diff.any(-1)                                   # [B, H]
     keep = (~tie_heads).repeat_interleave(g, dim=1)            # [B, n_q]
     err, rel, use = check_outputs(out_k, out_p, keep, "fused_decode")
     return {"max_abs_err": err, "max_rel_l2": rel, "tol_use": use,
-            "near_ties": int(diff.sum()), "tie_heads": int(tie_heads.sum()),
-            "kernel": (out_k, tbl_k, vld_k), "plain": (out_p, tbl_p, vld_p)}
+            "near_ties": int(diff.sum()), "tie_heads": int(tie_heads.sum())}
 
 
-def _selection_diff(scores, la, sparse, seq_len, tbl_k, tbl_p, valid, what):
+def _selection_diff(scores, la, sink_pages, local_pages, seq_len, tbl_k, tbl_p,
+                    valid, what):
     """Blocks ``[B, H, M]`` that only one of two page tables (same
     ``valid``) selects; each must be a near tie of its head's K-th score
     under ``scores`` (the plain version's, before masking)."""
     B, n_kv, M = scores.shape
-    s = mask_and_pin_scores(scores, la, seq_len, sparse.sink_pages,
-                            sparse.local_pages)
+    s = mask_and_pin_scores(scores, la, seq_len, sink_pages, local_pages)
     thr = torch.sort(s, dim=-1, descending=True).values
     thr = thr.gather(-1, (la.top_k.long() - 1)[None, :, None].expand(B, -1, 1))
     ppb = la.pages_per_block.long()[None, :, None]
@@ -173,8 +193,8 @@ def compare_centroid_scores(rq, store, la, sparse, seq_len):
     tbl_k, vld_k = select_page_table(s_k, la, **sel)
     tbl_p, vld_p = select_page_table(s_p, la, **sel)
     assert torch.equal(vld_k, vld_p), "centroid_scores: page_valid differs"
-    diff = _selection_diff(s_p, la, sparse, seq_len, tbl_k, tbl_p, vld_k,
-                           "centroid_scores")
+    diff = _selection_diff(s_p, la, sparse.sink_pages, sparse.local_pages, seq_len,
+                           tbl_k, tbl_p, vld_k, "centroid_scores")
     return {"max_abs_err": err, "max_rel_err": rel, "near_ties": int(diff.sum()),
             "kernel": s_k, "plain": s_p, "table": tbl_k, "valid": vld_k}
 
@@ -325,7 +345,13 @@ def compare_flash_attention(q, k, v, causal, q_offset=0, k_len=None):
     out_k = ops.flash_attention(q, k, v, causal, q_offset, k_len)
     out_p = ops.flash_attention_reference(q, k, v, causal, q_offset, k_len)
     torch.cuda.synchronize()
+    return dict(hold_flash_attention(out_k, out_p), kernel=out_k, plain=out_p)
+
+
+def hold_flash_attention(out_k, out_p):
+    """Hold one dense flash call's output against the plain version's on the
+    same inputs: every row under the bf16 rule -> {"max_abs_err",
+    "max_rel_l2", "tol_use"}; raises ``AssertionError`` otherwise."""
     keep = torch.ones(out_p.shape[:-1], dtype=torch.bool, device=out_p.device)
     err, rel, use = check_outputs(out_k, out_p, keep, "flash_attention")
-    return {"max_abs_err": err, "max_rel_l2": rel, "tol_use": use,
-            "kernel": out_k, "plain": out_p}
+    return {"max_abs_err": err, "max_rel_l2": rel, "tol_use": use}

@@ -1,33 +1,57 @@
 """Decoder with AB-Sparse attention (counterpart of
-``repro.models.transformer`` for the ``("attn",)`` pattern): each block's
+``repro.models.transformer``): a stack of per-kind layers, ``layer l`` of
+kind ``cfg.layer_pattern[l % len(pattern)]`` (JAX's plan: cycles of the
+pattern, then its first ``n_layers % len(pattern)`` kinds).  Each block's
 FFN is the MLP, or with ``cfg.moe`` the MoE FFN (:mod:`.moe`) over JAX's
 token groups (512 tokens in prefill, the ``B`` slots in decode).  A
 MusicGen model adds sinusoidal absolute positions to its embeddings on
 top of RoPE, as JAX's does (the test is on the config's name).
 
+Layer kinds and their cache entries (batch on axis 0 in every one):
+
+- ``"attn"``: global attention over the paged KV cache, AB-Sparse when the
+  plan is active (below);
+- ``"local_attn"``: sliding-window attention (``cfg.local_window``) over a
+  ring buffer ``k`` / ``v`` ``[B, n_kv, W, hd]``, ``W = min(window,
+  max_context)``: prefill writes the last ``min(W, S)`` rows at slot
+  ``position % W``, decode writes its token there and attends the live
+  slots (:func:`~repro_torch.models.layers.ring_valid`);
+- ``"rglru"``: Griffin's recurrent block (:mod:`.rglru`), state ``h [B,
+  lru]`` f32 and ``conv [B, 3, lru]``;
+- ``"rwkv"``: RWKV-6 time mixing (:mod:`.rwkv6`), state ``S [B, H, N, N]``
+  f32 and ``xprev [B, d]``.
+
+Local attention and both recurrences are plain PyTorch, as JAX computes
+them in plain jnp: no Pallas kernel exists for them to port.  Their
+states are updated in place, so a decode step is not idempotent on them
+(:data:`CARRIED` names them for the graphed step).
+
 Entry points:
-  prefill          prompt (after optional prefix embeddings) -> KV cache +
-                   decode store (+ prefill score segment under sparse
-                   prefill)
-  prefill_chunk    one prompt chunk of one batch slot
+  prefill          prompt (after optional prefix embeddings) -> KV cache,
+                   ring buffers and recurrent states + decode store (+
+                   prefill score segment under sparse prefill)
+  prefill_chunk    one prompt chunk of one batch slot (``("attn",)``
+                   stacks only: :meth:`Transformer.supports_chunked_prefill`)
   decode_step      one token for every slot: score -> top-K_h -> attend
                    (fused kernel or staged, ``SparseConfig.fused_decode``)
+                   on global attention layers, the O(1) updates elsewhere
 
 Prefill is query-block sparse when ``SparseConfig.sparse_prefill`` is on
 and the plan is active; otherwise (the default) it is dense causal
 attention (``AttentionBackend.causal_attention``: the flash kernel, with
 the chunk's offset and live length for a chunk).  Decode is sparse when
-the plan is active at ``max_context`` (``context >= 2 x budget``), and
-attends every live token when it is not (``AttentionBackend.dense_decode``)
-or on the ``"dense"`` backend (whose ``decode`` runs the same); an inactive
-plan allocates no store.
+the plan is active at ``max_context`` (``SparseConfig.enabled``, some
+attention layer, ``context >= 2 x budget``), and attends every live token
+when it is not (``AttentionBackend.dense_decode``) or on the ``"dense"``
+backend (whose ``decode`` runs the same); an inactive plan allocates no
+store.  AB-Sparse (``enabled``) needs the ``("attn",)`` stack, as in JAX.
 
 The JAX model scans over stacked layer parameters and donates its cache;
 here the layers are a Python loop over per-layer cache tensors, and every
-cache tensor (KV pages, stores, ``seq_len``) is updated in place.  The KV
-cache is always the paged ``[B, n_kv, n_pages, page, hd]`` tensor, viewed
-as JAX's dense ``[B, n_kv, S, hd]`` where JAX holds that layout (the
-bytes are the same).
+cache tensor (KV pages, stores, states, ``seq_len``) is updated in place.
+The global KV cache is always the paged ``[B, n_kv, n_pages, page, hd]``
+tensor, viewed as JAX's dense ``[B, n_kv, S, hd]`` where JAX holds that
+layout (the bytes are the same).
 """
 from __future__ import annotations
 
@@ -43,10 +67,20 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.centroids import rank_query
 from repro_torch.core.quantization import store_bits, store_symmetric
 from repro_torch.core.selection import selected_page_masks
-from repro_torch.models import layers
+from repro_torch.models import layers, rglru, rwkv6
 from repro_torch.models.layers import DecoderLayer
 
 Cache = Dict[str, Any]
+
+#: the recurrent states a decode step updates in place from their own
+#: values (the ring buffers and KV pages it only overwrites at the step's
+#: position)
+CARRIED = ("h", "conv", "S", "xprev")
+#: query chunk of local attention's prefill
+LOCAL_CHUNK = 512
+#: random init of the weights JAX sets to constants (``rglru.lam`` is
+#: ``linspace(2, 6)``, done apart)
+_CONSTANT_INIT = {"mu": 0.5, "u": 0.5, "w_bias": -2.0, "conv_b": 0.0}
 
 
 def resolve_device(device) -> torch.device:
@@ -63,10 +97,11 @@ def resolve_device(device) -> torch.device:
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.layer_pattern != ("attn",):
-            raise NotImplementedError(
-                f"layer pattern {cfg.layer_pattern} is not ported (dense "
-                "('attn',) stacks only)"
+        if cfg.sparse.enabled and cfg.layer_pattern != ("attn",):
+            raise ValueError(
+                "AB-Sparse decode assumes a homogeneous global-attention "
+                f"stack: layer pattern {cfg.layer_pattern} needs "
+                "SparseConfig(enabled=False)"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -80,7 +115,8 @@ class Transformer(nn.Module):
         self.final_norm = mk((d,))
         self.lm_head = None if cfg.tie_embeddings else mk((d, cfg.vocab_size))
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, self.dtype, self.device) for _ in range(cfg.n_layers)
+            DecoderLayer(cfg, self.dtype, self.device, kind)
+            for kind in cfg.layer_kinds
         )
         self.backend = get_backend(cfg.sparse.backend)
 
@@ -103,9 +139,12 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Transformer":
         """Random weights from ``generator``: truncated normals (+-2 std) with
-        std 0.02 for the embedding and ``d_in ** -0.5`` for projections, ones
-        for the norms (the distribution of ``repro``'s init; the numbers
-        differ)."""
+        std 0.02 for the embedding, ``d_in ** -0.5`` for projections and 0.1
+        for rglru's ``conv_w``, ones for the norms, zeros for the biases,
+        and JAX's constants where JAX sets them (rglru's ``lam`` =
+        ``linspace(2, 6)``, ``conv_b`` 0; rwkv's ``mu`` and ``u`` 0.5,
+        ``w_bias`` -2): the distribution of ``repro``'s init; the random
+        numbers differ."""
 
         def trunc(p, std):
             tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
@@ -119,10 +158,16 @@ class Transformer(nn.Module):
             trunc(self.lm_head, self.cfg.d_model ** -0.5)
         for layer in self.layers:
             for name, p in layer.named_parameters():
-                if name.startswith("norm"):
+                if name.startswith("norm") or name == "ln_x":
                     p.fill_(1.0)
-                elif name.startswith("b"):
+                elif name in ("bq", "bk", "bv"):
                     p.zero_()
+                elif name in _CONSTANT_INIT:
+                    p.fill_(_CONSTANT_INIT[name])
+                elif name == "lam":
+                    p.copy_(torch.linspace(2.0, 6.0, p.shape[0]))
+                elif name == "conv_w":
+                    trunc(p, 0.1)
                 else:
                     # fan-in: the row count of [d_in, d_out], expert or not
                     trunc(p, p.shape[-2] ** -0.5)
@@ -174,9 +219,12 @@ class Transformer(nn.Module):
     # ----------------------------------------------------------------- cache
 
     def init_cache(self, batch: int, max_context: int) -> Cache:
-        """Per-layer paged KV pools for ``batch`` sequences of up to
-        ``max_context`` tokens, with the decode stores when the plan is
-        active and the prefill score segments when sparse prefill runs too.
+        """Per-layer cache entries for ``batch`` sequences of up to
+        ``max_context`` tokens, by layer kind (module docstring): for a
+        global attention layer the paged KV pool, with the decode store
+        when the plan is active and the prefill score segment when sparse
+        prefill runs too; a local-attention layer's ring buffer; a
+        recurrent layer's zero state.
 
         An active plan holds ``max_context // page_size`` pages, as JAX's
         paged cache does; an inactive one, whose JAX cache is dense, pads
@@ -195,7 +243,10 @@ class Transformer(nn.Module):
             cdt = torch.uint8 if bits else torch.float32
             rows = stk.total_rows
         entries = []
-        for _ in range(cfg.n_layers):
+        for kind in cfg.layer_kinds:
+            if kind != "attn":
+                entries.append(state_entry(cfg, kind, batch, max_context, self.dtype, dev))
+                continue
             e = {"k": torch.zeros(kv_shape, dtype=self.dtype, device=dev),
                  "v": torch.zeros(kv_shape, dtype=self.dtype, device=dev)}
             if plan.active:
@@ -220,11 +271,17 @@ class Transformer(nn.Module):
         }
         return cache
 
+    def _kv_layer(self, cache: Cache):
+        """The first global attention layer's entry (None without one)."""
+        return next((e for layer, e in zip(self.layers, cache["layers"])
+                     if layer.kind == "attn"), None)
+
     @staticmethod
     @torch.no_grad()
     def clear_slot(cache: Cache, slot: int) -> Cache:
         """Reset batch slot ``slot``'s rows to :meth:`init_cache`'s values,
-        in place: zero K/V, codes and offsets, unit scales.  The decode
+        in place: zero K/V, codes, offsets and recurrent states, unit
+        scales.  The decode
         store's affine params span every block of the slot, the rows past
         the live length included, so a reused slot would otherwise quantize
         against its previous occupant's rows (or tiered memory's poison)."""
@@ -239,7 +296,7 @@ class Transformer(nn.Module):
 
     @staticmethod
     def _has_score_segment(cache: Cache) -> bool:
-        return "pcodes" in cache["layers"][0]
+        return any("pcodes" in e for e in cache["layers"])
 
     def _sparse_prefill(self, cache: Cache) -> bool:
         """Prefill runs query-block sparse when this model's config asks for
@@ -269,12 +326,19 @@ class Transformer(nn.Module):
         cache = self.init_cache(B, max_context)
         active, use_sp = self._active(cache), self._sparse_prefill(cache)
         hd = cfg.resolved_head_dim
-        S_max = cache["layers"][0]["k"].shape[2] * sp.page_size
+        kv0 = self._kv_layer(cache)
+        S_max = 0 if kv0 is None else kv0["k"].shape[2] * sp.page_size
         positions = torch.arange(S, device=self.device)[None]
         if use_sp:
             n_valid = torch.full((B,), S, dtype=torch.int32, device=self.device)
-        for layer, e, la in zip(self.layers, cache["layers"], cache["la"]):
+        for l, (layer, e, la) in enumerate(
+                zip(self.layers, cache["layers"], cache["la"])):
             h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
+            if layer.kind != "attn":
+                x = x + self._mix_prefill(l, layer, h, e, positions)
+                h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
+                x = x + layers.ffn(layer, h, cfg)
+                continue
             q, k, v = layers.qkv_project(layer, h, cfg, positions)
             kd = e["k"].view(B, cfg.n_kv_heads, S_max, hd)
             vd = e["v"].view(B, cfg.n_kv_heads, S_max, hd)
@@ -305,6 +369,22 @@ class Transformer(nn.Module):
         cache["seq_len"].fill_(S)
         return self.unembed(x[:, -1]), cache
 
+    def _mix_prefill(self, l: int, layer: DecoderLayer, h: torch.Tensor,
+                     e: Dict, positions: torch.Tensor) -> torch.Tensor:
+        """Layer ``l``'s :func:`mix_prefill` (one place to observe it)."""
+        return mix_prefill(self.cfg, layer, h, e, positions)
+
+    def supports_chunked_prefill(self) -> bool:
+        """Chunked prefill (and so the prefix cache's KV reuse) serves the
+        homogeneous global-attention stack only, as in JAX: a ring buffer
+        or a recurrent state is not a function of reusable KV pages."""
+        return self.cfg.layer_pattern == ("attn",)
+
+    def _require_chunkable(self, what: str):
+        if not self.supports_chunked_prefill():
+            raise ValueError(f"{what} needs the ('attn',) layer pattern, not "
+                             f"{self.cfg.layer_pattern}: prefill in one shot")
+
     @torch.no_grad()
     def prefill_chunk(self, cache: Cache, slot: int, tokens, offset: int,
                       n_valid: int) -> Tuple[torch.Tensor, Cache]:
@@ -326,6 +406,7 @@ class Transformer(nn.Module):
         (``[n_layers]`` int32), each sparse layer's entry is set to the
         number of (query block, key block) pairs it attended.
         -> (logits [vocab] at the last valid position, cache)."""
+        self._require_chunkable("prefill_chunk")
         cfg, sp = self.cfg, self.cfg.sparse
         C = len(tokens)
         tok = torch.as_tensor(tokens, device=self.device).long()[:n_valid]
@@ -379,6 +460,7 @@ class Transformer(nn.Module):
         """Rebuild one slot's decode-store rows from its K cache, in place
         (same builder as :meth:`prefill`, so the bytes are identical); no-op
         when the plan is inactive (no store)."""
+        self._require_chunkable("refresh_slot_store")
         if not self._active(cache):
             return cache
         for e, la in zip(cache["layers"], cache["la"]):
@@ -394,6 +476,7 @@ class Transformer(nn.Module):
         """Rebuild one slot's prefill score segment from its K cache, in
         place (after a prefix-cache install, whose KV never ran a chunk);
         no-op without sparse prefill (no score segment)."""
+        self._require_chunkable("refresh_slot_score_rows")
         if not self._has_score_segment(cache):
             return cache
         for e, la in zip(cache["layers"], cache["la"]):
@@ -421,7 +504,10 @@ class Transformer(nn.Module):
         pages of the step, OR-ed over heads and layers (on the ``"dense"``
         backend too, as in JAX).  An inactive plan decodes through
         ``AttentionBackend.dense_decode``, an active one through the
-        backend's ``append`` and ``decode``."""
+        backend's ``append`` and ``decode``.  Local-attention and recurrent
+        layers update their entries in place (:func:`mix_decode`), with
+        every position from the device ``seq_len`` (no host read, so the
+        step can be captured)."""
         cfg, sp = self.cfg, self.cfg.sparse
         tok = torch.as_tensor(tokens, device=self.device).long()
         B = tok.shape[0]
@@ -429,20 +515,23 @@ class Transformer(nn.Module):
         positions = seq_len[:, None].long()
         ps = sp.page_size
         bidx = torch.arange(B, device=self.device)
-        k0 = cache["layers"][0]["k"]
-        # the rows JAX holds: max_context // ps pages when paged, max_context
-        # when dense (an inactive plan's padded page rows are never used)
-        S_lim = min(cache["max_context"], k0.shape[2] * ps)
-        # JAX drops a write at position S_lim; keep the old row there instead.
-        in_range = (seq_len < S_lim)[:, None, None]
-        pos = torch.clamp(seq_len.long(), max=S_lim - 1)
-        page, within = pos // ps, pos % ps
-        # every layer of a step that attends every live token (inactive
-        # plan, or the "dense" backend) reads one identity page table
         dense, table = not self._active(cache), None
-        if dense or self.backend.full_attention:
-            live = torch.clamp(seq_len + 1, max=S_lim)
-            table = self.backend.full_page_table(k0, live)
+        kv0 = self._kv_layer(cache)
+        if kv0 is not None:
+            k0 = kv0["k"]
+            # the rows JAX holds: max_context // ps pages when paged,
+            # max_context when dense (an inactive plan's padded page rows are
+            # never used)
+            S_lim = min(cache["max_context"], k0.shape[2] * ps)
+            # JAX drops a write at position S_lim; keep the old row there
+            in_range = (seq_len < S_lim)[:, None, None]
+            pos = torch.clamp(seq_len.long(), max=S_lim - 1)
+            page, within = pos // ps, pos % ps
+            # every layer of a step that attends every live token (inactive
+            # plan, or the "dense" backend) reads one identity page table
+            if dense or self.backend.full_attention:
+                live = torch.clamp(seq_len + 1, max=S_lim)
+                table = self.backend.full_page_table(k0, live)
         x = self.add_positions(self.embed[tok][:, None], positions)  # [B, 1, d]
         tel = cache.get("_telemetry")
         # tiered KV memory plants "_sel_pages" / "_pre_pages" [B, n_pages]:
@@ -452,6 +541,11 @@ class Transformer(nn.Module):
         for l, (layer, e, la) in enumerate(
                 zip(self.layers, cache["layers"], cache["la"])):
             h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
+            if layer.kind != "attn":
+                x = x + mix_decode(cfg, layer, h, e, positions)
+                h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
+                x = x + layers.ffn(layer, h, cfg, group_size=B)
+                continue
             q, k_new, v_new = layers.qkv_project(layer, h, cfg, positions)
             for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0])):
                 old = e[name][bidx, :, page, within]         # [B, n_kv, hd]
@@ -494,3 +588,79 @@ class Transformer(nn.Module):
         return selected_page_masks(
             est, la, live, sp.sink_pages, sp.local_pages,
             sp.prefetch_margin_blocks, sp.max_block_size // sp.page_size)
+
+
+
+def state_entry(cfg: ModelConfig, kind: str, batch: int, max_context: int, dtype,
+                device) -> Dict:
+    """A local-attention or recurrent layer's zero cache entry (module
+    docstring)."""
+    if kind == "local_attn":
+        W = min(cfg.local_window, max_context)
+        shape = (batch, cfg.n_kv_heads, W, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "rglru":
+        h, conv = rglru.init_state(cfg, batch, dtype, device)
+        return {"h": h, "conv": conv}
+    S, xprev = rwkv6.init_state(cfg, batch, dtype, device)
+    return {"S": S, "xprev": xprev}
+
+
+def mix_prefill(cfg: ModelConfig, layer: DecoderLayer, h: torch.Tensor, e: Dict,
+                positions: torch.Tensor) -> torch.Tensor:
+    """A local-attention or recurrent layer's token mixing over a whole
+    prompt ``h [B, S, d]`` (after its first norm): its output, with the
+    layer's cache entry ``e`` filled in place (the ring buffer's last
+    ``min(W, S)`` rows at slot ``position % W``, or the recurrence's final
+    state)."""
+    if layer.kind == "local_attn":
+        S = h.shape[1]
+        q, k, v = layers.qkv_project(layer, h, cfg, positions)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)          # [B, n_kv, S, hd]
+        # chunks of 512 queries (JAX takes the largest divisor of S up to
+        # 512, which is 1 for a prime S): the last one padded
+        attn = layers.chunked_causal_attention(
+            q.transpose(1, 2), k, v, chunk=min(LOCAL_CHUNK, S),
+            window=cfg.local_window)
+        W = e["k"].shape[2]
+        L = min(W, S)
+        slots = torch.arange(S - L, S, device=h.device) % W
+        e["k"][:, :, slots] = k[:, :, S - L:]
+        e["v"][:, :, slots] = v[:, :, S - L:]
+        return layers.out_project(layer, attn.transpose(1, 2))
+    if layer.kind == "rglru":
+        out, (h_last, tail) = rglru.rglru_block(layer, h, cfg)
+        e["h"].copy_(h_last)
+        e["conv"].copy_(tail)
+        return out
+    out, (S_last, xprev) = rwkv6.rwkv_time_mix(layer, h, cfg)
+    e["S"].copy_(S_last)
+    e["xprev"].copy_(xprev)
+    return out
+
+
+def mix_decode(cfg: ModelConfig, layer: DecoderLayer, h: torch.Tensor, e: Dict,
+               positions: torch.Tensor) -> torch.Tensor:
+    """One token's mixing ``h [B, 1, d]`` at ``positions [B, 1]`` for a
+    local-attention layer (write the ring slot ``position % W``, attend
+    the live slots) or a recurrent one (its state updated in place)."""
+    if layer.kind == "local_attn":
+        q, k_new, v_new = layers.qkv_project(layer, h, cfg, positions)
+        W = e["k"].shape[2]
+        slot = positions[:, 0] % W
+        bidx = torch.arange(h.shape[0], device=h.device)
+        e["k"][bidx, :, slot] = k_new[:, 0]
+        e["v"][bidx, :, slot] = v_new[:, 0]
+        valid = layers.ring_valid(positions[:, 0], W)
+        out = layers.masked_dense_decode(q[:, 0], e["k"], e["v"], valid)
+        return layers.out_project(layer, out[:, None])
+    if layer.kind == "rglru":
+        out, (h_new, tail) = rglru.rglru_decode(layer, h, (e["h"], e["conv"]), cfg)
+        e["h"].copy_(h_new)
+        e["conv"].copy_(tail)
+        return out
+    out, (S_new, xprev) = rwkv6.rwkv_decode(layer, h, (e["S"], e["xprev"]), cfg)
+    e["S"].copy_(S_new)
+    e["xprev"].copy_(xprev)
+    return out

@@ -230,7 +230,11 @@ class Engine:
                                               dtype=torch.bool, device=self.device)
             self.memory = MemoryManager(self, self.pool)
         self._chunk_len = min(serve_cfg.prefill_chunk, self.max_context)
-        self._chunkable = serve_cfg.prefill_chunk > 0
+        # a local-attention or recurrent stack prefills in one shot (its
+        # ring buffers and states are no function of reusable KV pages), so
+        # it has no chunks and no prefix cache, as in JAX
+        self._chunkable = (serve_cfg.prefill_chunk > 0
+                           and model.supports_chunked_prefill())
         self.prefix_cache = (
             PrefixCache(self.pool)
             if serve_cfg.enable_prefix_cache and self._chunkable else None

@@ -9,9 +9,11 @@ launches the step's kernels from one host call, so the card no longer
 waits on Python between them.
 
 Warming up and capturing on the live state is safe because a decode step
-is idempotent for given ``(cache["seq_len"], tokens)``: it rewrites the
-same KV and tail-store rows and advances ``seq_len``, which the wrapper
-restores after each warm-up step.  The graph reads its tokens from a
+is idempotent for given ``(cache["seq_len"], tokens)`` and recurrent
+states: it rewrites the same KV, ring-buffer and tail-store rows and
+advances ``seq_len``, and it updates the recurrent states of an RG-LRU or
+RWKV layer (``models.transformer.CARRIED``) from their own values; the
+wrapper restores the lengths and those states after each warm-up step.  The graph reads its tokens from a
 static ``[max_batch]`` int64 device buffer and its lengths from
 ``cache["seq_len"]``; every other cache tensor is read and written at the
 address it had at capture.  So a graph is bound to one cache dict, to the
@@ -39,6 +41,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import kernels
+from repro_torch.models.transformer import CARRIED
 
 _disabled = 0
 
@@ -172,18 +175,24 @@ class DecodeGraph:
         return self._logits, cache
 
     def _build(self):
-        """Two eager steps on a side stream, each from the given lengths,
-        then one captured step; the lengths and the kernel counts are left
-        as they were."""
+        """Two eager steps on a side stream, each from the given lengths and
+        recurrent states, then one captured step; the lengths, the states
+        and the kernel counts are left as they were."""
         cache, seq_len = self._cache, self._cache["seq_len"]
-        lens = seq_len.clone()
+        carried = [t for e in cache["layers"] for name, t in e.items()
+                   if name in CARRIED]
+        kept = [seq_len.clone()] + [t.clone() for t in carried]
         before = kernels.counts()
+
+        def restore():
+            for t, k in zip([seq_len] + carried, kept):
+                t.copy_(k)
 
         def warm_up():
             for _ in range(2):
-                seq_len.copy_(lens)
+                restore()
                 self._step(cache, self._tokens)
-            seq_len.copy_(lens)
+            restore()
 
         _on_side_stream(warm_up, seq_len.device)
         start = kernels.counts()
@@ -192,5 +201,5 @@ class DecodeGraph:
         self.step_counts = _delta(kernels.counts(), start)
         kernels.reset_counts()
         kernels.add_counts(before)
-        seq_len.copy_(lens)
+        restore()
         self._graph, self._logits = graph, logits

@@ -25,10 +25,13 @@ import jax.numpy as jnp
 def clear_slots_on_install(jeng):
     """Make ``jeng`` (a ``repro.serving.Engine`` no step has run on) reset a
     slot's rows in every per-position cache entry (``pos*``: arrays
-    ``[n_cycles, batch, ...]``) to their values at construction before each
-    install -> ``jeng``."""
+    ``[n_cycles, batch, ...]``; a remainder layer's ``rest[j]``: arrays
+    ``[batch, ...]``) to their values at construction before each install
+    -> ``jeng``."""
     fresh = {key: {name: jnp.array(a[:, 0]) for name, a in entry.items()}
              for key, entry in jeng.cache.items() if key.startswith("pos")}
+    fresh_rest = [{name: jnp.array(a[0]) for name, a in entry.items()}
+                  for entry in jeng.cache.get("rest", [])]
     install = jeng._install
 
     def _install(adm):
@@ -38,6 +41,11 @@ def clear_slots_on_install(jeng):
             for name, row in rows.items():
                 entry[name] = entry[name].at[:, adm.slot].set(row)
             cache[key] = entry
+        if fresh_rest:
+            cache["rest"] = [
+                {name: a.at[adm.slot].set(fresh_rest[j][name])
+                 for name, a in entry.items()}
+                for j, entry in enumerate(cache["rest"])]
         jeng.cache = cache
         install(adm)
 

@@ -68,16 +68,17 @@ def _one_thread():
 
 
 def test_registry_lists_jax_dense_decoders():
-    """JAX's dense decoders, in its registry's order among the families the
-    port serves (dense, MoE and the vision and audio front-ends'
-    backbones)."""
-    want = tuple(a for a in j_list_archs()
-                 if j_get_config(a).family in ("dense", "moe", "vlm", "audio"))
+    """JAX's dense decoders, in its registry's order, which the port's
+    registry now holds whole (dense, MoE, the vision and audio front-ends'
+    backbones and the recurrent families)."""
+    want = j_list_archs()
     assert t_list_archs() == want
     dense = {a for a in want if j_get_config(a).family == "dense"}
     assert set(ARCHS) | {"llama3.2-3b", "qwen3-8b"} == dense
     assert set(want) - dense == {"granite-moe-3b-a800m", "grok-1-314b", "internvl2-2b",
-                                 "musicgen-large"}
+                                 "musicgen-large", "recurrentgemma-9b", "rwkv6-3b"}
+    assert {a: t_get_config(a).family for a in ("recurrentgemma-9b", "rwkv6-3b")} == {
+        "recurrentgemma-9b": "hybrid", "rwkv6-3b": "ssm"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)

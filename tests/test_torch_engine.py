@@ -131,7 +131,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
               "memory.manager", "memory.page_io", "obs.trace", "obs.validate",
               "obs.cost", "serving.frontend", "launch.serve", "models.moe", "models.moe_check",
               "configs.granite_moe_3b", "configs.grok1_314b", "configs.internvl2_2b",
-              "configs.musicgen_large"):
+              "configs.musicgen_large", "models.rglru", "models.rwkv6",
+              "configs.recurrentgemma_9b", "configs.rwkv6_3b"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"

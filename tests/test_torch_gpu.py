@@ -62,7 +62,10 @@ engine's.  musicgen-large's attention shape (32 / 32 heads of 64: the
 fused decode and the sparse prefill at group 1 and head_dim 64, flash
 with an offset), and the compiled decode step of granite's and
 musicgen's smoke variants (the MoE routing, the sinusoidal positions
-inside the graph) bitwise the eager one.
+inside the graph) bitwise the eager one.  Last, the recurrent families'
+smoke variants (recurrentgemma-9b at 5 layers, rwkv6-3b): the graphed
+decode step bitwise the eager one from random ring buffers and states,
+and greedy decode continuing a single-shot prefill (cosine 0.9995).
 """
 import pytest
 import torch
@@ -1024,3 +1027,83 @@ def test_moe_ffn_on_cuda_matches_cpu(cuda, case):
                                     cfg, **kw)
     assert res["tie_tokens"] <= 2 and res["max_rel_l2"] <= parity.REL_L2
     assert (res["dropped"] > 0) == (case != "decode")
+
+
+# -- the recurrent families (recurrentgemma-9b, rwkv6-3b) ------------------------
+
+
+def _recurrent_model(dev, arch):
+    """``arch``'s smoke variant (recurrentgemma at 5 layers: a cycle and two
+    remainder rglru layers) at d_model 256, bf16, the ``"cuda"`` backend
+    with the fused decode (which launches nothing here: the plan is
+    inactive); random weights (generator seed 0)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import Transformer
+
+    base = smoke_variant(get_config(arch))
+    cfg = dataclasses.replace(
+        base, d_model=256, dtype="bfloat16",
+        n_layers=5 if arch == "recurrentgemma-9b" else base.n_layers,
+        sparse=dataclasses.replace(base.sparse, backend="cuda", fused_decode=True))
+    return Transformer(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-3b"])
+def test_recurrent_graphed_step_and_continuation(cuda, arch):
+    """On the card: the decode step of a cache of random ring buffers and
+    states, graphed (``DecodeGraph``: warm-up and capture restore the
+    recurrent states) and eager from the same state, bitwise in logits and
+    every cache tensor, no kernel launched; and chip_smoke's continuation
+    oracle (b): 150 prompt tokens (past the 64-token window) prefilled,
+    then 12 greedy decode steps, each step's logits within cosine 0.9995
+    of a single-shot prefill of the prompt and the tokens before it."""
+    from repro_torch import kernels
+    from repro_torch.serving import DecodeGraph
+
+    model = _recurrent_model(cuda, arch)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cache = model.init_cache(2, 512)
+    for e in cache["layers"]:
+        for t in e.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda) * 0.5)
+    start = _written(cache)
+    lens = torch.tensor([500, 77], dtype=torch.int32, device=cuda)
+    tokens = torch.tensor([7, 100], device=cuda)
+    cache["seq_len"].copy_(lens)
+    kernels.reset_counts()
+    want = model.decode_step(cache, tokens)[0].clone()
+    assert not any(c["launches"] or c["plain_calls"] for c in kernels.counts().values())
+    state = _written(cache)
+    assert any(not torch.equal(state[k], start[k]) for k in state if k != "seq_len")
+
+    def restore():
+        for l, e in enumerate(cache["layers"]):
+            for name, t in e.items():
+                t.copy_(start[f"{name}[{l}]"])
+        cache["seq_len"].copy_(lens)
+
+    restore()
+    graph = DecodeGraph(model.decode_step, cache)
+    for calls in (1, 2):
+        restore()
+        logits, _ = graph(cache, tokens)
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want)
+        got = _written(cache)
+        for k, v in state.items():
+            assert torch.equal(v, got[k]), k
+        assert graph.replays == calls
+
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, 150), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    logits, cache = model.prefill(prompt, max_context=256)
+    seq = prompt
+    for _ in range(12):
+        nxt = logits.argmax(-1)
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
+        logits, cache = model.decode_step(cache, nxt)
+        ref = model.prefill(seq, max_context=256)[0]
+        cos = torch.nn.functional.cosine_similarity(logits.float(), ref.float(), dim=-1)
+        assert float(cos.min()) >= 0.9995

@@ -167,14 +167,12 @@ def test_requests_equal_jax_launchers(flags, tmp_path, monkeypatch):
 
 def test_launcher_serves_another_arch(capsys):
     """``--arch qwen1.5-4b --smoke`` (QKV bias, MHA: 4 / 4 heads) serves to
-    the end on the CPU, and every ``("attn",)`` decoder of the JAX package
-    (dense, MoE, vision and audio) is one ``--arch`` takes."""
-    from repro.configs import get_config as j_get_config
+    the end on the CPU, and every config of the JAX package (dense, MoE,
+    vision, audio and the recurrent families) is one ``--arch`` takes."""
     from repro.configs import list_archs as j_list_archs
     from repro_torch.configs import list_archs
 
-    assert set(list_archs()) == {a for a in j_list_archs() if j_get_config(a).family
-                                 in ("dense", "moe", "vlm", "audio")}
+    assert set(list_archs()) == set(j_list_archs())
     eng = tserve.main([
         "--arch", "qwen1.5-4b", "--smoke", "--device", "cpu", "--fused-decode",
         "--requests", "3", "--max-context", "512", "--max-batch", "2",
@@ -192,3 +190,20 @@ def test_mesh_is_not_ported(capsys):
         tserve.main(["--smoke", "--device", "cpu", "--mesh", "2,2"])
     assert ei.value.code != 0
     assert "multi-device serving is not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-3b"])
+def test_launcher_serves_the_recurrent_families(arch, capsys):
+    """``--arch`` takes both recurrent families: their smoke variants serve
+    to the end on the CPU, each prompt prefilled in one shot (no chunks,
+    no prefix cache)."""
+    eng = tserve.main([
+        "--arch", arch, "--smoke", "--device", "cpu", "--fused-decode",
+        "--requests", "3", "--max-context", "256", "--max-batch", "2",
+        "--prefill-chunk", "64", "--new-tokens", "4", "--prefix-len", "32"])
+    out = capsys.readouterr().out
+    assert eng.model.cfg.name == f"{arch}-smoke"
+    assert not eng._chunkable and eng.prefix_cache is None
+    assert [len(r.output) for r in eng.finished] == [4, 4, 4]
+    assert all(r.status == "ok" for r in eng.finished)
+    assert "served 3 requests / 12 tokens" in out and "accounting clean" in out

@@ -10,7 +10,9 @@ the card only; its gates are plain functions of cosines):
   plain pass past the limit; it also passes the faulty pass that was to
   fail it on the card (D's plain pass with one selected page left out of
   layer 16's every decode call: c_plain 0.999300 under c_noise
-  0.997784), which is why phase 10a does not run;
+  0.997784), which is why phase 10a now runs under the per-call oracle
+  (``chip_smoke.call_oracle``, ``tests/test_torch_call_oracle.py``)
+  instead;
 - phase 9's ``s_gate`` at its own constants.
 
 A few seconds.

@@ -208,6 +208,53 @@ def test_graph_matches_eager_step(stub_graphs, kind, telemetry):
         assert kernels.counts() == one_step and graph.replays == calls
 
 
+def _recurrent(arch, seed=0):
+    """``arch``'s smoke variant (recurrentgemma at 5 layers: a cycle and two
+    remainder layers) and a cache of random ring buffers and states
+    (numpy ``seed``) at lengths ``LENS``, past the 64-token window."""
+    base = smoke_variant(get_config(arch))
+    cfg = dataclasses.replace(
+        base, n_layers=5 if arch == "recurrentgemma-9b" else base.n_layers,
+        sparse=dataclasses.replace(base.sparse, backend="cuda", fused_decode=True))
+    model = Transformer(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+
+    def cache():
+        rng = np.random.default_rng(seed)
+        c = model.init_cache(B, 256)
+        for e in c["layers"]:
+            for t in e.values():
+                t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+        c["seq_len"].copy_(torch.tensor(LENS, dtype=torch.int32))
+        return c
+
+    return model, cache
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-3b"])
+def test_graph_restores_recurrent_states(stub_graphs, arch):
+    """A recurrent or ring-buffer decode step makes no host sync, and
+    ``DecodeGraph`` puts the recurrent states back after its warm-up steps
+    and the capture: each call from the same state gives the eager step's
+    logits and cache bytes (a step that advanced them during warm-up
+    would not)."""
+    model, cache_at = _recurrent(arch)
+    eager, cache, start = cache_at(), cache_at(), cache_at()
+    tokens = torch.tensor([5, 17])
+    want, _ = model.decode_step(eager, tokens)
+    assert any(not torch.equal(a, b) for a, b in zip(
+        _state(eager).values(), _state(start).values()))
+    graph = DecodeGraph(model.decode_step, cache)
+    for calls in (1, 2):
+        for e, e0 in zip(cache["layers"], start["layers"]):
+            for name, t in e.items():
+                t.copy_(e0[name])
+        cache["seq_len"].copy_(start["seq_len"])
+        logits, _ = graph(cache, tokens.numpy())
+        assert torch.equal(logits, want)
+        _assert_same(_state(cache), _state(eager))
+        assert graph.replays == calls
+
+
 def test_graph_guards(stub_graphs):
     """A graph replays only over the cache dict and tensors it captured,
     with telemetry as it was."""
