@@ -105,9 +105,12 @@ Phases (each failure is fatal, exit code != 0):
    Every ``torch.profiler`` session of the script goes through
    ``profiled``: synchronized before it opens and before it closes, its
    rows read once closed; an empty recording is logged and, where the
-   work can run again, recorded once more; a second empty one fails (a
+   work can run again, recorded again; a third empty one fails (a
    served decode step is idempotent for its lengths and tokens: after an
-   empty recording the same step is served once more and profiled).
+   empty recording the same step is served once more and profiled).  The
+   profiler loses a session's leading kernels in about 1% of sessions on
+   an H100 (``tools/profiler_window.py``); the final summary lists every
+   recording retaken.
 
 Phase 2 also holds the three kernels off the serving path against their
 plain versions: ``pool_rank_keys`` on llama3.2-3b K (bf16, B 4) and on f32
@@ -146,7 +149,8 @@ launched the pooling and scoring kernels and called no plain version.
    graphed run's.  c) Each variant's step is timed eager and graphed over
    8 rounds in turns (CUDA events), its device-busy ms per step printed
    (``torch.profiler``), and one profiled replay's launches of each decode
-   kernel must equal the bookkeeping's for one step.  d) Every served run
+   kernel must equal the bookkeeping's for one step (a recording short of
+   launches is recorded once more).  d) Every served run
    prints its decode steps and graph replays by rung; a kernel rung's
    decode step that is not a replay fails the script.
 
@@ -279,6 +283,26 @@ launched the pooling and scoring kernels and called no plain version.
    in f32 (rows within 2e-2).  f) the graphed step bitwise the eager one,
    its ms, kernels and peak memory.  No kernel launches and no plain
    version runs.
+
+13. (after phase 12; ``train_phase``) training (``repro_torch.training``)
+   on llama3.2-3b, every earlier model freed.  a) at full width and 2
+   layers, bf16, B 1, S 2048, remat "dots": every parameter's gradient
+   against an f32 copy's, per leaf cosine and relative L2
+   (``TRAIN_GRAD_*``); two power
+   checks on layer 1 (queries rotated one position on; each query seeing
+   the next key too) must fail that gate on its leaves; the f32 copy's
+   ``grad_accum`` 2 against 1 on a batch of 2 within relative L2 1e-5.
+   b) ``Trainer`` at full width and depth (28 layers, tied, vocab
+   128256), bf16 with an f32 master, m and v: 20 steps of 2 x 2048
+   tokens, remat "dots", lr 3e-4, warmup 2, no checkpoint; every loss
+   finite and the mean of the last three at least 2 nats below the
+   first; step ms (median of steps 5-20), tokens/s and peak memory.  c)
+   ``python -m repro_torch.launch.train --smoke --steps 6`` on the card
+   with a failure injected at step 5 (one restart, checkpoints under
+   ``chiprun_out/``), then a bf16 smoke trainer's state saved and
+   restored on the card, bitwise, in its device and dtype.  No kernel
+   launches and no plain version runs (JAX trains through no Pallas
+   kernel).
 
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -438,9 +462,10 @@ def cuda_time_ms(torch, fn, warmup: int, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-#: this run's ``torch.profiler`` sessions (``profiled``): opened, and
-#: recorded again after an empty first recording
-PROFILER = {"sessions": 0, "retried": 0}
+#: this run's ``torch.profiler`` sessions (``profiled``): opened, recorded
+#: again after an empty first recording, and every recording retaken (empty,
+#: or in phase 6 short of launches), listed in the final summary
+PROFILER = {"sessions": 0, "retried": 0, "retakes": []}
 
 
 def profiled(torch, run, repeatable: bool = True):
@@ -449,12 +474,17 @@ def profiled(torch, run, repeatable: bool = True):
     earlier work lands in it) and closed after one (all of ``run``'s work
     does), its rows read once it has closed -> (device ms, launches, kernel
     name) per kernel, largest first.  A session that recorded no device
-    time is logged (and counted in ``PROFILER``); a
-    ``repeatable`` run is recorded once more, and a second empty recording
-    (or a first one of a run that cannot be repeated) fails the script."""
+    time is logged (and listed in ``PROFILER``); a ``repeatable`` run is
+    recorded again, up to three recordings, and a third empty recording (or
+    a first one of a run that cannot be repeated) fails the script.  On an
+    H100 the profiler loses the leading kernels of a session, some or all of
+    them, in 0.15-0.9% of sessions whatever the host waits before the work
+    or after it, eager or graphed (``tools/profiler_window.py``; all of them
+    in 0.05-0.5%), and two empty recordings in a row were seen once; work
+    that really ran no kernel comes back empty every time."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     PROFILER["sessions"] += 1
-    for attempt in (1, 2):
+    for attempt in (1, 2, 3):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             run()
@@ -469,8 +499,10 @@ def profiled(torch, run, repeatable: bool = True):
         if not repeatable:
             break
         PROFILER["retried"] += attempt == 1
+        PROFILER["retakes"].append({"session": PROFILER["sessions"], "kind": "empty",
+                                    "recording": attempt})
     fail("the profiler recorded no device time"
-         + (" twice in a row" if repeatable else ""))
+         + (" three times in a row" if repeatable else ""))
 
 
 def device_ms(torch, fn, iters: int) -> float:
@@ -2338,16 +2370,30 @@ def compiled_step(torch, label, variants, dev):
             rows = profiled(torch, lambda: [fn() for _ in range(5)])
             rec[f"busy_{how}"] = sum(r[0] for r in rows) / 5
             rec[f"kernels_{how}"] = sum(r[1] for r in rows) / 5
-        seen = {}
-        for _, n, key in profiled(torch, pair["graphed"]):
-            seen[short(key)] = seen.get(short(key), 0) + n
         book = {k: c["launches"] for k, c in graphs[name].step_counts.items()
                 if c["launches"]}
-        launches = {k: [seen.get(k, 0), sum(book.get(w, 0) for w in ws)]
-                    for k, ws in DECODE_KERNELS.items()}
-        log(f"phase 6 {label} {name}: one profiled replay, launches by kernel "
-            f"[profiler, bookkeeping] {json.dumps(launches)}; bookkeeping of one step "
-            f"{json.dumps(book)}; all kernels of the replay {json.dumps(seen)}")
+        # a recording short of launches is retaken once: the profiler loses
+        # a session's leading kernels in about 1% of sessions
+        # (``tools/profiler_window.py``; here the replay's first layer, 4 of 5
+        # of each kernel on qwen3-8b, seen twice on an H100), while a launch
+        # the replay really misses is missing from every recording
+        for attempt in (1, 2):
+            seen = {}
+            for _, n, key in profiled(torch, pair["graphed"]):
+                seen[short(key)] = seen.get(short(key), 0) + n
+            launches = {k: [seen.get(k, 0), sum(book.get(w, 0) for w in ws)]
+                        for k, ws in DECODE_KERNELS.items()}
+            log(f"phase 6 {label} {name}: one profiled replay (recording {attempt}), "
+                f"launches by kernel [profiler, bookkeeping] {json.dumps(launches)}; "
+                f"bookkeeping of one step {json.dumps(book)}; all kernels of the replay "
+                f"{json.dumps(seen)}")
+            if attempt == 2 or not (all(a <= b for a, b in launches.values())
+                                    and any(a < b for a, b in launches.values())):
+                break
+            PROFILER["retried"] += 1
+            PROFILER["retakes"].append({"session": PROFILER["sessions"], "kind": "short",
+                                        "what": f"phase 6 {label} {name}",
+                                        "launches": launches})
         if any(a != b for a, b in launches.values()):
             fail(f"phase 6 {label} {name}: the profiler's launches differ from the "
                  f"bookkeeping's")
@@ -4681,6 +4727,321 @@ def serve_recurrent(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training (repro_torch.training) on llama3.2-3b
+# ---------------------------------------------------------------------------
+
+#: a) gradients: depth, batch and sequence of the bf16 model held against
+#: its f32 copy, and the gate every parameter's gradient must pass, set
+#: from ``tools/train_grad_control.py`` on an H100 (four sequences: clean
+#: leaves at cosine >= 0.999935 and relative L2 <= 0.0119, the tied
+#: embedding the worst; layer 1's rope and mask faults moved its wq / wk
+#: to 0.0266-0.0394, cosine <= 0.999657)
+TRAIN_GRAD_LAYERS, TRAIN_GRAD_B, TRAIN_S = 2, 1, 2048
+TRAIN_GRAD_COS, TRAIN_GRAD_RTOL = 0.99985, 0.018
+#: a) the layer the power checks fault, and grad_accum 2 against 1 (f32)
+TRAIN_FAULT_LAYER, TRAIN_ACCUM_RTOL = 1, 1e-5
+#: b) the full run: steps, global batch, learning rate, warmup, and the
+#: least fall of the loss (first step against the mean of the last three)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR, TRAIN_WARMUP, TRAIN_MIN_DROP = 20, 2, 3e-4, 2, 2.0
+#: b) the steps whose median is the step time (steps 5-20)
+TRAIN_TIMED = slice(4, TRAIN_STEPS)
+#: c) the launcher's run: steps and the step its injected failure hits
+TRAIN_LAUNCH_STEPS, TRAIN_LAUNCH_FAIL = 6, 5
+
+
+def grad_diff(torch, got, ref):
+    """Per leaf (cosine, relative L2) of gradients ``got`` against ``ref``
+    (f64)."""
+    out = {}
+    for n, r in ref.items():
+        a, b = got[n].double().flatten(), r.double().flatten()
+        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+        out[n] = (cos, float((a - b).norm() / b.norm()))
+    return out
+
+
+def grad_misses(diff):
+    """The leaves of ``grad_diff``'s result outside a)'s gate."""
+    return {n: v for n, v in diff.items()
+            if not (v[0] >= TRAIN_GRAD_COS and v[1] <= TRAIN_GRAD_RTOL)}
+
+
+@contextlib.contextmanager
+def train_fault(target, kind):
+    """A power check on ``target``'s attention in ``forward_train``:
+    "rope" rotates its queries at position + 1 (shifting q and k alike
+    would be invisible: RoPE's scores depend on the offset only); "mask"
+    lets each query see the next key too (a plain masked attention)."""
+    import math
+
+    from repro_torch.models import layers
+
+    qkv, attend = layers.qkv_project, layers.chunked_causal_attention
+    on = {}
+
+    def qkv_fault(p, x, cfg, positions):
+        q, k, v = qkv(p, x, cfg, positions)
+        on["target"] = p is target
+        if on["target"] and kind == "rope":
+            q = qkv(p, x, cfg, positions + 1)[0]
+        return q, k, v
+
+    def attend_fault(q, k, v, chunk=512, causal_pairs=True, window=None):
+        if not (on.get("target") and kind == "mask"):
+            return attend(q, k, v, chunk=chunk, causal_pairs=causal_pairs, window=window)
+        import torch
+
+        S, D, g = q.shape[2], q.shape[3], q.shape[1] // k.shape[1]
+        kf, vf = (t.repeat_interleave(g, 1).float() for t in (k, v))
+        logits = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) / math.sqrt(D)
+        i = torch.arange(S, device=q.device)
+        logits = torch.where(i[None] <= i[:, None] + 1, logits, -1e30)
+        return torch.einsum("bhst,bhtd->bhsd", logits.softmax(-1), vf).to(q.dtype)
+
+    layers.qkv_project, layers.chunked_causal_attention = qkv_fault, attend_fault
+    try:
+        yield
+    finally:
+        layers.qkv_project, layers.chunked_causal_attention = qkv, attend
+
+
+def train_grads(torch, dev, cfg, missed):
+    """a) llama3.2-3b at full width, ``TRAIN_GRAD_LAYERS`` layers, bf16:
+    every parameter's gradient (remat "dots") against its f32 copy's on one
+    batch, gated by ``TRAIN_GRAD_COS`` / ``TRAIN_GRAD_RTOL``; both power
+    checks must fail the gate on layer ``TRAIN_FAULT_LAYER``'s leaves; the
+    f32 copy's ``grad_accum`` 2 against 1 on a batch of 2 within
+    ``TRAIN_ACCUM_RTOL``."""
+    from repro_torch.config import MeshPlan
+    from repro_torch.training.data import DataConfig, batch_for_step
+    from repro_torch.training.train_loop import loss_and_grads, trainable
+
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_GRAD_LAYERS)
+    model = family_model(torch, dev, ARCH, cfg2)
+    model32 = upcast(torch, model, dev)
+    p16, p32 = trainable(model), trainable(model32)
+    toks = batch_for_step(DataConfig(cfg.vocab_size, TRAIN_S, 2, seed=1), 0, device=dev)
+    plan = MeshPlan(remat="dots")
+    t0 = time.perf_counter()
+    _, ref = loss_and_grads(model32, p32, toks[:TRAIN_GRAD_B], plan)
+    loss, got = loss_and_grads(model, p16, toks[:TRAIN_GRAD_B], plan)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    clean = grad_diff(torch, got, ref)
+    del got
+    row = {"loss_bf16": float(loss), "seconds_f32_and_bf16": grad_s,
+           "clean_min_cos": min(v[0] for v in clean.values()),
+           "clean_max_rel_l2": max(v[1] for v in clean.values()),
+           "clean": clean}
+    log(f"phase 13 a) {ARCH} ({TRAIN_GRAD_LAYERS} layers, B {TRAIN_GRAD_B}, S {TRAIN_S}, "
+        f"remat dots): bf16 gradients vs the f32 copy's, worst leaf cosine "
+        f"{row['clean_min_cos']:.6f} (>= {TRAIN_GRAD_COS}), relative L2 "
+        f"{row['clean_max_rel_l2']:.5f} (<= {TRAIN_GRAD_RTOL}); {grad_s:.1f}s; by leaf "
+        f"{json.dumps({n: [round(c, 6), round(r, 5)] for n, (c, r) in clean.items()})}")
+    if grad_misses(clean):
+        missed.append(f"13 a) clean bf16 gradients fail the gate: {grad_misses(clean)}")
+    target = model.layers[TRAIN_FAULT_LAYER]
+    prefix = f"layers.{TRAIN_FAULT_LAYER}."
+    row["faults"] = {}
+    for kind in ("rope", "mask"):
+        with train_fault(target, kind):
+            _, got = loss_and_grads(model, p16, toks[:TRAIN_GRAD_B], plan)
+        diff = grad_diff(torch, got, ref)
+        del got
+        own = {n: v for n, v in diff.items() if n.startswith(prefix)}
+        flagged = sorted(grad_misses(own))
+        row["faults"][kind] = {"flagged": flagged, "own": own}
+        log(f"phase 13 a) power check {kind} on layer {TRAIN_FAULT_LAYER}: its leaves "
+            f"{json.dumps({n: [round(c, 6), round(r, 5)] for n, (c, r) in own.items()})}; "
+            f"failing the gate: {flagged}")
+        if not flagged:
+            missed.append(f"13 a) the {kind} fault passed the gradient gate")
+    del model, p16, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # grad_accum 2 against 1 on the f32 copy
+    l1, g1 = loss_and_grads(model32, p32, toks, MeshPlan(remat="dots", grad_accum=1))
+    l2, g2 = loss_and_grads(model32, p32, toks, MeshPlan(remat="dots", grad_accum=2))
+    acc = max(v[1] for v in grad_diff(torch, g2, g1).values())
+    row["accum_max_rel_l2"], row["accum_loss"] = acc, [float(l1), float(l2)]
+    log(f"phase 13 a) f32 copy, batch 2: grad_accum 2 vs 1, worst leaf relative L2 "
+        f"{acc:.3e} (<= {TRAIN_ACCUM_RTOL}), losses {float(l1):.6f} / {float(l2):.6f}")
+    if not acc <= TRAIN_ACCUM_RTOL:
+        missed.append(f"13 a) grad_accum 2 vs 1: relative L2 {acc}")
+    del model32, p32, g1, g2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_full(torch, dev, cfg, card, missed):
+    """b) ``Trainer`` on llama3.2-3b at full width and depth, bf16:
+    ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_S`` tokens (remat
+    "dots", ``grad_accum`` 1, no checkpoint: the state is 45 GB), every
+    loss finite and the mean of the last three at least ``TRAIN_MIN_DROP``
+    nats below the first."""
+    import math
+
+    from repro_torch.config import MeshPlan, TrainConfig
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS, checkpoint_dir=None)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_BATCH)
+    trainer = Trainer(cfg, tc, dc, MeshPlan(grad_accum=1, remat="dots"), device=dev)
+    out = trainer.run(TRAIN_STEPS, resume=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = out["losses"]
+    n_par = sum(p.numel() for p in trainer.params.values())
+    timed = sorted(trainer.durations[TRAIN_TIMED])
+    step_ms = 1e3 * timed[len(timed) // 2]
+    row = {"params": n_par, "losses": losses, "step_ms_median": step_ms,
+           "step_ms_min": 1e3 * timed[0], "step_ms_max": 1e3 * timed[-1],
+           "first_step_ms": 1e3 * trainer.durations[0],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_S / (step_ms / 1e3),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "stragglers": len(out["fault_log"].stragglers), "wall_s": wall}
+    drop = losses[0] - sum(losses[-3:]) / 3
+    row["drop"] = drop
+    log(f"phase 13 b) {ARCH} trained at full width and depth ({n_par / 1e9:.3f}B params, "
+        f"bf16, f32 master / m / v), {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_S} "
+        f"tokens, remat dots ({card}): losses {json.dumps([round(x, 4) for x in losses])}; "
+        f"fall {drop:.3f} nats (>= {TRAIN_MIN_DROP}); step ms median "
+        f"{step_ms:.1f} (min {row['step_ms_min']:.1f}, max {row['step_ms_max']:.1f}, "
+        f"first {row['first_step_ms']:.1f}), {row['tokens_per_s']:.0f} tokens/s, peak "
+        f"allocated {row['peak_gib']:.2f} GiB, {wall:.1f}s with init")
+    if not all(math.isfinite(x) for x in losses) or not drop >= TRAIN_MIN_DROP:
+        missed.append(f"13 b) losses {losses}: fall {drop}")
+    row["breakdown"] = train_breakdown(torch, trainer, out["state"]["opt"])
+    log(f"phase 13 b) one step after the run, apart ({card}): "
+        f"{json.dumps(row['breakdown'])}")
+    del trainer, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_breakdown(torch, trainer, opt):
+    """Where a step of ``trainer`` goes, on the batch after its run:
+    forward and backward, then AdamW, by CUDA events (the second of two
+    steps), then one whole step under ``profiled``: its host ms, device
+    busy ms, device kernels and the three kernels that take longest."""
+    from repro_torch.training.data import batch_for_step
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_loop import loss_and_grads
+
+    toks = batch_for_step(trainer.data_cfg, TRAIN_STEPS, device=trainer.model.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(2):
+        ev[0].record()
+        _, grads = loss_and_grads(trainer.model, trainer.params, toks, trainer.plan)
+        ev[1].record()
+        opt, _ = adamw_update(trainer.train_cfg, trainer.params, grads, opt)
+        ev[2].record()
+        del grads
+        torch.cuda.synchronize()
+    row = {"fwd_bwd_ms": ev[0].elapsed_time(ev[1]), "adamw_ms": ev[1].elapsed_time(ev[2])}
+    t0 = time.perf_counter()
+    rows = profiled(torch, lambda: float(trainer._step_fn(opt, toks)[1]["loss"]))
+    row["profiled_step_ms"] = (time.perf_counter() - t0) * 1e3
+    row["busy_ms"] = sum(r[0] for r in rows)
+    row["kernels"] = sum(r[1] for r in rows)
+    row["top"] = [[short(r[2]), round(r[0], 2), r[1]] for r in rows[:3]]
+    return row
+
+
+def train_launcher(torch, dev, out_dir, missed):
+    """c) ``python -m repro_torch.launch.train --smoke`` on the card for
+    ``TRAIN_LAUNCH_STEPS`` steps, its checkpoints under ``out_dir``, one
+    failure injected at step ``TRAIN_LAUNCH_FAIL`` (one restart); then a
+    bf16 smoke trainer's state after two steps saved and restored into
+    another state on the card: bitwise, on the card, in its dtype."""
+    import re
+    import shutil
+
+    from repro_torch.config import MeshPlan, TrainConfig
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import Trainer
+
+    root = out_dir / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke", "--steps",
+         str(TRAIN_LAUNCH_STEPS), "--ckpt-dir", str(root / "launcher"),
+         "--inject-failure-at", str(TRAIN_LAUNCH_FAIL)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    launch_s = time.perf_counter() - t0
+    tail = res.stdout.strip().splitlines()[-1:] or [""]
+    m = re.match(r"final loss (\S+) \(start (\S+)\); restarts=(\d+)", tail[0])
+    kept = sorted(os.listdir(root / "launcher")) if (root / "launcher").is_dir() else []
+    row = {"rc": res.returncode, "line": tail[0], "checkpoints": kept, "seconds": launch_s}
+    log(f"phase 13 c) launcher --smoke --steps {TRAIN_LAUNCH_STEPS} on the card, failure at "
+        f"step {TRAIN_LAUNCH_FAIL}: exit {res.returncode}, {tail[0]!r}, checkpoints {kept}, "
+        f"{launch_s:.1f}s")
+    if res.returncode != 0 or m is None or int(m.group(3)) != 1 \
+            or f"step_{TRAIN_LAUNCH_STEPS:08d}" not in kept or any(k.endswith(".tmp") for k in kept):
+        missed.append(f"13 c) launcher: {row} {res.stderr[-2000:]}")
+    # a checkpoint saved and restored on the card
+    cfg = dataclasses.replace(smoke_variant(get_config(ARCH)), dtype="bfloat16")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=4)
+    tc = TrainConfig(checkpoint_dir=None, warmup_steps=1, total_steps=2)
+    a, b = (Trainer(cfg, tc, dc, MeshPlan(), device=dev) for _ in range(2))
+    state = a.run(2, resume=False)["state"]
+    ckpt.save_checkpoint(str(root / "state"), 2, state)
+    step, got = ckpt.restore_checkpoint(str(root / "state"), b.init_state(seed=1))
+    want, have = dict(flatten(state)), dict(flatten(got))
+
+    def same(v, h):
+        if not isinstance(v, torch.Tensor):
+            return v == h
+        return h.device == v.device and h.dtype == v.dtype and torch.equal(h, v)
+
+    bad = [k for k, v in want.items() if not same(v, have[k])]
+    row["restore"] = {"step": step, "leaves": len(want), "mismatched": bad}
+    log(f"phase 13 c) checkpoint of a bf16 smoke trainer after 2 steps on {dev}: "
+        f"{len(want)} leaves restored into another state, step {step}, mismatched "
+        f"(value, device or dtype): {bad}")
+    if step != 2 or bad:
+        missed.append(f"13 c) restore: {row['restore']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return row
+
+
+def train_phase(torch, dev, card, out_dir):
+    """Phase 13: a) ``train_grads``, b) ``train_full``, c)
+    ``train_launcher``; no hand-written kernel launched and no plain
+    version run (JAX trains through no Pallas kernel) -> summary with the
+    gates it missed under ``"missed"``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+
+    missed = []
+    kernels.reset_counts()
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    out = {"grads": train_grads(torch, dev, cfg, missed)}
+    out["full"] = train_full(torch, dev, cfg, card, missed)
+    out["launcher"] = train_launcher(torch, dev, out_dir, missed)
+    used = {k: c for k, c in kernels.counts().items() if c["launches"] or c["plain_calls"]}
+    if used:
+        missed.append(f"13: kernels or plain versions ran: {used}")
+    out["seconds"] = time.perf_counter() - t0
+    out["missed"] = missed
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4800,6 +5161,8 @@ def main() -> int:
     phase_done("11")
     rec = serve_recurrent(torch, dev)
     phase_done("12")
+    train = train_phase(torch, dev, card, out_dir)
+    phase_done("13")
     log(f"phase 6 summary (ms; busy = device-busy ms per step): "
         f"{json.dumps({ARCH: paths['step'], QWEN: qwen['step']})}")
     tiered = paths["tiered"]
@@ -4812,7 +5175,8 @@ def main() -> int:
         "step": tiered["step"], "storm_fired": tiered["S"]["fired"]}))
     log(f"phase 8 summary ({card}): {json.dumps(paths['traced'])}")
     log(f"profiler sessions {PROFILER['sessions']}, recorded again after an empty "
-        f"first recording {PROFILER['retried']}")
+        f"(or, in phase 6, short) first recording {PROFILER['retried']}; every "
+        f"recording retaken: {json.dumps(PROFILER['retakes'])}")
     fused, staged = paths["fused"], paths["staged"]
     q1, q2 = qwen["Q1"], qwen["Q2"]
     kernels_line = [
@@ -4883,6 +5247,7 @@ def main() -> int:
     log(f"phase 10 summary ({card}): " + json.dumps(moe_run))
     log(f"phase 11 summary ({card}): " + json.dumps(music))
     log(f"phase 12 summary ({card}): " + json.dumps(rec))
+    log(f"phase 13 summary ({card}): " + json.dumps(train))
     for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "
@@ -4917,7 +5282,7 @@ def main() -> int:
     log(f"seconds by phase: {json.dumps(phase_seconds())}")
     log(f"total {time.perf_counter() - T_START:.1f}s")
     missed = [f"phase {n}: {m}" for n, run in (("10", moe_run), ("11", music),
-                                                 ("12", rec))
+                                                 ("12", rec), ("13", train))
               for m in run["missed"]]
     if missed:
         log(f"FAILED gates: {json.dumps(missed)}")

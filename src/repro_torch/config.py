@@ -1,10 +1,11 @@
 """Configuration schema of the PyTorch port (counterpart of ``repro.config``).
 
-Only what the serving path of a decoder reads: the AB-Sparse knobs
+What the port's serving and training paths read: the AB-Sparse knobs
 (:class:`SparseConfig`), the architecture (:class:`ModelConfig`, with
 :class:`MoEConfig` for a mixture-of-experts FFN), the
 serving engine's knobs (:class:`ServeConfig`, tiered KV memory included)
-and its failure-domain policy (:class:`ResilienceConfig`).  Field names and defaults
+and its failure-domain policy (:class:`ResilienceConfig`), the trainer's
+knobs (:class:`TrainConfig`) and its execution plan (:class:`MeshPlan`).  Field names and defaults
 match the JAX package so one set of values configures both.
 """
 from __future__ import annotations
@@ -148,6 +149,46 @@ class ModelConfig:
     @property
     def is_attention_free(self) -> bool:
         return len(self.attn_layers) == 0
+
+
+@dataclass(frozen=True)
+class MeshPlan:
+    """Execution plan of a training step: the trainer reads ``remat``,
+    ``grad_accum`` and ``grad_compression``; the mesh fields are JAX's,
+    kept as data (the port trains on one device)."""
+
+    multi_pod: bool = False
+    #: activation-checkpoint policy per cycle of the layer pattern:
+    #: "none" | "full" | "dots" (keep the projections' outputs)
+    remat: str = "dots"
+    #: microbatches for gradient accumulation (1 = none)
+    grad_accum: int = 1
+    #: int8 error-feedback gradient compression: allocates the optimizer's
+    #: ``error`` residual, as in JAX (whose update does not read it)
+    grad_compression: bool = False
+    #: shard KV pages over the data axis when decode batch < data-axis size
+    context_parallel_decode: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    seed: int = 0
+    checkpoint_every: int = 50
+    #: relative to the working directory (JAX's default is
+    #: ``/tmp/repro_ckpt``); None: the trainer neither saves nor resumes
+    checkpoint_dir: Optional[str] = "repro_torch_ckpt"
+    keep_checkpoints: int = 3
+    #: straggler watchdog: steps whose wall time exceeds
+    #: ``straggler_factor`` x the running median are logged.
+    straggler_factor: float = 3.0
 
 
 @dataclass(frozen=True)

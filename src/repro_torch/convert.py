@@ -11,6 +11,8 @@ biases under ``qkv_bias``; rglru's ``rec.*``; rwkv's ``tmix.*``) and the
 FFN (``ffn.{up,gate,down}``, no ``gate`` for a non-gated activation; an
 MoE's ``ffn.router.w`` in f32 and its ``ffn.{up,gate,down}`` as raw ``[E,
 ...]`` arrays).  bfloat16 arrays travel bit-exactly through a uint16 view.
+``train_state_from_jax`` carries a training state (parameters and
+optimizer trees) the same way.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import Transformer
+from repro_torch.training.optimizer import OptState
 
 
 def to_torch(a: Any, device=None) -> torch.Tensor:
@@ -88,22 +91,44 @@ def jax_layer(tree: Mapping, cfg: ModelConfig, layer: int):
     return tree["rest"][layer - n_cycles * n], None
 
 
+def jax_leaf(tree: Mapping, cfg: ModelConfig, name: str):
+    """The array (or None) of JAX tree ``tree`` (``Transformer.init``'s
+    structure: the parameters, or an optimizer tree of the same shape) at
+    the port's parameter ``name`` (``Transformer.named_parameters``)."""
+    if name == "final_norm":
+        return tree["final_norm"]["scale"]
+    if not name.startswith("layers."):
+        return tree[name]
+    _, l, pname = name.split(".")
+    node, c = jax_layer(tree, cfg, int(l))
+    for key in layer_keys(cfg, cfg.layer_kinds[int(l)])[pname]:
+        node = node[key]
+    return node if node is None or c is None else np.asarray(node)[c]
+
+
 def params_from_jax(tree: Mapping, cfg: ModelConfig, device="cuda") -> Transformer:
     """JAX ``Transformer.init`` parameters (numpy leaves) -> port model."""
     model = Transformer(cfg, device=device)
-    dev = model.device
     with torch.no_grad():
-        model.embed.copy_(to_torch(tree["embed"], dev))
-        model.final_norm.copy_(to_torch(tree["final_norm"]["scale"], dev))
-        if model.lm_head is not None:
-            model.lm_head.copy_(to_torch(tree["lm_head"], dev))
-        for l, layer in enumerate(model.layers):
-            node0, c = jax_layer(tree, cfg, l)
-            keys = layer_keys(cfg, layer.kind)
-            for name, p in layer.named_parameters():
-                node = node0
-                for key in keys[name]:
-                    node = node[key]
-                a = np.asarray(node)
-                p.copy_(to_torch(a if c is None else a[c], dev))
+        for name, p in model.named_parameters():
+            p.copy_(to_torch(jax_leaf(tree, cfg, name), model.device))
     return model
+
+
+def train_state_from_jax(state: Mapping, cfg: ModelConfig, device="cuda"):
+    """JAX's training state ``{"params", "opt": OptState}`` (numpy leaves)
+    -> (port model, port :class:`~repro_torch.training.optimizer.OptState`):
+    ``m``, ``v``, ``master`` and ``error`` by the parameters' key map (None
+    where JAX's leaf is None), ``step`` carried over."""
+    model = params_from_jax(state["params"], cfg, device)
+    opt = state["opt"]
+
+    def tree(t):
+        out = {}
+        for name, _ in model.named_parameters():
+            a = jax_leaf(t, cfg, name)
+            out[name] = None if a is None else to_torch(a, model.device)
+        return out
+
+    return model, OptState(int(np.asarray(opt.step)), tree(opt.m), tree(opt.v),
+                           tree(opt.master), tree(opt.error))

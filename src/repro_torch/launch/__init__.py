@@ -1,1 +1,2 @@
-"""Launch layer of the port: the serving launcher (``launch.serve``)."""
+"""Launch layer of the port: the serving launcher (``launch.serve``) and
+the training launcher (``launch.train``)."""

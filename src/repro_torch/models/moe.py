@@ -72,6 +72,20 @@ def expert_positions(top_e: torch.Tensor, n_experts: int) -> torch.Tensor:
     return before.gather(2, flat[..., None]).reshape(G, gt, k)
 
 
+def aux_loss(probs: torch.Tensor, top_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Switch's load-balancing loss from one call's routing (JAX's
+    ``_router``): ``E * sum_e(mean_probs_e * mean_picks_e) / K`` over the
+    ``[G, gt]`` tokens, the probabilities ``[G, gt, E]`` and the picks
+    ``[G, gt, K]`` that :func:`moe_ffn` hands back in ``routing`` -> f32
+    scalar (the picks carry no gradient)."""
+    k = top_e.shape[-1]
+    experts = torch.arange(n_experts, device=top_e.device)
+    picks = (top_e[..., None] == experts).to(torch.float32).sum(dim=2)
+    me = probs.mean(dim=(0, 1))
+    ce = picks.mean(dim=(0, 1))
+    return n_experts * torch.sum(me * ce) / k
+
+
 def _experts(layer, xe: torch.Tensor, activation: str) -> torch.Tensor:
     """xe ``[E, N, d]`` -> ``[E, N, d]`` through each expert's MLP (JAX's
     four activations, GELU in its tanh form)."""

@@ -35,6 +35,9 @@ Entry points:
   decode_step      one token for every slot: score -> top-K_h -> attend
                    (fused kernel or staged, ``SparseConfig.fused_decode``)
                    on global attention layers, the O(1) updates elsewhere
+  forward_train    full causal pass for training, plain PyTorch with
+  / loss           gradients from autograd (chunked CE plus the MoE aux
+                   loss), as JAX trains through no Pallas kernel
 
 Prefill is query-block sparse when ``SparseConfig.sparse_prefill`` is on
 and the plan is active; otherwise (the default) it is dense causal
@@ -60,7 +63,13 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.backends import AttentionPlan, CentroidStore, build_plan, get_backend
 from repro_torch.config import ModelConfig
@@ -69,6 +78,7 @@ from repro_torch.core.quantization import store_bits, store_symmetric
 from repro_torch.core.selection import selected_page_masks
 from repro_torch.models import layers, rglru, rwkv6
 from repro_torch.models.layers import DecoderLayer
+from repro_torch.models.moe import aux_loss, moe_ffn
 
 Cache = Dict[str, Any]
 
@@ -81,6 +91,41 @@ LOCAL_CHUNK = 512
 #: random init of the weights JAX sets to constants (``rglru.lam`` is
 #: ``linspace(2, 6)``, done apart)
 _CONSTANT_INIT = {"mu": 0.5, "u": 0.5, "w_bias": -2.0, "conv_b": 0.0}
+
+
+#: ``forward_train``'s activation-checkpoint policies
+REMAT = ("none", "full", "dots")
+
+
+class _CastCotangent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+def cast_cotangent(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Identity forward; the cotangent cast to ``dtype`` on the way back
+    (JAX's ``cast_cotangent``, which keeps the backward chain in the model
+    dtype; autograd also hands each tensor a gradient of its own dtype)."""
+    return _CastCotangent.apply(x, dtype)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    """Remat "dots": keep the outputs of ``aten.mm`` (the projections, the
+    router; JAX's "dots with no batch dims"), recompute everything else,
+    the attention's batched products included."""
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def resolve_device(device) -> torch.device:
@@ -195,7 +240,11 @@ class Transformer(nn.Module):
         ``[B, P, d]`` (cast to the model dtype) before the token embeddings,
         ``P`` by :meth:`prefix_rows`, then MusicGen's positions ``0 .. P +
         S - 1`` (:meth:`add_positions`), as JAX's ``embed_inputs``."""
-        x = self.embed[tokens]
+        # F.embedding, not ``self.embed[tokens]``: on CUDA the indexing's
+        # backward sums a repeated token's rows in bf16 (the tied
+        # embedding's gradient then misses its f32 copy's by 7% in phase
+        # 13 a), ``chip_smoke.py``); the forward is the same gather
+        x = F.embedding(tokens, self.embed)
         if self.prefix_rows(prefix_emb):
             pre = torch.as_tensor(prefix_emb, device=self.device).to(x.dtype)
             x = torch.cat([pre, x], dim=1)
@@ -213,8 +262,114 @@ class Transformer(nn.Module):
         return x + layers.sinusoidal_embedding(positions, self.cfg.d_model).to(x.dtype)
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
-        w = self.embed.T if self.lm_head is None else self.lm_head
-        return torch.matmul(h, w)
+        return torch.matmul(h, self._head())
+
+    def _head(self) -> torch.Tensor:
+        return self.embed.T if self.lm_head is None else self.lm_head
+
+    # ----------------------------------------------------------- train pass
+
+    def _layer_train(self, layer: DecoderLayer, x: torch.Tensor,
+                     positions: torch.Tensor, chunk: int, aux: torch.Tensor):
+        """One pre-norm block over the whole sequence (JAX's
+        ``_layer_train``) -> (output, aux plus this block's MoE aux)."""
+        cfg = self.cfg
+        h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
+        if layer.kind in ("attn", "local_attn"):
+            q, k, v = layers.qkv_project(layer, h, cfg, positions)
+            window = cfg.local_window if layer.kind == "local_attn" else None
+            attn = layers.chunked_causal_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                chunk=chunk, window=window)
+            h = layers.out_project(layer, attn.transpose(1, 2))
+        elif layer.kind == "rglru":
+            h = rglru.rglru_block(layer, h, cfg)[0]
+        else:
+            h = rwkv6.rwkv_time_mix(layer, h, cfg)[0]
+        x = x + h
+        h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
+        if cfg.moe is None:
+            return x + layers.mlp(layer, h, cfg.activation), aux
+        routing = {}
+        h = moe_ffn(layer, h, cfg, routing=routing)
+        return x + h, aux + aux_loss(routing["probs"], routing["experts"],
+                                     cfg.moe.n_experts)
+
+    def forward_train(self, tokens, prefix_emb=None,
+                      remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full causal pass for training (JAX's ``forward_train``):
+        tokens ``[B, S]`` (after ``prefix_emb`` ``[B, P, d]``) -> (final
+        hidden ``[B, P + S, d]``, the MoE aux loss summed over layers, f32).
+
+        Attention, global or local, is :func:`layers.chunked_causal_attention`
+        at JAX's chunk (the largest divisor of ``P + S`` up to 512); no
+        cache, plan or kernel.  The layers run in cycles of the pattern,
+        each entered through :func:`cast_cotangent` and checkpointed by
+        ``remat`` ("none", "full", or "dots": keep the outputs of
+        ``aten.mm``, the projections, and recompute the rest), then the
+        remainder layers as they are, as JAX's scan body and its tail."""
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, not {remat!r}")
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        x = self.embed_inputs(tokens, prefix_emb)
+        S = x.shape[1]
+        positions = torch.arange(S, device=self.device)[None]
+        chunk = layers.attn_chunk(S)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        n = len(self.cfg.layer_pattern)
+        n_cycles = self.cfg.n_layers // n
+
+        def cycle(c, x, aux):
+            for layer in self.layers[c * n:(c + 1) * n]:
+                x, aux = self._layer_train(layer, x, positions, chunk, aux)
+            return x, aux
+
+        for c in range(n_cycles):
+            x = cast_cotangent(x, self.dtype)
+            if remat == "none":
+                x, aux = cycle(c, x, aux)
+            else:
+                x, aux = checkpoint(
+                    cycle, c, x, aux, use_reentrant=False,
+                    **({} if remat == "full" else {"context_fn": _save_dots}))
+        for layer in self.layers[n_cycles * n:]:
+            x, aux = self._layer_train(layer, x, positions, chunk, aux)
+        return layers.rms_norm(x, self.final_norm, self.cfg.norm_eps), aux
+
+    def loss(self, tokens, prefix_emb=None, remat: str = "none",
+             label_chunk: int = 2048) -> torch.Tensor:
+        """Next-token cross-entropy over the token region (prefix rows
+        excluded), JAX's ``loss``: f32 logits in chunks of ``label_chunk``
+        positions (then the remainder), so ``[B, S, vocab]`` never exists
+        at once; plus ``router_aux_weight * aux / n_layers`` with an MoE
+        FFN."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        h, aux = self.forward_train(tokens, prefix_emb, remat)
+        P = h.shape[1] - tokens.shape[1]
+        inputs, targets = h[:, P:-1], tokens[:, 1:]
+        w = self._head()
+        B, Sm1, _ = inputs.shape
+        label_chunk = min(label_chunk, Sm1)
+        n_chunks = Sm1 // label_chunk
+        rem = Sm1 - n_chunks * label_chunk
+
+        def chunk_loss(h_c, t_c):
+            logits = torch.matmul(h_c, w).to(torch.float32)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, t_c[..., None])[..., 0]
+            return torch.sum(logz - gold)
+
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for c in range(n_chunks):
+            sl = slice(c * label_chunk, (c + 1) * label_chunk)
+            total = total + chunk_loss(inputs[:, sl], targets[:, sl])
+        if rem:
+            total = total + chunk_loss(inputs[:, -rem:], targets[:, -rem:])
+        ce = total / (B * Sm1)
+        if cfg.moe is not None:
+            ce = ce + cfg.moe.router_aux_weight * aux / cfg.n_layers
+        return ce
 
     # ----------------------------------------------------------------- cache
 

@@ -31,6 +31,7 @@ from repro.serving import Engine as JEngine
 from repro.serving import Request as JRequest
 
 from repro_torch.config import ServeConfig as TServe
+from repro_torch.config import TrainConfig
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import smoke_variant as t_smoke
 from repro_torch.convert import params_from_jax
@@ -132,7 +133,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
               "obs.cost", "serving.frontend", "launch.serve", "models.moe", "models.moe_check",
               "configs.granite_moe_3b", "configs.grok1_314b", "configs.internvl2_2b",
               "configs.musicgen_large", "models.rglru", "models.rwkv6",
-              "configs.recurrentgemma_9b", "configs.rwkv6_3b"):
+              "configs.recurrentgemma_9b", "configs.rwkv6_3b", "training.data",
+              "training.optimizer", "training.checkpoint", "training.train_loop",
+              "launch.train"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -168,6 +171,14 @@ def test_entry_points_default_to_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke"])
+    from repro_torch.launch import train
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, TrainConfig(checkpoint_dir=None), DataConfig(cfg.vocab_size, 64, 2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--steps", "1"])
 
 
 def test_unported_engine_options_raise():

@@ -66,6 +66,9 @@ inside the graph) bitwise the eager one.  Last, the recurrent families'
 smoke variants (recurrentgemma-9b at 5 layers, rwkv6-3b): the graphed
 decode step bitwise the eager one from random ring buffers and states,
 and greedy decode continuing a single-shot prefill (cosine 0.9995).
+Then training: three ``Trainer`` steps of llama3.2-3b's smoke variant on
+the card against the CPU's, and the embedding's bf16 gradient for
+repeated tokens against exact sums.
 """
 import pytest
 import torch
@@ -1107,3 +1110,64 @@ def test_recurrent_graphed_step_and_continuation(cuda, arch):
         ref = model.prefill(seq, max_context=256)[0]
         cos = torch.nn.functional.cosine_similarity(logits.float(), ref.float(), dim=-1)
         assert float(cos.min()) >= 0.9995
+
+
+# -- training (repro_torch.training) ----------------------------------------------
+
+
+def test_train_steps_on_cuda_match_cpu(cuda):
+    """llama3.2-3b's smoke variant (f32): three ``Trainer`` steps (remat
+    "dots", global batch 4 of 128 tokens) on the card from the CPU's
+    initial weights, against the same steps on the CPU: every loss within
+    1e-4 relative, every parameter within 1e-3 relative L2 after them;
+    no kernel launched."""
+    from repro_torch import kernels
+    from repro_torch.config import MeshPlan, TrainConfig
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import Trainer
+
+    cfg = smoke_variant(get_config("llama3.2-3b"))
+    tc = TrainConfig(checkpoint_dir=None, warmup_steps=1, total_steps=3,
+                     learning_rate=1e-3)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=4)
+    host = Trainer(cfg, tc, dc, MeshPlan(remat="dots"), device="cpu")
+    card = Trainer(cfg, tc, dc, MeshPlan(remat="dots"), device=cuda)
+    start = host.init_state(0)
+    kernels.reset_counts()
+    got = card.run(3, state={"params": start["params"], "opt": card.init_state(0)["opt"]},
+                   resume=False)
+    assert not any(c["launches"] or c["plain_calls"] for c in kernels.counts().values())
+    want = host.run(3, state=start, resume=False)
+    for a, b in zip(got["losses"], want["losses"]):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    for name, p in want["state"]["params"].items():
+        q = got["state"]["params"][name].detach().cpu()
+        assert float((q - p.detach()).norm() / p.detach().norm()) <= 1e-3, name
+
+
+def test_embedding_gradient_sums_repeats_in_f32(cuda):
+    """``Transformer.embed_inputs``' backward on the card: a bf16 table's
+    gradient for Zipf tokens (one id 762 times) within 5e-2 relative L2 of
+    the exact sums (f64; the CPU's backward reaches 0.0163), where an
+    indexing lookup's backward, which sums a repeated token's rows in bf16
+    on the card, put the tied embedding's leaf 0.07 off its f32 copy's in
+    ``chip_smoke.py`` phase 13 a)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import Transformer
+    from repro_torch.training.data import DataConfig, batch_for_step
+    from repro_torch.training.train_loop import trainable
+
+    cfg = dataclasses.replace(smoke_variant(get_config("llama3.2-3b")), dtype="bfloat16")
+    model = Transformer(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    embed = trainable(model)["embed"]
+    toks = batch_for_step(DataConfig(cfg.vocab_size, 2048, 2), 0, device=cuda).long()
+    w = torch.randn((2, 2048, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    x = model.embed_inputs(toks)
+    (g,) = torch.autograd.grad((x.float() * w).sum(), [embed])
+    want = torch.zeros(embed.shape, dtype=torch.float64, device=cuda).index_add_(
+        0, toks.flatten(), w.to(torch.bfloat16).double().reshape(-1, cfg.d_model))
+    assert float((g.double() - want).norm() / want.norm()) <= 5e-2

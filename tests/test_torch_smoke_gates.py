@@ -13,7 +13,9 @@ the card only; its gates are plain functions of cosines):
   0.997784), which is why phase 10a now runs under the per-call oracle
   (``chip_smoke.call_oracle``, ``tests/test_torch_call_oracle.py``)
   instead;
-- phase 9's ``s_gate`` at its own constants.
+- phase 9's ``s_gate`` at its own constants;
+- phase 13 a)'s gradient gate (``grad_misses``) on the leaves an H100
+  gave it: a clean pass passes, the rope and mask faults fail.
 
 A few seconds.
 """
@@ -70,3 +72,19 @@ def test_s_gate(c_plain, c_ctrl, ok):
 def test_noise_gate_passes_the_power_checks_fault():
     ok, limit = chip_smoke.noise_gate("power check", GRANITE_FAULT, GRANITE_D_NOISE)
     assert ok and limit == pytest.approx(4.43e-3, rel=1e-3)
+
+
+def test_train_gradient_gate():
+    """Phase 13 a)'s gate on the leaves an H100 gave it
+    (``tools/train_grad_control.py``; NVIDIA H100 80GB HBM3, 700 W): the
+    worst clean leaves pass; the rope and mask faults fail on layer 1's wq
+    and wk."""
+    assert (chip_smoke.TRAIN_GRAD_COS, chip_smoke.TRAIN_GRAD_RTOL) == (0.99985, 0.018)
+    clean = {"embed": (0.999935, 0.01192), "final_norm": (0.999992, 0.00413),
+             "layers.1.wq": (0.999956, 0.00949), "layers.1.wk": (0.99996, 0.00894)}
+    assert chip_smoke.grad_misses(clean) == {}
+    for wq, wk in (((0.999647, 0.02657), (0.999626, 0.02734)),      # mask
+                   ((0.999489, 0.03197), (0.999483, 0.03218))):     # rope
+        fault = {"embed": (0.999927, 0.01241), "layers.1.norm1": (0.999986, 0.00535),
+                 "layers.1.wq": wq, "layers.1.wk": wk, "layers.1.wv": (0.999987, 0.00505)}
+        assert set(chip_smoke.grad_misses(fault)) == {"layers.1.wq", "layers.1.wk"}

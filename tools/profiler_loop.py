@@ -14,7 +14,7 @@ it timed (``stage``, and its session number within the loop), the kernel
 rows it recorded, their summed device ms, the recordings it took and the
 warnings the profiler raised, so that a session recorded again can be
 held against the same session of the other loops.  A
-phase-4 loop whose session failed (two empty recordings in a row) is
+phase-4 loop whose session failed (three empty recordings in a row) is
 counted as failed and the script goes on.  Prints one summary JSON line
 (``{"loops": N, "passed": k, "sessions": s, "retried": r, ...}``) and
 writes every session's record to ``chiprun_out/profiler_loop.json``.
