@@ -304,6 +304,25 @@ launched the pooling and scoring kernels and called no plain version.
    launches and no plain version runs (JAX trains through no Pallas
    kernel).
 
+14. (after phase 13; ``mesh_phase``) multi-GPU serving
+   (``repro_torch.distributed``).  a) phase 2's llama3.2-3b inputs (B 4,
+   24 / 8 heads of 128, INT4 store, a chunk at offset 8192) cut by
+   ``kernel_partition`` into every shard of the (data, model) meshes
+   ``MESH_SHAPES`` (model 2, 4, 8 by data 1, 2, 4, and model 16, where
+   8 kv heads replicate): each shard's ``fused_decode``,
+   ``sparse_prefill``, staged scoring and selection, ``paged_attention``
+   and flash, launched one after another at the whole call's split,
+   stitched and held bitwise to the whole call (out, page table, valid,
+   n_attended, selected blocks, scores); each shard's own split plan,
+   where it differs, logged with whether its outputs then differ.  b)
+   llama3.2-3b at ``LADDER_LAYERS`` layers serves requests
+   ``MESH_REQS`` x ``NEW_TOKENS`` on one device, then on a one-rank NCCL
+   mesh (1, 1): tokens equal, both graphed; then two ranks on this card
+   at (1, 2) over gloo (NCCL takes one card a rank; the script started
+   again with ``--mesh-rank``): the sharded engine, each rank 4 kv heads,
+   eager, tokens equal.  c) with n >= 2 cards only: the same at (1, n)
+   over NCCL, one process a card; else logged as alone.
+
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
@@ -684,7 +703,7 @@ def check_sparse_prefill(torch, dev, g=G, off=CTX // 2, valid=None, seed=2,
             f"{r['near_ties']} near-tie blocks, max_abs_err {r['max_abs_err']:.3e}, "
             f"max rel L2 {r['max_rel_l2']:.3e}, {r['tol_use']:.2f} of the elementwise "
             f"limit")
-    return {"err": err}
+    return {"err": err, "args": (q, rq, k, v, ss, la, sparse, n_valid, OFF)}
 
 
 def check_centroid_scores(torch, dec, quant):
@@ -1646,12 +1665,13 @@ def use_config(model, cfg, backend=None):
 
 
 def make_engine(cfg, model, dev, req_ids, new_tokens, telemetry=None,
-                prompts=None, backend=None, trace=None, **serve_kw):
+                prompts=None, backend=None, trace=None, mesh=None, **serve_kw):
     """An ``Engine`` over ``model`` with ``cfg`` (``backend`` in place of
     its registered backend), max_batch ``MAX_BATCH``, context CTX, chunks
     of CHUNK (``serve_kw`` overrides), temperature 0, ``trace`` and
-    ``telemetry`` (by default following ``trace``) attached, and requests
-    ``req_ids`` of ``prompts`` (default: ``traffic``) submitted."""
+    ``telemetry`` (by default following ``trace``) attached, on ``mesh``
+    (None: one device), and requests ``req_ids`` of ``prompts`` (default:
+    ``traffic``) submitted."""
     from repro_torch.config import ServeConfig
     from repro_torch.serving import Engine, Request
 
@@ -1659,7 +1679,8 @@ def make_engine(cfg, model, dev, req_ids, new_tokens, telemetry=None,
     serve_cfg = ServeConfig(**{**dict(max_batch=MAX_BATCH, max_context=CTX,
                                       prefill_chunk=CHUNK, temperature=0.0),
                                **serve_kw})
-    eng = Engine(cfg, model, serve_cfg, device=dev, telemetry=telemetry, trace=trace)
+    eng = Engine(cfg, model, serve_cfg, device=dev, telemetry=telemetry, trace=trace,
+                 mesh=mesh)
     prompts = traffic(cfg.vocab_size) if prompts is None else prompts
     for i in req_ids:
         eng.submit(Request(req_id=i, prompt=prompts[i], max_new_tokens=new_tokens))
@@ -5044,13 +5065,339 @@ def train_phase(torch, dev, card, out_dir):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-GPU serving, its kernel shards on one card
+# ---------------------------------------------------------------------------
+
+#: the (data, model) meshes whose every shard phase 14 a) launches: model 2,
+#: 4 and 8 by data 1, 2 and 4, and model 16, where 8 kv heads degrade to
+#: replicated heads (GQA)
+MESH_SHAPES = tuple((d, m) for m in (2, 4, 8) for d in (1, 2, 4)) + ((1, 16),)
+#: phase 14 b) / c): the requests served (0 and 1 share the prefix)
+MESH_REQS = (0, 1, 3)
+#: the kernels of a sharded call, and the dim of each output's kv-head axis
+#: with its group (q heads ride their kv head)
+MESH_KERNELS = ("fused_decode", "sparse_prefill", "centroid_scores_quantized",
+                "paged_attention", "flash_attention")
+
+
+def shard_calls(torch, dec, pre):
+    """Phase 2's inputs (the fused decode's and the sparse prefill's) ->
+    (the whole calls' outputs, a function running one shard's calls).
+    Every output is a tuple of (tensor, GQA group of its head axis)."""
+    from repro_torch.core.selection import select_page_table
+    from repro_torch.core.sparse_attention import as_dense
+    from repro_torch.distributed import kernel_partition as kp
+    from repro_torch.kernels import ops
+
+    q, rq, k, v, store, la, sink, local, seq_len = dec["args"]
+    pq, prq, pk, pv, ss, pla, sparse, n_valid, off = pre["args"]
+    g = q.shape[1] // k.shape[1]
+    pre_kw = dict(sink_pages=sparse.sink_pages, local_pages=sparse.local_pages,
+                  block_q=sparse.prefill_block_q, topk_scale=sparse.prefill_topk_scale,
+                  return_selected=True)
+
+    def calls(shard, own_split=False):
+        """One shard's calls (the whole call's for a trivial shard), on the
+        slices and at the splits the backends give a mesh rank ->
+        {kernel: ((output, group), ...)}; ``own_split``: only the three
+        kernels that split a cell's work, each at the split its own shapes
+        would choose."""
+        t = lambda x, grp=1: shard.take(x, 1, grp).contiguous()
+        sla, spla = kp.shard_layout(la, shard.heads), kp.shard_layout(pla, shard.heads)
+        st = kp.shard_store(store, la, shard, head_aligned_params=True)
+        sst = kp.shard_store(ss, pla, shard, head_aligned_params=False)
+        ql, rql, kl, vl = t(q, g), t(rq, g), t(k), t(v)
+        sl, nv = shard.take_rows(seq_len).contiguous(), shard.take_rows(n_valid).contiguous()
+        pql, prql, pkl, pvl = t(pq, g), t(prq, g), t(pk), t(pv)
+        split = (lambda fn, *a: None) if own_split else (lambda fn, *a: fn(shard, *a))
+        out, table, valid = ops.fused_decode(
+            ql, rql, kl, vl, st, sla, sink, local, sl,
+            n_split=split(kp.decode_split, sla.selected_pages, q.device))
+        pout, n_att, sel = ops.sparse_prefill(
+            pql, prql, pkl, pvl, sst, spla, n_valid=nv, chunk_offset=off, **pre_kw,
+            n_split=split(kp.prefill_split, pql, sparse.prefill_block_q))
+        scores = ops.centroid_scores(rql, st, sla, shard.n_heads)
+        stable, svalid = select_page_table(scores, sla, sl, sink, local)
+        att = ops.paged_attention(ql, kl, vl, stable, svalid, PS, sl, n_split=split(
+            kp.decode_split, stable.shape[-1], q.device))
+        if own_split:
+            return {"fused_decode": ((out, g),), "sparse_prefill": ((pout, g),),
+                    "paged_attention": ((att, g),)}
+        flash = ops.flash_attention(pql, as_dense(pkl), as_dense(pvl), True, off, nv)
+        return {"fused_decode": ((out, g), (table, 1), (valid, 1)),
+                "sparse_prefill": ((pout, g), (n_att, 1), (sel, 1)),
+                "centroid_scores_quantized": ((scores, 1),),
+                "paged_attention": ((att, g), (stable, 1), (svalid, 1)),
+                "flash_attention": ((flash, g),)}
+
+    whole = kp.Shard(q.shape[0], k.shape[1], (0, q.shape[0]), (0, k.shape[1]))
+    return calls(whole), calls
+
+
+def own_splits(torch, dec, pre, shard):
+    """{kernel: (the whole call's split, this shard's own)} of the three
+    kernels that split a cell's work."""
+    from repro_torch.distributed import kernel_partition as kp
+
+    q, k = dec["args"][0], dec["args"][2]
+    pq, sparse = pre["args"][0], pre["args"][6]
+    own = kp.Shard(shard.n_rows, shard.n_heads, (0, shard.n_rows), (0, shard.n_heads))
+    p_sel = dec["args"][5].selected_pages
+    g = q.shape[1] // k.shape[1]
+    pql = shard.take(pq, 1, g)
+    out = {}
+    for name, split in (("fused_decode", lambda s: kp.decode_split(s, p_sel, q.device)),
+                        ("paged_attention", lambda s: kp.decode_split(s, p_sel, q.device)),
+                        ("sparse_prefill", lambda s: kp.prefill_split(
+                            s, pql, sparse.prefill_block_q))):
+        out[name] = (split(shard), split(own))
+    return out
+
+
+def mesh_kernels(torch, dec, pre):
+    """Phase 14 a): for every mesh of ``MESH_SHAPES`` launch every shard of
+    the five kernels of a sharded call, one after another on this card, on
+    the slices and at the splits ``kernel_partition`` gives the rank (no
+    process group), stitch the outputs and hold them bitwise to the whole
+    call: out, page table, valid, the sparse prefill's n_attended and
+    selected map, the staged scores.  The launch counts are set to 0 just
+    before a mesh's shards and read just after: each kernel must have
+    launched once a shard.  Then, outside that window, log per kernel the
+    shards whose own split plan differs from the whole call's, and whether
+    their outputs then differ."""
+    from repro_torch import kernels
+    from repro_torch.distributed import kernel_partition as kp
+
+    whole, calls = shard_calls(torch, dec, pre)
+    B, n_kv = dec["args"][0].shape[0], dec["args"][2].shape[1]
+    launches = {n: 0 for n in MESH_KERNELS}
+    own = {n: {"shards": 0, "split_differs": 0, "out_differs": 0}
+           for n in ("fused_decode", "sparse_prefill", "paged_attention")}
+    for shape in MESH_SHAPES:
+        shards = [s for _, s in kp.every_shard(shape, B, n_kv)]
+        stitched = {n: [torch.full_like(t, -1) if t.dtype != torch.bool
+                        else torch.zeros_like(t) for t, _ in outs]
+                    for n, outs in whole.items()}
+        kernels.reset_counts()
+        for shard in shards:
+            for name, outs in calls(shard).items():
+                for dst, (part, grp) in zip(stitched[name], outs):
+                    shard.take(dst, 1, grp).copy_(part)
+        counted = kernels.counts()
+        for name in MESH_KERNELS:
+            n = counted[name]["launches"]
+            if n != len(shards) or counted[name]["plain_calls"]:
+                fail(f"mesh {shape}: {name} launched {n} times (plain calls "
+                     f"{counted[name]['plain_calls']}) over {len(shards)} shards")
+            launches[name] += n
+        for name, outs in whole.items():
+            for i, ((want, _), have) in enumerate(zip(outs, stitched[name])):
+                if not torch.equal(want, have):
+                    bad = (want != have).sum().item()
+                    fail(f"mesh {shape}: {name} output {i} stitched from its shards "
+                         f"differs from the whole call in {bad} elements")
+        for shard in shards:
+            splits = own_splits(torch, dec, pre, shard)
+            diff = {n: s for n, s in splits.items() if s[0] != s[1]}
+            mine = calls(shard, own_split=True) if diff else {}
+            for name, (w, o) in splits.items():
+                own[name]["shards"] += 1
+                if w != o:
+                    own[name]["split_differs"] += 1
+                    part = shard.take(whole[name][0][0], 1, whole[name][0][1])
+                    own[name]["out_differs"] += int(not torch.equal(mine[name][0][0], part))
+        log(f"phase 14 a) mesh {shape}: {len(shards)} shards, each kernel launched "
+            f"once a shard, every stitched output bitwise the whole call's")
+    log(f"phase 14 a) launches counted over the meshes' shards: {json.dumps(launches)}")
+    log(f"phase 14 a) own split plans (shards held / own plan differs / output "
+        f"then differs): {json.dumps(own)}")
+    return {"launches": launches, "own_split": own}
+
+
+def mesh_model(torch, dev):
+    """llama3.2-3b at full width, ``LADDER_LAYERS`` deep, on phase 3's
+    fused configuration, random weights from seed 0 on ``dev``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    base = get_config(ARCH)
+    pattern = tuple(tuple((16, 32, 64)[(l + h) % 3] for h in range(base.n_kv_heads))
+                    for l in range(LADDER_LAYERS))
+    cfg = dataclasses.replace(base, n_layers=LADDER_LAYERS, sparse=dataclasses.replace(
+        base.sparse, backend="cuda", fused_decode=True, sparse_prefill=True,
+        quant="int4_asym", block_sizes=pattern, token_budget=BUDGET))
+    return cfg, Transformer(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+
+
+def mesh_serve(torch, cfg, model, dev, mesh, what):
+    """Serve ``MESH_REQS`` x ``NEW_TOKENS`` on ``mesh`` (None: one device)
+    with the launch counts zeroed before and read after -> the run."""
+    eng = make_engine(cfg, model, dev, MESH_REQS, NEW_TOKENS, mesh=mesh)
+    run = run_engine(torch, eng)
+    check_served(eng, run["done"], len(MESH_REQS), NEW_TOKENS, cfg.vocab_size)
+    expect_path(what, run["counts"], {"fused_decode", "sparse_prefill"})
+    log_serving(what, run, eng.metrics.snapshot())
+    run["streams"] = {r.req_id: list(r.output) for r in run["done"]}
+    run["graphed"] = eng._graphed
+    run["heads"] = None if eng._shard is None else list(eng._shard.heads)
+    del eng
+    torch.cuda.empty_cache()
+    return run
+
+
+def mesh_ranks(torch, n, one_card, out_dir, what, want):
+    """Serve ``MESH_REQS`` at mesh (1, ``n``) with ``n`` processes of this
+    script (``--mesh-rank``): one a card over NCCL, or with ``one_card``
+    all on card 0 over gloo (NCCL takes one card a rank).  Rank 0's
+    streams must be ``want`` (one device's) and its engine the sharded
+    one: this rank's kv heads, the step eager -> rank 0's record."""
+    from repro_torch.configs import get_config
+
+    port, path = _mesh_port(), out_dir / "mesh_streams.json"
+    path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--mesh-rank", str(r), "--mesh-world", str(n),
+                               "--mesh-port", str(port), "--mesh-out", str(path)]
+                              + (["--mesh-one-card"] if one_card else []))
+             for r in range(n)]
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if rcs != [0] * n:
+        fail(f"{what}: ranks exited {rcs}")
+    got = json.loads(path.read_text())
+    streams = {int(k): v for k, v in got["streams"].items()}
+    if streams != want:
+        fail(f"{what}: the tokens differ from one device's")
+    n_kv = get_config(ARCH).n_kv_heads
+    if got["heads"] != [0, n_kv // n] or got["graphed"]:
+        fail(f"{what}: rank 0 served kv heads {got['heads']} (graphed "
+             f"{got['graphed']}), not the sharded engine's [0, {n_kv // n}] eager")
+    log(f"{what}: tokens equal one device's; rank 0 held kv heads "
+        f"{got['heads']}, launches {json.dumps(got['launches'])}, wall "
+        f"{got['wall']:.1f}s, {time.perf_counter() - t0:.1f}s with the start-up")
+    return {"n": n, "tokens_equal": True, "launches": got["launches"],
+            "wall_s": got["wall"]}
+
+
+def _mesh_port() -> int:
+    from repro_torch.launch.mesh import _free_port
+
+    return _free_port()
+
+
+def mesh_serving(torch, dev, out_dir):
+    """Phase 14 b) and c): requests ``MESH_REQS`` served without a mesh,
+    then on a one-rank NCCL group at mesh (1, 1), whose tokens must be the
+    same (and its decode step graphed, as one device's), then by two ranks
+    on this card at (1, 2) over gloo: the sharded engine (a rank's kv
+    heads, the backends' shard splits, the head gather), tokens equal; c)
+    only with 2 or more cards: the same at (1, n) over NCCL, one process a
+    card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    cfg, model = mesh_model(torch, dev)
+    one = mesh_serve(torch, cfg, model, dev, None, "phase 14 b) one device")
+    mesh = make_serving_mesh((1, 1), device=dev)
+    try:
+        m11 = mesh_serve(torch, cfg, model, dev, mesh, "phase 14 b) mesh (1, 1), NCCL")
+    finally:
+        dist.destroy_process_group()
+    if m11["streams"] != one["streams"]:
+        fail("phase 14 b): the (1, 1) mesh's tokens differ from one device's")
+    if not (m11["graphed"] and one["graphed"]):
+        fail("phase 14 b): the (1, 1) mesh must take the graphed single-device step")
+    res = {"b": {"tokens_equal": True, "wall_s": [one["wall"], m11["wall"]],
+                 "graph_steps": m11["graph_steps"]}}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["b"]["one_card_1x2"] = mesh_ranks(
+        torch, 2, True, out_dir, "phase 14 b) mesh (1, 2), two ranks on this card "
+        "over gloo", one["streams"])
+    n_cards = torch.cuda.device_count()
+    n = max((c for c in (2, 4, 8) if c <= n_cards), default=0)
+    if not n:
+        log(f"phase 14 c): {n_cards} card: the card is alone, no (1, n) mesh")
+        res["c"] = None
+        return res
+    res["c"] = mesh_ranks(torch, n, False, out_dir,
+                          f"phase 14 c) mesh (1, {n}) over NCCL on {n} cards",
+                          one["streams"])
+    return res
+
+
+def mesh_rank(args) -> int:
+    """One rank of phase 14 b)'s gloo pair or of c): serve ``MESH_REQS``
+    at mesh (1, world), over NCCL on card ``rank`` or, with
+    ``--mesh-one-card``, over gloo on card 0; rank 0 writes its streams,
+    launches and kv heads to ``--mesh-out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import ServingMesh
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init = f"tcp://localhost:{args.mesh_port}"
+    shape = (1, args.mesh_world)
+    if args.mesh_one_card:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=init, rank=args.mesh_rank,
+                                world_size=args.mesh_world)
+        mesh = ServingMesh.join(shape, dev)
+    else:
+        os.environ["LOCAL_RANK"] = str(args.mesh_rank)
+        mesh = make_serving_mesh(shape, device="cuda", init_method=init,
+                                 rank=args.mesh_rank, world_size=args.mesh_world)
+    try:
+        cfg, model = mesh_model(torch, mesh.device)
+        run = mesh_serve(torch, cfg, model, mesh.device, mesh,
+                         f"phase 14 rank {args.mesh_rank} of {args.mesh_world}")
+    finally:
+        dist.destroy_process_group()
+    if args.mesh_rank == 0:
+        launched = {n: c["launches"] for n, c in run["counts"].items() if c["launches"]}
+        Path(args.mesh_out).write_text(json.dumps(
+            {"streams": run["streams"], "launches": launched, "wall": run["wall"],
+             "heads": run["heads"], "graphed": run["graphed"]}))
+    return 0
+
+
+def mesh_phase(torch, dev, dec, pre, out_dir):
+    """Phase 14: a) the kernel shards, b) and c) serving on a mesh."""
+    t0 = time.perf_counter()
+    res = {"a": mesh_kernels(torch, dec, pre)}
+    res["a"]["seconds"] = time.perf_counter() - t0
+    res.update(mesh_serving(torch, dev, out_dir))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="run the fused and staged serving runs under torch.profiler "
                          "and print device time by kernel (serving numbers then "
                          "include the profiler's overhead)")
+    for flag in ("--mesh-rank", "--mesh-world", "--mesh-port"):
+        ap.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-one-card", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        # one rank of phase 14 b)'s pair or of c), started by the script itself
+        return mesh_rank(args)
 
     # keep CUPTI set up between profiler sessions: torn down after each
     # one (Kineto's default), about one session in a hundred of phase 4
@@ -5163,6 +5510,8 @@ def main() -> int:
     phase_done("12")
     train = train_phase(torch, dev, card, out_dir)
     phase_done("13")
+    mesh = mesh_phase(torch, dev, dec, pre, out_dir)
+    phase_done("14")
     log(f"phase 6 summary (ms; busy = device-busy ms per step): "
         f"{json.dumps({ARCH: paths['step'], QWEN: qwen['step']})}")
     tiered = paths["tiered"]
@@ -5227,6 +5576,8 @@ def main() -> int:
         # phase 7's tiered run (T: fused, plus the page masks' scoring)
         k["ladder_launches"] = paths["ladder"]["counts"][k["name"]]["launches"]
         k["tiered_launches"] = paths["tiered"]["T"]["counts"][k["name"]]["launches"]
+        # phase 14 a): shard launches, each held bitwise to the whole call
+        k["mesh_shard_launches"] = mesh["a"]["launches"].get(k["name"], 0)
         # max_abs_err over the checks at phase 9's, 10's and 11's shapes too
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             f["err"][k["name"]] for f in fam.values() if k["name"] in f["err"]])
@@ -5248,6 +5599,7 @@ def main() -> int:
     log(f"phase 11 summary ({card}): " + json.dumps(music))
     log(f"phase 12 summary ({card}): " + json.dumps(rec))
     log(f"phase 13 summary ({card}): " + json.dumps(train))
+    log(f"phase 14 summary ({card}): " + json.dumps(mesh))
     for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "

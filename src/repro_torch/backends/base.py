@@ -51,6 +51,7 @@ from repro_torch.core.sparse_attention import (
     dense_decode_attention,
 )
 from repro_torch.core.stacked import LayoutArrays, stack_layouts
+from repro_torch.distributed.kernel_partition import decode_split, prefill_split
 
 
 @dataclass
@@ -226,13 +227,19 @@ class AttentionBackend:
     # -- attention ----------------------------------------------------------
 
     def prefill_attention(self, q, k, v, score_store, la, sparse,
-                          n_valid=None, chunk_offset: int = 0):
+                          n_valid=None, chunk_offset: int = 0, shard=None):
         """Query-block sparse prefill -> (out [B, Hq, Sq, D],
-        n_attended [B, n_kv, nQB])."""
+        n_attended [B, n_kv, nQB]).  ``shard`` (a
+        :class:`~repro_torch.distributed.kernel_partition.Shard`; so for
+        every method that takes one): the inputs are a mesh rank's heads,
+        the kernel runs at the whole call's split, the output holds those
+        heads."""
         from repro_torch.kernels import ops
 
         rq = rank_query(q, sparse.centroid_method, q.shape[-1])
-        fn = ops.sparse_prefill_reference if self.plain else ops.sparse_prefill
+        fn = (ops.sparse_prefill_reference if self.plain else functools.partial(
+            ops.sparse_prefill,
+            n_split=prefill_split(shard, q, sparse.prefill_block_q)))
         return fn(
             q, rq, k, v, score_store, la,
             sink_pages=sparse.sink_pages, local_pages=sparse.local_pages,
@@ -278,7 +285,8 @@ class AttentionBackend:
         valid = (pages * ps)[None, :] < seq_len.to(torch.int32)[:, None]
         return table, valid[:, None].expand(B, n_kv, n_pages).contiguous()
 
-    def dense_decode(self, q, k, v, seq_len, page_size: int, table=None):
+    def dense_decode(self, q, k, v, seq_len, page_size: int, table=None,
+                     shard=None):
         """Full-attention decode: q ``[B, n_q, D]`` over every key of k/v
         (paged or dense) at a position ``< seq_len`` (all when None) ->
         ``[B, n_q, D]``.  The kernel backend runs the paged-attention kernel
@@ -293,7 +301,7 @@ class AttentionBackend:
                                  dtype=torch.int32, device=q.device)
         if table is None:
             table = self.full_page_table(kp, seq_len)
-        return self.attend(q, kp, vp, *table, page_size, seq_len)
+        return self.attend(q, kp, vp, *table, page_size, seq_len, shard)
 
     def scores(self, rq, store: CentroidStore, la, n_kv: int) -> torch.Tensor:
         """Estimation: rank queries ``[B, n_q, Dp]`` + store -> block
@@ -304,15 +312,17 @@ class AttentionBackend:
         return fn(rq, store, la, n_kv)
 
     def attend(self, q, k, v, page_table, page_valid, page_size: int,
-               seq_len) -> torch.Tensor:
+               seq_len, shard=None) -> torch.Tensor:
         """Attention over the selected pages -> ``[B, n_q, D]``."""
         from repro_torch.kernels import ops
 
-        fn = ops.paged_attention_reference if self.plain else ops.paged_attention
+        fn = (ops.paged_attention_reference if self.plain else functools.partial(
+            ops.paged_attention,
+            n_split=decode_split(shard, page_table.shape[-1], q.device)))
         return fn(q, k, v, page_table, page_valid, page_size, seq_len)
 
     def decode(self, q, k, v, store, la, sparse, seq_len, collect_tel=False,
-               page_table=None):
+               page_table=None, shard=None):
         """Score -> top-K_h -> attend -> (out [B, n_q, D],
         page_table [B, H, P_sel], page_valid [B, H, P_sel]); with
         ``collect_tel`` also the ``[B, 4]`` sparsity counters
@@ -332,8 +342,9 @@ class AttentionBackend:
         n_kv = k.shape[1]
         sink, local = sparse.sink_pages, sparse.local_pages
         if sparse.fused_decode and not self.plain:
-            out, table, valid = ops.fused_decode(q, rq, k, v, store, la, sink,
-                                                 local, seq_len)
+            out, table, valid = ops.fused_decode(
+                q, rq, k, v, store, la, sink, local, seq_len,
+                n_split=decode_split(shard, la.selected_pages, q.device))
             if not collect_tel:
                 return out, table, valid
             scores = self.scores(rq, store, la, n_kv)
@@ -343,7 +354,7 @@ class AttentionBackend:
         ranked = rank_blocks(scores, la, seq_len, sink, local)
         table, valid = select_page_table(scores, la, seq_len, sink, local,
                                          ranked=ranked)
-        out = self.attend(q, k, v, table, valid, la.page_size, seq_len)
+        out = self.attend(q, k, v, table, valid, la.page_size, seq_len, shard)
         if not collect_tel:
             return out, table, valid
         return out, table, valid, selection_telemetry(

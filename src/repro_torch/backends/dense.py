@@ -36,16 +36,17 @@ class DenseBackend(CudaBackend):
         return store
 
     def decode(self, q, k, v, store, la, sparse, seq_len=None,
-               collect_tel=False, page_table=None):
+               collect_tel=False, page_table=None, shard=None):
         """-> (out ``[B, n_q, D]``, None, None), plus None for the counters
         with ``collect_tel`` (no selection on the dense path).
         ``page_table``: the step's identity table (:meth:`full_page_table`),
         built here when None."""
-        out = self.dense_decode(q, k, v, seq_len, sparse.page_size, page_table)
+        out = self.dense_decode(q, k, v, seq_len, sparse.page_size, page_table,
+                                shard=shard)
         return (out, None, None, None) if collect_tel else (out, None, None)
 
     def prefill_attention(self, q, k, v, score_store, la, sparse,
-                          n_valid=None, chunk_offset: int = 0):
+                          n_valid=None, chunk_offset: int = 0, shard=None):
         """Every query attends its whole causal prefix among the first
         ``n_valid`` keys (default ``chunk_offset + Sq``) -> (out, None)."""
         if n_valid is None:

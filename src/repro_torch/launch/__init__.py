@@ -1,2 +1,3 @@
-"""Launch layer of the port: the serving launcher (``launch.serve``) and
-the training launcher (``launch.train``)."""
+"""Launch layer of the port: the serving launcher (``launch.serve``), its
+mesh factory (``launch.mesh``) and the training launcher
+(``launch.train``)."""

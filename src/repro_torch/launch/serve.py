@@ -22,7 +22,16 @@ structured metrics-snapshot JSONL line every N ticks to ``--metrics-out``
 with requests arriving mid-flight.
 
 Weights are random (``Transformer.init`` from a generator seeded 0 on the
-device).  ``--mesh`` (multi-device serving) is not ported.
+device).  ``--streams`` prints each request's tokens.
+
+Multi-device serving: ``--mesh DATA,MODEL`` (or ``--mesh auto``, the
+model axis capped by the arch's kv heads) under ``torchrun``, one process
+per card, batch rows over ``data`` and kv heads over ``model``
+(:mod:`repro_torch.distributed`); rank 0 prints and traces:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1,2 ...
+
+With ``--device cpu`` the processes form a gloo group on the CPU.
 """
 from __future__ import annotations
 
@@ -96,8 +105,13 @@ def main(argv=None):
     ap.add_argument("--sparse-prefill", action="store_true",
                     help="query-block sparse prefill (cuda backend)")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="multi-device serving: not ported (the launcher "
-                         "exits)")
+                    help="serve on a (data, model) mesh of torchrun's "
+                         "processes: an explicit shape like '2,2', or "
+                         "'auto' to derive it from the world size (model "
+                         "axis capped by the arch's kv-head count).  "
+                         "Default: no mesh (one device)")
+    ap.add_argument("--streams", action="store_true",
+                    help="print every request's tokens ('stream ID: ...')")
     ap.add_argument("--fused-decode", action="store_true",
                     help="single-launch fused decode (cuda backend)")
     ap.add_argument("--hbm-pages", type=int, default=None,
@@ -144,8 +158,6 @@ def main(argv=None):
                          "fall back to the CLI flags); requests are "
                          "submitted mid-flight at their engine tick")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        ap.error("--mesh: multi-device serving is not ported")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -159,10 +171,36 @@ def main(argv=None):
                 fused_decode=args.fused_decode or cfg.sparse.fused_decode,
             ),
         )
-    device = torch.device(args.device)
+    device, mesh = torch.device(args.device), None
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import make_serving_mesh, parse_mesh_arg
+
+        try:
+            shape = None if args.mesh == "auto" else parse_mesh_arg(args.mesh)
+            mesh = make_serving_mesh(shape, n_kv_heads=cfg.n_kv_heads,
+                                     device=device)
+        except ValueError as e:
+            ap.error(f"--mesh: {e}")
+        device = mesh.device
+    try:
+        return _serve(args, cfg, device, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, device, mesh):
+    """Serve ``args``' traffic on ``device`` (this rank's, on ``mesh``)."""
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"serving mesh: data={mesh.shape[0]}, model={mesh.shape[1]} "
+          f"({mesh.size} processes on {device.type})")
     model = Transformer(cfg, device=device).init(
         torch.Generator(device=device).manual_seed(0))
-    trace = TraceRecorder() if args.trace else None
+    trace = TraceRecorder() if args.trace and lead else None
     eng = Engine(cfg, model, ServeConfig(
         max_batch=args.max_batch,
         max_context=args.max_context,
@@ -171,7 +209,7 @@ def main(argv=None):
         pool_pages=args.pool_pages,
         hbm_pages=args.hbm_pages,
         host_pages=args.host_pages,
-    ), device=device, trace=trace)
+    ), device=device, mesh=mesh, trace=trace)
     injector = None
     if args.chaos_seed is not None or args.chaos_plan is not None:
         from repro_torch.resilience import FaultInjector, default_storm, load_plan
@@ -181,8 +219,8 @@ def main(argv=None):
         )
         injector = FaultInjector(specs, seed=args.chaos_seed or 0)
         eng.set_fault_injector(injector)
-        print(f"chaos: {len(specs)} fault specs armed "
-              f"(seed={args.chaos_seed or 0})")
+        say(f"chaos: {len(specs)} fault specs armed "
+          f"(seed={args.chaos_seed or 0})")
     rng = np.random.default_rng(0)
     prefixes = [
         rng.integers(0, cfg.vocab_size, args.prefix_len).astype(np.int32)
@@ -229,7 +267,7 @@ def main(argv=None):
             eng.submit(_mkreq(rid, plen, args.new_tokens))
     metrics_f = None
     tick_cb = None
-    if args.metrics_interval > 0:
+    if args.metrics_interval > 0 and lead:
         metrics_f = (
             open(args.metrics_out, "w") if args.metrics_out else sys.stdout
         )
@@ -254,33 +292,36 @@ def main(argv=None):
     dt = time.monotonic() - t0
     if trace is not None:
         trace.dump(args.trace)
-        print(f"trace: {len(trace)} events -> {args.trace} "
-              f"(open at https://ui.perfetto.dev)")
+        say(f"trace: {len(trace)} events -> {args.trace} "
+            f"(open at https://ui.perfetto.dev)")
+    if args.streams:
+        for r in sorted(done, key=lambda r: r.req_id):
+            say(f"stream {r.req_id}: {' '.join(str(t) for t in r.output)}")
     total = sum(len(r.output) for r in done)
     plan = model.attention_plan(args.max_context)
-    print(f"served {len(done)} requests / {total} tokens in {dt:.1f}s "
-          f"({total / dt:.1f} tok/s); sparse path: {plan.active} "
-          f"(backend={plan.backend}, "
-          f"sparse_prefill={plan.active and cfg.sparse.sparse_prefill})")
-    print(f"metrics: {eng.metrics.format_snapshot()}")
+    say(f"served {len(done)} requests / {total} tokens in {dt:.1f}s "
+        f"({total / dt:.1f} tok/s); sparse path: {plan.active} "
+        f"(backend={plan.backend}, "
+        f"sparse_prefill={plan.active and cfg.sparse.sparse_prefill})")
+    say(f"metrics: {eng.metrics.format_snapshot()}")
     snap = eng.metrics.snapshot()
     for cls, m in snap["per_class"].items():
-        print(f"  slo[{cls}]: finished={m['finished']} "
-              f"ttft p50/p99={m['ttft_p50'] * 1e3:.0f}/"
-              f"{m['ttft_p99'] * 1e3:.0f}ms "
-              f"tpot p99={m['tpot_p99'] * 1e3:.1f}ms "
-              f"deadline_miss={m['deadline_misses']} "
-              f"({100 * m['deadline_miss_rate']:.0f}%)")
+        say(f"  slo[{cls}]: finished={m['finished']} "
+            f"ttft p50/p99={m['ttft_p50'] * 1e3:.0f}/"
+            f"{m['ttft_p99'] * 1e3:.0f}ms "
+            f"tpot p99={m['tpot_p99'] * 1e3:.1f}ms "
+            f"deadline_miss={m['deadline_misses']} "
+            f"({100 * m['deadline_miss_rate']:.0f}%)")
     if injector is not None:
         snap = eng.metrics.snapshot()
         failed = [r for r in done if r.status == "failed"]
-        print(f"chaos: injected={injector.snapshot()} "
-              f"retries={snap['retries']:.0f} "
-              f"restores={snap['checkpoints_restored']:.0f} "
-              f"degradations={snap['degradations']:.0f} "
-              f"watchdog={snap['watchdog_fires']:.0f}")
+        say(f"chaos: injected={injector.snapshot()} "
+            f"retries={snap['retries']:.0f} "
+            f"restores={snap['checkpoints_restored']:.0f} "
+            f"degradations={snap['degradations']:.0f} "
+            f"watchdog={snap['watchdog_fires']:.0f}")
         for r in failed:
-            print(f"chaos: request {r.req_id} FAILED: {r.failure}")
+            say(f"chaos: request {r.req_id} FAILED: {r.failure}")
         lost = args.requests - len(done)
         assert lost == 0, f"chaos: {lost} requests lost (never retired)"
     known = eng.prefix_cache.pages() if eng.prefix_cache else set()
@@ -288,8 +329,8 @@ def main(argv=None):
     assert not leaks, f"leaked pages at drain: {leaks}"
     cached = eng.prefix_cache.n_pages if eng.prefix_cache else 0
     assert eng.pool.used_pages == cached, "page leak at drain"
-    print(f"pool: {eng.pool.used_pages}/{eng.pool.total_pages} pages held "
-          f"({cached} prefix-cache pins), accounting clean")
+    say(f"pool: {eng.pool.used_pages}/{eng.pool.total_pages} pages held "
+        f"({cached} prefix-cache pins), accounting clean")
     return eng
 
 

@@ -76,6 +76,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.centroids import rank_query
 from repro_torch.core.quantization import store_bits, store_symmetric
 from repro_torch.core.selection import selected_page_masks
+from repro_torch.distributed import kernel_partition
 from repro_torch.models import layers, rglru, rwkv6
 from repro_torch.models.layers import DecoderLayer
 from repro_torch.models.moe import aux_loss, moe_ffn
@@ -164,6 +165,28 @@ class Transformer(nn.Module):
             for kind in cfg.layer_kinds
         )
         self.backend = get_backend(cfg.sparse.backend)
+        #: the serving mesh this view runs on (:meth:`with_mesh`), or None
+        self.mesh = None
+
+    def with_mesh(self, mesh) -> "Transformer":
+        """This model on a serving mesh (a
+        :class:`~repro_torch.distributed.mesh.ServingMesh`): a shallow copy
+        (no weight copied) whose caches hold this rank's batch rows and kv
+        heads (:meth:`init_cache`) and whose attention runs on them through
+        :mod:`repro_torch.distributed.kernel_partition`, the output
+        gathered over heads before the out-projection.  Every weight stays
+        whole on every rank (JAX's serving rules replicate ``heads``,
+        ``mlp`` and ``vocab``): q / k / v come from the whole projection,
+        then this rank's heads are taken, since a projection onto fewer
+        columns would round differently.  On a mesh of one rank the caches
+        and every call are the single-device ones."""
+        if mesh is not None and mesh.sharded and self.cfg.layer_pattern != ("attn",):
+            raise NotImplementedError(
+                "the recurrent families on a mesh: layer pattern "
+                f"{self.cfg.layer_pattern} (only the ('attn',) stack is sharded)")
+        view = copy.copy(self)
+        view.mesh = mesh
+        return view
 
     def with_sparse(self, **overrides) -> "Transformer":
         """This model under another :class:`SparseConfig` (``overrides`` of
@@ -384,15 +407,28 @@ class Transformer(nn.Module):
         An active plan holds ``max_context // page_size`` pages, as JAX's
         paged cache does; an inactive one, whose JAX cache is dense, pads
         the last page (``ceil(max_context / page_size)`` pages, the rows
-        past ``max_context`` never written nor attended)."""
+        past ``max_context`` never written nor attended).
+
+        On a mesh that splits the call (:meth:`with_mesh`) every entry
+        holds this rank's rows and kv heads only (``batch / data`` and
+        ``n_kv / model``, or the whole axis where it does not divide), the
+        layouts are this rank's (its heads' store rows), and
+        ``cache["shard"]`` is the
+        :class:`~repro_torch.distributed.kernel_partition.Shard`."""
         cfg, sp = self.cfg, self.cfg.sparse
         hd, ps = cfg.resolved_head_dim, sp.page_size
         plan = self.attention_plan(max_context)
         dev = self.device
         n_pages = max_context // ps if plan.active else -(-max_context // ps)
-        kv_shape = (batch, cfg.n_kv_heads, n_pages, ps, hd)
+        shard = self._shard(batch)
+        n_kv = cfg.n_kv_heads
+        if shard is not None:
+            batch, n_kv = shard.n_rows, shard.n_heads
+        kv_shape = (batch, n_kv, n_pages, ps, hd)
         if plan.active:
             stk = plan.stacked(dev)
+            if shard is not None:
+                stk = kernel_partition.shard_layout(stk, shard.heads)
             Dp, bits = plan.rank_key_width, store_bits(sp.quant)
             cw = Dp // 2 if bits == 4 else Dp
             cdt = torch.uint8 if bits else torch.float32
@@ -406,9 +442,9 @@ class Transformer(nn.Module):
                  "v": torch.zeros(kv_shape, dtype=self.dtype, device=dev)}
             if plan.active:
                 e["codes"] = torch.zeros((batch, rows, cw), dtype=cdt, device=dev)
-                e["scale"] = torch.ones((batch, cfg.n_kv_heads, Dp),
+                e["scale"] = torch.ones((batch, n_kv, Dp),
                                         dtype=torch.float32, device=dev)
-                e["zero"] = torch.zeros((batch, cfg.n_kv_heads, Dp),
+                e["zero"] = torch.zeros((batch, n_kv, Dp),
                                         dtype=torch.float32, device=dev)
             if plan.active and sp.sparse_prefill:
                 e["pcodes"] = torch.zeros((batch, rows, cw), dtype=cdt, device=dev)
@@ -424,7 +460,38 @@ class Transformer(nn.Module):
                    else [None] * cfg.n_layers),
             "max_context": max_context,
         }
+        if shard is not None:
+            cache["shard"] = shard
         return cache
+
+    def _shard(self, batch: int):
+        """This rank's slice of a call over ``batch`` sequences on the mesh,
+        or None off a mesh and where the mesh splits nothing."""
+        if self.mesh is None:
+            return None
+        shard = kernel_partition.shard_of(self.mesh, self.mesh.coords, batch,
+                                          self.cfg.n_kv_heads)
+        return None if shard.trivial else shard
+
+    def _gather_heads(self, shard, attn: torch.Tensor) -> torch.Tensor:
+        """An attention output over this shard's heads (dim 1) -> over every
+        head, gathered over the mesh's model axis, so the out-projection
+        sums the whole head axis in the single-device order."""
+        if shard is None or not shard.heads_split:
+            return attn
+        return self.mesh.all_gather_heads(attn, 1)
+
+    @staticmethod
+    def _local_heads(shard, g: int, q, k, v):
+        """This shard's heads of a projection's q ``[B, S, Hq, hd]`` and k / v
+        ``[B, S, n_kv, hd]`` (the whole projection computed first)."""
+        if shard is None or not shard.heads_split:
+            return q, k, v
+        # contiguous, as the whole projection's are (the kernels take no
+        # strided head axis)
+        return (shard.take_heads(q, 2, g).contiguous(),
+                shard.take_heads(k, 2).contiguous(),
+                shard.take_heads(v, 2).contiguous())
 
     def _kv_layer(self, cache: Cache):
         """The first global attention layer's entry (None without one)."""
@@ -444,6 +511,11 @@ class Transformer(nn.Module):
             for name, t in e.items():
                 t[slot].fill_(1.0 if name in ("scale", "pscale") else 0)
         return cache
+
+    def _kv_heads(self, cache: Cache) -> int:
+        """kv heads the cache holds (this rank's on a mesh)."""
+        shard = cache.get("shard")
+        return self.cfg.n_kv_heads if shard is None else shard.n_heads
 
     @staticmethod
     def _active(cache: Cache) -> bool:
@@ -479,6 +551,12 @@ class Transformer(nn.Module):
         B, S = x.shape[:2]
         max_context = S if max_context is None else max_context
         cache = self.init_cache(B, max_context)
+        shard = cache.get("shard")
+        if shard is not None:
+            # this rank's sequences
+            x = shard.take_rows(x)
+            B = x.shape[0]
+        n_kv, g = self._kv_heads(cache), cfg.n_heads // cfg.n_kv_heads
         active, use_sp = self._active(cache), self._sparse_prefill(cache)
         hd = cfg.resolved_head_dim
         kv0 = self._kv_layer(cache)
@@ -494,9 +572,10 @@ class Transformer(nn.Module):
                 h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
                 x = x + layers.ffn(layer, h, cfg)
                 continue
-            q, k, v = layers.qkv_project(layer, h, cfg, positions)
-            kd = e["k"].view(B, cfg.n_kv_heads, S_max, hd)
-            vd = e["v"].view(B, cfg.n_kv_heads, S_max, hd)
+            q, k, v = self._local_heads(
+                shard, g, *layers.qkv_project(layer, h, cfg, positions))
+            kd = e["k"].view(B, n_kv, S_max, hd)
+            vd = e["v"].view(B, n_kv, S_max, hd)
             kd[:, :, :S] = k.transpose(1, 2)
             vd[:, :, :S] = v.transpose(1, 2)
             if use_sp:
@@ -513,10 +592,11 @@ class Transformer(nn.Module):
             if use_sp:
                 attn, _ = self.backend.prefill_attention(
                     q.transpose(1, 2), e["k"], e["v"], score, la, sp,
-                    n_valid=n_valid,
+                    n_valid=n_valid, shard=shard,
                 )
             else:
                 attn = self.backend.causal_attention(q.transpose(1, 2), kd, vd)
+            attn = self._gather_heads(shard, attn)
             x = x + layers.out_project(layer, attn.transpose(1, 2))
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
             x = x + layers.ffn(layer, h, cfg)
@@ -565,7 +645,12 @@ class Transformer(nn.Module):
         cfg, sp = self.cfg, self.cfg.sparse
         C = len(tokens)
         tok = torch.as_tensor(tokens, device=self.device).long()[:n_valid]
-        n_kv, hd, ps = cfg.n_kv_heads, cfg.resolved_head_dim, sp.page_size
+        n_kv, hd, ps = self._kv_heads(cache), cfg.resolved_head_dim, sp.page_size
+        shard = cache.get("shard")
+        if shard is not None:
+            # a chunk is a call over one sequence (its rows are not split)
+            shard = shard.one_row()
+        g = cfg.n_heads // cfg.n_kv_heads
         S_max = cache["layers"][0]["k"].shape[2] * ps
         use_sp = self._sparse_prefill(cache)
         if (use_sp and offset % sp.prefill_block_q) or offset + n_valid > S_max:
@@ -580,7 +665,8 @@ class Transformer(nn.Module):
         for l, (layer, e, la) in enumerate(
                 zip(self.layers, cache["layers"], cache["la"])):
             h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
-            q, k, v = layers.qkv_project(layer, h, cfg, positions)
+            q, k, v = self._local_heads(
+                shard, g, *layers.qkv_project(layer, h, cfg, positions))
             kslot, vslot = e["k"][slot], e["v"][slot]       # [n_kv, nP, ps, hd]
             kd, vd = kslot.view(n_kv, S_max, hd), vslot.view(n_kv, S_max, hd)
             kd[:, offset:offset + n_valid] = k[0].transpose(0, 1)
@@ -594,7 +680,7 @@ class Transformer(nn.Module):
                 )
                 attn, n_att = self.backend.prefill_attention(
                     q.transpose(1, 2), kslot[None], vslot[None], sstore, la, sp,
-                    n_valid=offset + n_valid, chunk_offset=offset,
+                    n_valid=offset + n_valid, chunk_offset=offset, shard=shard,
                 )
                 if ptel is not None and n_att is not None:
                     ptel[l] = n_att.sum()
@@ -602,6 +688,7 @@ class Transformer(nn.Module):
                 attn = self.backend.causal_attention(
                     q.transpose(1, 2), kd[None], vd[None], offset,
                     offset + n_valid)
+            attn = self._gather_heads(shard, attn)
             x = x + layers.out_project(layer, attn.transpose(1, 2))
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
             # an MoE groups and sizes its queues by the buffer's C tokens,
@@ -671,6 +758,8 @@ class Transformer(nn.Module):
         ps = sp.page_size
         bidx = torch.arange(B, device=self.device)
         dense, table = not self._active(cache), None
+        shard = cache.get("shard")
+        g = cfg.n_heads // cfg.n_kv_heads
         kv0 = self._kv_layer(cache)
         if kv0 is not None:
             k0 = kv0["k"]
@@ -701,19 +790,20 @@ class Transformer(nn.Module):
                 h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
                 x = x + layers.ffn(layer, h, cfg, group_size=B)
                 continue
-            q, k_new, v_new = layers.qkv_project(layer, h, cfg, positions)
+            q, k_new, v_new = self._local_heads(
+                shard, g, *layers.qkv_project(layer, h, cfg, positions))
             for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0])):
                 old = e[name][bidx, :, page, within]         # [B, n_kv, hd]
                 e[name][bidx, :, page, within] = torch.where(in_range, new, old)
             if dense:
                 out = self.backend.dense_decode(q[:, 0], e["k"], e["v"], live,
-                                                ps, table)
+                                                ps, table, shard=shard)
             else:
                 store = self._store(e)
                 self.backend.append(store, e["k"], la, seq_len, sp)
                 res = self.backend.decode(
                     q[:, 0], e["k"], e["v"], store, la, sp, seq_len + 1,
-                    collect_tel=tel is not None, page_table=table,
+                    collect_tel=tel is not None, page_table=table, shard=shard,
                 )
                 out = res[0]
                 if tel is not None and res[3] is not None:
@@ -722,6 +812,7 @@ class Transformer(nn.Module):
                     for i, m in enumerate(self._page_masks(q[:, 0], e, la,
                                                            seq_len + 1)):
                         masks[i] = m if masks[i] is None else masks[i] | m
+            out = self._gather_heads(shard, out)
             x = x + layers.out_project(layer, out[:, None])
             h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
             x = x + layers.ffn(layer, h, cfg, group_size=B)

@@ -80,7 +80,26 @@ stalls until the page is back, and its step re-runs (the rest of the batch
 commits).  The device cache keeps its full size: the budget is accounting,
 as in JAX.
 
-Not ported (raises ``NotImplementedError`` when asked for): a device mesh.
+Multi-device serving (``mesh=``, a
+:class:`~repro_torch.distributed.mesh.ServingMesh`): one engine per
+process of a ``(data, model)`` mesh, SPMD.  Every rank runs the same
+scheduler on the same requests and so makes the same decisions (the
+submit time each request's deadline counts from is rank 0's).  The cache
+holds this rank's batch rows (over ``data``) and kv heads (over
+``model``), as :meth:`Transformer.with_mesh` lays them out; a slot belongs
+to the data rank that holds its row.  A prefill chunk, or a single-shot
+prefill, runs on the owning data rank's model group, its first token is
+sampled there and broadcast over ``data``; a prompt's prefix-cache pages
+are broadcast from it the same way, each model rank moving its own heads'
+pages.  The decode step runs on each rank's rows, and the sampled tokens
+and finite masks are gathered over ``data`` before the scheduler sees
+them (sampling is keyed by sequence and position, so no row's token
+depends on where it was sampled).  Only rank 0 traces.  On a mesh that
+splits anything the decode step runs eagerly (a captured step would hold
+the all-gather over heads), and tiered memory, fault injection (with it
+the ladder's lower rungs), sparsity telemetry, the recurrent families and
+an MoE model over ``data`` raise ``NotImplementedError``.  On the
+``(1, 1)`` mesh the engine is the single-device one, graphs included.
 """
 from __future__ import annotations
 
@@ -194,12 +213,20 @@ class Engine:
         ``device``); batch capacity and context length come from
         ``serve_cfg``.  ``trace`` and ``telemetry`` are attached as by
         :meth:`set_tracing` (telemetry follows ``trace`` unless given);
-        ``fault_injector`` as by :meth:`set_fault_injector`."""
+        ``fault_injector`` as by :meth:`set_fault_injector`.  ``mesh``: a
+        :class:`~repro_torch.distributed.mesh.ServingMesh` (module
+        docstring); the engine then serves on ``mesh.device``."""
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError("mesh is not ported")
+            _refuse_on_mesh(mesh, model_cfg, serve_cfg, fault_injector, telemetry)
+            device = mesh.device
+            if mesh.rank != 0:
+                trace = None
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
+        if mesh is not None:
+            model = model.with_mesh(mesh)
         self.cfg = model_cfg
         self.serve = serve_cfg
         self.model = model
@@ -213,6 +240,11 @@ class Engine:
                 page_size=serve_cfg.page_size,
             )
         self.cache = model.init_cache(self.max_batch, self.max_context)
+        #: this rank's slice of the batch (None off a mesh that splits it):
+        #: it holds the cache rows of slots ``[r0, r1)``
+        self._shard = self.cache.get("shard")
+        self._r0, self._r1 = ((0, self.max_batch) if self._shard is None
+                              else self._shard.rows)
         self.slots: List[Optional[SeqState]] = [None] * self.max_batch
         self.finished: List[Request] = []
         self.metrics = ServingMetrics(clock=clock)
@@ -281,7 +313,8 @@ class Engine:
         self._graph_variants: Dict[Tuple[int, bool], graphs.DecodeGraph] = {}
         self._graph_pool = None
         self._graphed = (graphs.graph_device(self.device)
-                         and graphs.step_graphs_enabled())
+                         and graphs.step_graphs_enabled()
+                         and (mesh is None or not mesh.sharded))
         self._rung = 0              # current (sticky) operating rung
         self._clean_ticks = 0       # clean decode ticks since a degradation
         self._tick_had_fault = False
@@ -367,8 +400,11 @@ class Engine:
                 lambda t=trace: self._flush_sparsity_counters(t)
             )
             self._tel_flush_recorder = trace
+        sharded = self.mesh is not None and self.mesh.sharded
+        if sharded and telemetry:
+            _refuse_on_mesh(self.mesh, self.cfg, self.serve, None, telemetry)
         if telemetry is None:
-            telemetry = trace is not None
+            telemetry = trace is not None and not sharded
         # counters only where selection runs
         on = bool(telemetry and self.model.use_sparse(self.max_context))
         if on == self._telemetry_on:
@@ -402,6 +438,8 @@ class Engine:
         memory manager's host-tier I/O, the decode / prefill dispatch and
         the tick clock; with ``None`` every one of those points is a single
         ``is not None`` check."""
+        if self.mesh is not None and injector is not None:
+            _refuse_on_mesh(self.mesh, self.cfg, self.serve, injector, None)
         self._fault = injector
         self.pool.fault_hook = None if injector is None else self._pool_fault
         if self.memory is not None:
@@ -614,7 +652,51 @@ class Engine:
                 f"{req.max_new_tokens} new tokens exceeds max_context "
                 f"{self.max_context}"
             )
-        self.scheduler.submit(req)
+        seq = self.scheduler.submit(req)
+        if self.mesh is not None and self.mesh.sharded:
+            self._agree_submit_time(seq)
+
+    def _agree_submit_time(self, seq: SeqState):
+        """Take rank 0's submit time for ``seq`` (and the deadline counted
+        from it), so that every rank orders its queue the same."""
+        t0 = self.mesh.broadcast_world(
+            torch.tensor([seq.t_submit], dtype=torch.float64, device=self.device))
+        shift = float(t0[0]) - seq.t_submit
+        if shift:
+            self.scheduler.waiting.remove(seq)
+            seq.t_submit += shift
+            seq.deadline += shift
+            rm = self.metrics._req(seq.seq_id)
+            rm.t_submit, rm.deadline = seq.t_submit, seq.deadline
+            self.scheduler._enqueue(seq)
+
+    # -- mesh: slots of this rank -------------------------------------------
+
+    def _owns(self, slot: int) -> bool:
+        """Whether this rank holds ``slot``'s cache rows."""
+        return self._r0 <= slot < self._r1
+
+    def _owner(self, slot: int) -> int:
+        """The data rank holding ``slot``'s cache rows."""
+        return slot // (self._r1 - self._r0)
+
+    @property
+    def _rows_split(self) -> bool:
+        return self._shard is not None and self._shard.rows_split
+
+    def _sync_seq_len(self):
+        """The host lengths of this rank's slots into the cache."""
+        self.cache["seq_len"].copy_(torch.from_numpy(self._seq_len[self._r0:self._r1]))
+
+    def _from_owner(self, slot: int, values) -> np.ndarray:
+        """``values`` (int64s) of the data rank owning ``slot``, on every
+        data rank (the owner's own where the rows are not split)."""
+        if not self._rows_split:
+            return np.asarray(values, np.int64)
+        t = torch.zeros((len(values),), dtype=torch.int64, device=self.device)
+        if self._owns(slot):
+            t.copy_(torch.as_tensor(np.asarray(values, np.int64)))
+        return self.mesh.broadcast_data(t, self._owner(slot)).cpu().numpy()
 
     def _install(self, adm: AdmitDecision):
         """Occupy the slot, cleared to a fresh cache's rows (no stale rows
@@ -622,19 +704,22 @@ class Engine:
         KV pages into its rows and, under sparse prefill, rebuild its score
         segment (the installed span never ran a chunk)."""
         seq = adm.seq
-        self.model.clear_slot(self.cache, adm.slot)
         self.slots[adm.slot] = seq
         self._seq_len[adm.slot] = adm.prefix_tokens
         self._tokens_buf[adm.slot] = 0
+        if not self._owns(adm.slot):
+            return
+        slot = adm.slot - self._r0
+        self.model.clear_slot(self.cache, slot)
         if adm.prefix_tokens:
             nP = adm.prefix_tokens // self.serve.page_size
             for l, e in enumerate(self.cache["layers"]):
-                e["k"][adm.slot, :, :nP] = torch.stack(
+                e["k"][slot, :, :nP] = torch.stack(
                     [kv["k"][l] for kv in adm.prefix_kv], dim=1)
-                e["v"][adm.slot, :, :nP] = torch.stack(
+                e["v"][slot, :, :nP] = torch.stack(
                     [kv["v"][l] for kv in adm.prefix_kv], dim=1)
             if self._sparse_prefill:
-                self.model.refresh_slot_score_rows(self.cache, adm.slot)
+                self.model.refresh_slot_score_rows(self.cache, slot)
 
     # -- prefill -------------------------------------------------------------
 
@@ -677,9 +762,11 @@ class Engine:
             else nullcontext()
         )
         with ctx:
-            logits, self.cache = self._rung_step_fns(rung)[1](
-                self.cache, seq.slot, buf, ch.offset, n
-            )
+            logits = None
+            if self._owns(seq.slot):
+                logits, self.cache = self._rung_step_fns(rung)[1](
+                    self.cache, seq.slot - self._r0, buf, ch.offset, n
+                )
             if self._telemetry_on and self._sparse_prefill:
                 self.metrics.on_prefill_sparsity(
                     self.cache["_ptel"].cpu().numpy(),
@@ -691,7 +778,7 @@ class Engine:
         self._seq_len[seq.slot] = ch.offset + n
         self.metrics.on_prefill(n)
         if ch.is_last:
-            self._finish_prefill(seq, logits[None])
+            self._finish_prefill(seq, None if logits is None else logits[None])
 
     def _prefill_monolithic(self, seq: SeqState):
         """Single-shot prefill (``prefill_chunk`` 0, or a request with prefix
@@ -709,13 +796,14 @@ class Engine:
         if prefix is not None:
             prefix = torch.as_tensor(prefix)[None]
         tokens = torch.as_tensor(np.asarray(seq.prefill_tokens, np.int64))[None]
-        logits, one = self.model.prefill(tokens, prefix,
-                                         max_context=self.max_context)
-        slot = seq.slot
-        for e, e1 in zip(self.cache["layers"], one["layers"]):
-            for name, t in e1.items():
-                e[name][slot] = t[0]
-        del one
+        slot, logits = seq.slot, None
+        if self._owns(slot):
+            logits, one = self.model.prefill(tokens, prefix,
+                                             max_context=self.max_context)
+            for e, e1 in zip(self.cache["layers"], one["layers"]):
+                for name, t in e1.items():
+                    e[name][slot - self._r0] = t[0]
+            del one
         self._seq_len[slot] = self.model.prefix_rows(seq.req.prefix_emb) + seq.n_prefill
         self.metrics.on_prefill(seq.n_prefill)
         self._finish_prefill(seq, logits)
@@ -731,7 +819,11 @@ class Engine:
             self.metrics.on_replay_token(seq.seq_id)
             resumed = True
         else:
-            first, fin = self._sample([seq.seq_id], [len(seq.req.output)], logits)
+            first, fin = np.zeros((1,), np.int64), np.ones((1,), bool)
+            if logits is not None:
+                first, fin = self._sample([seq.seq_id], [len(seq.req.output)],
+                                          logits)
+            first[0], fin[0] = self._from_owner(seq.slot, [first[0], fin[0]])
             if not fin[0]:
                 self.metrics.on_sampler_anomaly(1)
                 raise SamplerAnomaly([seq.seq_id], detail="prefill logits")
@@ -739,7 +831,8 @@ class Engine:
             resumed = False
         if self.scheduler._seq_chunkable(seq):
             # a monolithic prefill built the store itself
-            self.model.refresh_slot_store(self.cache, seq.slot)
+            if self._owns(seq.slot):
+                self.model.refresh_slot_store(self.cache, seq.slot - self._r0)
             if self.prefix_cache is not None:
                 tokens = seq.prefill_tokens
                 n_pages = len(tokens) // self.pool.page_size
@@ -764,15 +857,27 @@ class Engine:
     def _page_snapshot_fn(self, slot: int, n_pages: int):
         """Lazy snapshot of one slot's prompt-span KV, one page per call
         (copied on the device once, only if the insert adds new pages):
-        ``{"k": [n_layers, n_kv, page, hd], "v": ...}``."""
+        ``{"k": [n_layers, n_kv, page, hd], "v": ...}``.  On a mesh that
+        splits the rows, the owning data rank broadcasts it over ``data``
+        (every rank makes the same inserts, so every rank calls this at
+        once), each model rank its own heads' pages."""
         memo = {}
 
         def fn(i: int):
             if not memo:
                 for name in ("k", "v"):
-                    memo[name] = torch.stack(
-                        [e[name][slot, :, :n_pages] for e in self.cache["layers"]]
-                    )                                   # [L, n_kv, nP, ps, hd]
+                    layers = [e[name] for e in self.cache["layers"]]
+                    if self._owns(slot):
+                        memo[name] = torch.stack(
+                            [t[slot - self._r0, :, :n_pages] for t in layers]
+                        )                               # [L, n_kv, nP, ps, hd]
+                    else:
+                        t = layers[0]
+                        memo[name] = torch.empty(
+                            (len(layers), t.shape[1], n_pages) + t.shape[3:],
+                            dtype=t.dtype, device=t.device)
+                    if self._rows_split:
+                        self.mesh.broadcast_data(memo[name], self._owner(slot))
             return {"k": memo["k"][:, :, i], "v": memo["v"][:, :, i]}
 
         return fn
@@ -799,10 +904,17 @@ class Engine:
         non-finite row is one the injector poisoned."""
         if self._fault is not None:
             self._fault.check_raise("decode", tick=self.metrics.ticks)
-        self.cache["seq_len"].copy_(torch.from_numpy(self._seq_len))
+        self._sync_seq_len()
         logits, self.cache = self._rung_step_fns(rung)[0](
-            self.cache, torch.from_numpy(self._tokens_buf)
+            self.cache, torch.from_numpy(self._tokens_buf[self._r0:self._r1])
         )
+        if self._rows_split:
+            res["tokens"], res["finite"] = self._sample_rows(active, logits)
+            bad = np.flatnonzero(~res["finite"]).tolist()
+            if bad:
+                self.metrics.on_sampler_anomaly(len(bad))
+                raise SamplerAnomaly([active[i].seq_id for i in bad])
+            return
         lg = logits[[s.slot for s in active]]
         rows = []
         if self._fault is not None:
@@ -820,6 +932,25 @@ class Engine:
             self.metrics.on_sampler_anomaly(len(bad))
             raise SamplerAnomaly([active[i].seq_id for i in bad],
                                  injected=set(bad) <= set(rows))
+
+    def _sample_rows(self, active: List[SeqState], logits: torch.Tensor):
+        """Rows split over ``data``: sample this rank's ``active`` rows of
+        ``logits`` (this rank's slots), gather every data rank's (token,
+        finite) per slot -> (tokens, finite mask) of ``active``, in its
+        order, as numpy."""
+        mine = [s for s in active if self._owns(s.slot)]
+        rows = torch.tensor([s.slot - self._r0 for s in mine], dtype=torch.long,
+                            device=logits.device)
+        toks, fin = self._sample([s.seq_id for s in mine],
+                                 [len(s.req.output) for s in mine], logits[rows])
+        per_slot = np.zeros((self._r1 - self._r0, 2), np.int64)
+        per_slot[:, 1] = 1
+        for s, t, f in zip(mine, toks, fin):
+            per_slot[s.slot - self._r0] = (t, f)
+        full = self.mesh.gather_data(
+            torch.from_numpy(per_slot).to(self.device)).cpu().numpy()
+        idx = [s.slot for s in active]
+        return full[idx, 0], full[idx, 1].astype(bool)
 
     def _decode_tick(self) -> int:
         active = [s for s in self.slots if s is not None and s.state == DECODE]
@@ -892,7 +1023,7 @@ class Engine:
                     ):
                         self._take_checkpoint(seq)
         # host lengths are authoritative (the step advanced every slot)
-        self.cache["seq_len"].copy_(torch.from_numpy(self._seq_len))
+        self._sync_seq_len()
         return len(active)
 
     def step(self) -> int:
@@ -1100,3 +1231,25 @@ class Engine:
                     retired=list(self.finished[start:]),
                 )
         return list(self.finished[start:])
+
+
+def _refuse_on_mesh(mesh, cfg: ModelConfig, serve: ServeConfig, injector,
+                    telemetry):
+    """Raise ``NotImplementedError`` naming a feature the engine does not
+    serve on a mesh that splits anything (the model refuses the recurrent
+    families itself: :meth:`Transformer.with_mesh`)."""
+    if not mesh.sharded:
+        return
+    for refused, what in (
+        (serve.hbm_pages is not None, "tiered memory (hbm_pages)"),
+        (injector is not None,
+         "fault injection (and with it the ladder's lower rungs)"),
+        (cfg.moe is not None and mesh.shape[0] > 1,
+         "MoE over data > 1 (moe_ffn's groups and capacity follow the "
+         "local batch)"),
+        (bool(telemetry), "sparsity telemetry"),
+    ):
+        if refused:
+            raise NotImplementedError(
+                f"{what} on a sharded mesh (data={mesh.shape[0]}, "
+                f"model={mesh.shape[1]}) is not served")

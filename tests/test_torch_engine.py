@@ -135,7 +135,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
               "configs.musicgen_large", "models.rglru", "models.rwkv6",
               "configs.recurrentgemma_9b", "configs.rwkv6_3b", "training.data",
               "training.optimizer", "training.checkpoint", "training.train_loop",
-              "launch.train"):
+              "launch.train", "launch.mesh", "distributed.mesh",
+              "distributed.kernel_partition", "distributed.params"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -182,11 +183,15 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_engine_options_raise():
-    """A device mesh is not ported (tracing is: ``Engine(trace=...)``)."""
+    """A mesh is ported for the ``("attn",)`` stack; on a mesh that splits
+    the call, tiered memory is not (``tests/test_torch_mesh_serving.py``
+    holds every refusal)."""
     tb = t_smoke(t_get_config("llama3.2-3b"))
     cfg = dataclasses.replace(tb, sparse=dataclasses.replace(tb.sparse, **SPARSE))
+    from repro_torch.distributed.mesh import ServingMesh
     from repro_torch.models import Transformer
 
     model = Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TEngine(cfg, model, TServe(**SERVE), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="tiered memory"):
+        TEngine(cfg, model, TServe(**SERVE, hbm_pages=40, host_pages=20),
+                device="cpu", mesh=ServingMesh.local((1, 2)))

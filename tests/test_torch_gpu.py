@@ -1171,3 +1171,50 @@ def test_embedding_gradient_sums_repeats_in_f32(cuda):
     want = torch.zeros(embed.shape, dtype=torch.float64, device=cuda).index_add_(
         0, toks.flatten(), w.to(torch.bfloat16).double().reshape(-1, cfg.d_model))
     assert float((g.double() - want).norm() / want.norm()) <= 5e-2
+
+
+@pytest.mark.parametrize("data", [1, 2])
+def test_sharded_kernels_stitch_to_the_whole_call(cuda, data):
+    """Mesh serving's per-shard launches (``distributed.kernel_partition``'s
+    slices and splits, as the backends launch them)
+    at this file's shape (4 kv heads of group 3, B 4): at ``model`` 2 (and
+    ``data`` 1 or 2) every shard's ``fused_decode`` and ``sparse_prefill``
+    on its rows, its heads, its rows of the store and its layout, at the
+    whole call's split, stitch to the whole call's outputs bit for bit
+    (out, page table, valid; out, n_attended, selected blocks)."""
+    from repro_torch.distributed import kernel_partition as kp
+
+    blocks, g = LAYOUTS["nonuniform"], 3
+    sparse, la, gen, k, v = _inputs(cuda, blocks, 4, 128, 21, quant="int4_asym")
+    q = (torch.randn((4, 4 * g, 128), generator=gen, device=cuda)
+         * parity.QSCALE).to(torch.bfloat16)
+    pq = (torch.randn((4, 4 * g, 512, 128), generator=gen, device=cuda)
+          * parity.QSCALE).to(torch.bfloat16)
+    store = build_store_codes(k, la, sparse)
+    codes, sc, ze = build_score_rows(k, la, sparse)
+    ss = CentroidStore(codes, sc, ze, 4, False)
+    rq, prq = rank_query(q, "quest", 128), rank_query(pq, "quest", 128)
+    sl = torch.tensor((2048, 1500, 777, 40), dtype=torch.int32, device=cuda)
+    nv = torch.tensor((2048, 1900, 1600, 1537), dtype=torch.int32, device=cuda)
+    kw = dict(sink_pages=1, local_pages=4, block_q=64, topk_scale=1.0)
+    want_d = ops.fused_decode(q, rq, k, v, store, la, 1, 4, sl)
+    want_p = ops.sparse_prefill(pq, prq, k, v, ss, la, n_valid=nv, chunk_offset=1536,
+                                return_selected=True, **kw)
+    got_d = [torch.full_like(t, 7) for t in want_d]
+    got_p = [torch.full_like(t, 7) for t in want_p]
+    for _, s in kp.every_shard((data, 2), 4, 4):
+        t = lambda x, grp=1: s.take(x, 1, grp).contiguous()
+        sla, spq = kp.shard_layout(la, s.heads), t(pq, g)
+        dec = ops.fused_decode(t(q, g), t(rq, g), t(k), t(v),
+                               kp.shard_store(store, la, s, True), sla, 1, 4,
+                               s.take_rows(sl).contiguous(),
+                               n_split=kp.decode_split(s, la.selected_pages, cuda))
+        pre = ops.sparse_prefill(spq, t(prq, g), t(k), t(v),
+                                 kp.shard_store(ss, la, s, False), sla,
+                                 n_valid=s.take_rows(nv).contiguous(),
+                                 chunk_offset=1536, return_selected=True, **kw,
+                                 n_split=kp.prefill_split(s, spq, 64))
+        for dst, part, grp in zip(got_d + got_p, dec + pre, (g, 1, 1, g, 1, 1)):
+            s.take(dst, 1, grp).copy_(part)
+    for want, got in zip(want_d + want_p, got_d + got_p):
+        assert torch.equal(want, got)

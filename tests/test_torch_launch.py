@@ -14,12 +14,17 @@
 - ``--arch qwen1.5-4b --smoke`` serves to the end, and ``--arch`` takes
   every ``("attn",)`` decoder of the JAX package (dense, MoE, vision and
   audio);
-- ``--mesh`` exits with the message that multi-device serving is not
-  ported.
+- under ``torchrun`` (``python -m torch.distributed.run``) with 2 CPU
+  processes, ``--mesh 1,2`` prints the single-process launcher's token
+  streams; ``--mesh 2,2`` over 2 processes, or in one, exits with an error
+  naming the world size.
 """
 import dataclasses
 import json
+import os
+import subprocess
 import sys
+from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
@@ -29,6 +34,8 @@ from repro.launch import serve as jserve
 
 from repro_torch.launch import serve as tserve
 from repro_torch.obs import validate
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -186,10 +193,47 @@ def test_launcher_serves_another_arch(capsys):
 
 
 def test_mesh_is_not_ported(capsys):
+    """``--mesh`` with a shape that is not the world's (one process here)
+    exits with an error naming the world size."""
     with pytest.raises(SystemExit) as ei:
         tserve.main(["--smoke", "--device", "cpu", "--mesh", "2,2"])
     assert ei.value.code != 0
-    assert "multi-device serving is not ported" in capsys.readouterr().err
+    assert "needs 4 processes; the world size is 1" in capsys.readouterr().err
+
+
+LAUNCH = ["-m", "repro_torch.launch.serve", "--smoke", "--device", "cpu",
+          "--requests", "3", "--max-context", "256", "--max-batch", "2",
+          "--prefill-chunk", "64", "--new-tokens", "4", "--prefix-len", "32",
+          "--fused-decode", "--sparse-prefill", "--streams"]
+
+
+def _launch(args, nproc=None):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    run = ([] if nproc is None else
+           ["-m", "torch.distributed.run", "--standalone", f"--nproc-per-node={nproc}"])
+    if nproc is not None:
+        args = args[1:]       # torchrun takes the module after -m
+        run += ["-m"]
+    return subprocess.run([sys.executable] + run + args, cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_torchrun_mesh_streams_equal_one_process():
+    """Two gloo processes at ``--mesh 1,2`` print the streams of one
+    process without a mesh, once (rank 0); ``--mesh 2,2`` over two
+    processes names the world size."""
+    one = _launch(LAUNCH)
+    two = _launch(LAUNCH + ["--mesh", "1,2"], nproc=2)
+    assert one.returncode == 0, one.stderr[-2000:]
+    assert two.returncode == 0, two.stderr[-3000:]
+    streams = lambda out: [l for l in out.splitlines() if l.startswith("stream ")]
+    assert len(streams(one.stdout)) == 3
+    assert streams(two.stdout) == streams(one.stdout)
+    assert "serving mesh: data=1, model=2 (2 processes on cpu)" in two.stdout
+    assert two.stdout.count("accounting clean") == 1
+    bad = _launch(LAUNCH + ["--mesh", "2,2"], nproc=2)
+    assert bad.returncode != 0
+    assert "mesh 2,2 needs 4 processes; the world size is 2" in bad.stderr
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-3b"])
