@@ -323,6 +323,17 @@ launched the pooling and scoring kernels and called no plain version.
    eager, tokens equal.  c) with n >= 2 cards only: the same at (1, n)
    over NCCL, one process a card; else logged as alone.
 
+15. (after phase 14; ``abstract_phase``) the wrappers' abstract rules
+   (``repro_torch.analysis``).  a) every kernel's entry point called on
+   phase 2's real inputs (the fused decode's, the sparse prefill chunk's,
+   both staged stores, the staged page table, the serving and calibration
+   keys, the masked scores, a flash chunk at ``FLASH_CHUNK_OFF`` with an
+   int and a tensor key length), then on fake copies of them under
+   ``FakeTensorMode``: output shapes, dtypes and devices equal for all
+   eight kernels, each real call one launch, the fake ones none.  b)
+   ``repro_torch.analysis.contracts.run_contracts(device="cuda")``: 6
+   cells on fake CUDA tensors, 0 failures.  Under 20 s.
+
 The next-to-last lines are the card and the ``{"kernels": [...]}`` record;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
@@ -5384,6 +5395,85 @@ def mesh_phase(torch, dev, dec, pre, out_dir):
     return res
 
 
+def abstract_calls(torch, dev, dec, pre, scored, att, pool, topk):
+    """Phase 15 a)'s calls: (kernel, entry point, args, kwargs) on phase 2's
+    real inputs, every TPU kernel at least once."""
+    from repro_torch.kernels import block_centroid, ops
+
+    q, rq, k, v, store, la, sink, local, seq_len = dec["args"]
+    pq, prq, pk, pv, ss, pla, sparse, n_valid, off = pre["args"]
+    fq, fk, fv = flash_chunk_inputs(torch, dev, seed=12)
+    k_len = torch.full((1,), FLASH_CHUNK_OFF + CHUNK, dtype=torch.int32, device=dev)
+    return [
+        ("fused_decode", ops.fused_decode, dec["args"], {}),
+        ("sparse_prefill", ops.sparse_prefill,
+         (pq, prq, pk, pv, ss, pla, sparse.sink_pages, sparse.local_pages,
+          sparse.prefill_block_q, sparse.prefill_topk_scale, n_valid, off),
+         {"return_selected": True}),
+        ("centroid_scores_quantized", ops.centroid_scores,
+         (rq, scored["int4_asym"]["store"], la, N_KV), {}),
+        ("centroid_scores_f32", ops.centroid_scores,
+         (rq, scored["none"]["store"], la, N_KV), {}),
+        ("paged_attention", ops.paged_attention,
+         (q, k, v, att["table"], att["valid"], PS, seq_len), {}),
+        ("pool_rank_keys", block_centroid.pool_rank_keys, (pool["k_serve"], 32, "quest"),
+         {}),
+        ("pool_rank_keys", block_centroid.pool_rank_keys, (pool["k_cal"], 16, "arkvale"),
+         {}),
+        ("topk_threshold", ops.topk_threshold, (topk["scores"], la), {}),
+        ("flash_attention", ops.flash_attention,
+         (fq, fk, fv, True, FLASH_CHUNK_OFF, FLASH_CHUNK_OFF + CHUNK), {}),
+        ("flash_attention", ops.flash_attention,
+         (fq, fk, fv, True, FLASH_CHUNK_OFF, k_len), {}),
+    ]
+
+
+def abstract_phase(torch, dev, calls):
+    """Phase 15: a) each call of ``calls`` (:func:`abstract_calls`) real,
+    then on fake copies: equal output specs, one launch against none; b)
+    the contract grid on fake CUDA tensors."""
+    from repro_torch import kernels
+    from repro_torch.analysis import contracts
+
+    t0 = time.perf_counter()
+    rows, bad = {}, []
+    for name, fn, args, kw in calls:
+        kernels.reset_counts()
+        real = contracts.output_specs(fn(*args, **kw))
+        torch.cuda.synchronize()
+        after_real = kernels.counts()
+        fake = contracts.abstract_call(fn, *args, **kw)
+        moved = kernels.counts() != after_real
+        launched = after_real[name]["launches"]
+        others = sum(c["launches"] + c["plain_calls"] for c in after_real.values())
+        if not (real == fake and launched == 1 and others == 1 and not moved):
+            bad.append(f"{name}: abstract specs equal to the kernel's {real == fake}, "
+                       f"the real call's launches {launched} of {others} counted "
+                       f"(want 1 of 1), the fake copy moved the counters {moved}")
+        rows.setdefault(name, []).append({"specs": real, "equal": real == fake,
+                                          "launches": launched,
+                                          "abstract_moved_counts": moved})
+    for name, calls_of in rows.items():
+        log(f"phase 15 a) {name}: {len(calls_of)} call(s), output specs (shape, "
+            f"dtype, device) {[c['specs'] for c in calls_of]}, abstract equal "
+            f"{[c['equal'] for c in calls_of]}, real launches "
+            f"{[c['launches'] for c in calls_of]}, abstract moved the counters "
+            f"{[c['abstract_moved_counts'] for c in calls_of]}")
+    if bad:
+        fail("phase 15 a): " + "; ".join(bad))
+    t1 = time.perf_counter()
+    report = contracts.run_contracts(device="cuda")
+    for f in report["failures"]:
+        log(f"phase 15 b) FAIL {f}")
+    log(f"phase 15 b) contracts: {report['cells']} cells on fake "
+        f"{report['fake_device']} tensors, {report['n_failures']} failure(s), "
+        f"{time.perf_counter() - t1:.1f}s")
+    if report["n_failures"] or report["cells"] != 6 or report["fake_device"] != "cuda":
+        fail("phase 15 b): the contract grid failed on fake CUDA tensors")
+    return {"a": rows, "a_seconds": t1 - t0, "b_cells": report["cells"],
+            "b_failures": report["n_failures"], "b_seconds": time.perf_counter() - t1}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5512,6 +5602,9 @@ def main() -> int:
     phase_done("13")
     mesh = mesh_phase(torch, dev, dec, pre, out_dir)
     phase_done("14")
+    abstract = abstract_phase(torch, dev, abstract_calls(torch, dev, dec, pre, scored,
+                                                         att, pool, topk))
+    phase_done("15")
     log(f"phase 6 summary (ms; busy = device-busy ms per step): "
         f"{json.dumps({ARCH: paths['step'], QWEN: qwen['step']})}")
     tiered = paths["tiered"]
@@ -5600,6 +5693,7 @@ def main() -> int:
     log(f"phase 12 summary ({card}): " + json.dumps(rec))
     log(f"phase 13 summary ({card}): " + json.dumps(train))
     log(f"phase 14 summary ({card}): " + json.dumps(mesh))
+    log(f"phase 15 summary ({card}): " + json.dumps(abstract))
     for k in kernels_line:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         log(f"{k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "

@@ -7,6 +7,7 @@ from repro_torch.backends.base import (
     CentroidStore,
     CudaBackend,
     ReferenceBackend,
+    available_backends,
     build_plan,
     get_backend,
     register_backend,
@@ -22,6 +23,7 @@ __all__ = [
     "CudaBackend",
     "DenseBackend",
     "ReferenceBackend",
+    "available_backends",
     "build_plan",
     "get_backend",
     "register_backend",

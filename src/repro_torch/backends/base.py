@@ -406,8 +406,12 @@ def get_backend(name: str) -> AttentionBackend:
     except KeyError:
         raise KeyError(
             f"unknown attention backend {name!r}; available: "
-            f"{tuple(sorted(_REGISTRY))}"
+            f"{available_backends()}"
         ) from None
+
+
+def available_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
 
 
 register_backend(ReferenceBackend())

@@ -21,7 +21,6 @@ scoring launch and one selection per (layer, sample, candidate).
 from __future__ import annotations
 
 import dataclasses
-import functools
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -30,10 +29,10 @@ import torch
 
 from repro_torch.backends import get_backend
 from repro_torch.core.centroids import rank_query
-from repro_torch.core.ragged import RaggedLayout, uniform_layout
+from repro_torch.core.ragged import uniform_layout
 from repro_torch.core.recall import attention_probs, recall_from_mask
 from repro_torch.core.selection import pages_to_token_mask, select_page_table
-from repro_torch.core.stacked import LayoutArrays, as_arrays
+from repro_torch.core.stacked import as_arrays
 from repro_torch.models import resolve_device
 
 
@@ -122,11 +121,6 @@ def make_model_like_batch(
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=16)
-def _layout_arrays(layout: RaggedLayout, device: torch.device) -> LayoutArrays:
-    return as_arrays(layout, device)
-
-
 def head_recall_at_block_size(
     q: torch.Tensor,               # [D], or [N, D] for N heads at once
     keys: torch.Tensor,            # [S, D], or [N, S, D]
@@ -148,7 +142,7 @@ def head_recall_at_block_size(
     qs, ks = q.reshape(-1, D), keys.reshape(-1, S, D)
     n = qs.shape[0]
     layout = uniform_layout(1, block_size, S, page_size, token_budget)
-    la = _layout_arrays(layout, keys.device)
+    la = as_arrays(layout, keys.device)
     be = get_backend(backend)
     store = be.build_store(ks[:, None], layout, method, quant=quant)
     rq = rank_query(qs[:, None], method, D)                     # [N, 1, Dp]

@@ -95,3 +95,25 @@ def rank_query(q: torch.Tensor, method: str, head_dim: int) -> torch.Tensor:
         raise ValueError(f"unknown centroid method {method!r}")
     pad = padded_rank_key_width(head_dim, method) - rq.shape[-1]
     return F.pad(rq, (0, pad)) if pad else rq
+
+
+def reference_block_score(
+    q: torch.Tensor, keys: torch.Tensor, block_size: int, method: str
+) -> torch.Tensor:
+    """Each method's score formula taken directly, without rank keys (the
+    oracle the unified formulation is held to): q ``[D]``, keys ``[S, D]``
+    -> f32 scores ``[S / block_size]``."""
+    S, D = keys.shape
+    blocks = keys.reshape(S // block_size, block_size, D).to(torch.float32)
+    q = q.to(torch.float32)
+    if method == "mean":
+        return torch.einsum("d,nd->n", q, blocks.mean(dim=1))
+    cmax, cmin = blocks.amax(dim=1), blocks.amin(dim=1)
+    if method == "quest":
+        return torch.maximum(q * cmax, q * cmin).sum(dim=-1)
+    if method == "arkvale":
+        center = 0.5 * (cmax + cmin)
+        radius = ((blocks - center[:, None, :]) ** 2).sum(-1).amax(-1).sqrt()
+        return (torch.einsum("d,nd->n", q, center)
+                + torch.linalg.vector_norm(q) * radius)
+    raise ValueError(f"unknown centroid method {method!r}")

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.ragged import RaggedLayout
 from repro_torch.core.stacked import LayoutArrays
 
 NEG_INF = -1e30
@@ -182,3 +183,10 @@ def pages_to_token_mask(
                        device=page_table.device)
     hits.scatter_add_(-1, tbl.clamp(0, n_pages - 1), ok.to(torch.int32))
     return (hits > 0).repeat_interleave(la.page_size, dim=-1)
+
+
+def uniform_token_budget_check(layout: RaggedLayout) -> int:
+    """Tokens every head attends: ``selected_pages * page_size`` (the
+    uniform-budget invariant; :attr:`RaggedLayout.selected_pages` raises
+    when the heads' page counts differ)."""
+    return layout.selected_pages * layout.page_size

@@ -29,6 +29,17 @@ def as_dense(kv: torch.Tensor) -> torch.Tensor:
     return kv.reshape(B, n_kv, n_pages * page, D)
 
 
+def gather_pages(kv: torch.Tensor, page_table: torch.Tensor,
+                 page_size: int) -> torch.Tensor:
+    """Paged (or dense) kv and a page table ``[B, n_kv, P_sel]`` -> the
+    selected pages' rows ``[B, n_kv, P_sel * page_size, D]`` (the reference
+    gather; the kernels read the pages in place)."""
+    paged = as_paged(kv, page_size)
+    B, n_kv, _, ps, D = paged.shape
+    idx = page_table.long()[..., None, None].expand(-1, -1, -1, ps, D)
+    return torch.gather(paged, 2, idx).reshape(B, n_kv, -1, D)
+
+
 def dense_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            seq_len=None) -> torch.Tensor:
     """Full-attention decode oracle: q ``[B, n_q, D]`` over every key of
@@ -66,9 +77,8 @@ def paged_attention_reference(
     n_kv = kp.shape[1]
     g = n_q // n_kv
     P = page_table.shape[-1]
-    idx = page_table.long()[..., None, None].expand(-1, -1, -1, page_size, D)
-    sel_k = torch.gather(kp, 2, idx).reshape(B, n_kv, P * page_size, D)
-    sel_v = torch.gather(vp, 2, idx).reshape(B, n_kv, P * page_size, D)
+    sel_k = gather_pages(kp, page_table, page_size)
+    sel_v = gather_pages(vp, page_table, page_size)
     pos = page_table[..., None] * page_size + torch.arange(
         page_size, device=q.device, dtype=torch.int32
     )

@@ -75,7 +75,14 @@ class LayoutArrays:
 
 
 def _t(x, dtype=torch.int32, device=None) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    a = np.asarray(x)
+    if torch._guards.detect_fake_mode() is not None:
+        # under FakeTensorMode (the contract verifier) a descriptor is its
+        # shape: no host values ride along, so a step that reads one on the
+        # host fails as a host sync, and a device this build lacks is no
+        # obstacle (the mode would move a numpy-made host tensor for real)
+        return torch.empty(a.shape, dtype=dtype, device=device)
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def as_arrays(layout: RaggedLayout, device=None) -> LayoutArrays:

@@ -45,6 +45,33 @@ CACHE_AXES: Dict[str, Tuple[Optional[str], ...]] = {
 ROW_AXIS_ENTRIES = ("codes", "pcodes", "pscale", "pzero")
 
 
+#: entries planted on purpose that the table leaves replicated, each with
+#: its reason
+PLANTED_CACHE_ENTRIES: Dict[str, str] = {
+    "la": "each layer's layout descriptors (LayoutArrays), a rank's own "
+          "from kernel_partition.shard_layout",
+    "max_context": "a Python int, the rows the cache holds",
+    "shard": "the rank's Shard, plain data",
+    "_telemetry": "decode sparsity counters [n_layers, B, 4], read once a tick",
+    "_ptel": "prefill attended-pair counters [n_layers], read once a chunk",
+    "_sel_pages": "tiered memory's selected-page mask [B, n_pages]",
+    "_pre_pages": "tiered memory's predicted-page mask [B, n_pages]",
+}
+
+
+def cache_entry_covered(name: str, ndim: int) -> bool:
+    """True when cache entry ``name`` of ``ndim`` dims is held by
+    :data:`CACHE_AXES` at that rank, or planted on purpose
+    (:data:`PLANTED_CACHE_ENTRIES`): anything else would fall through
+    :func:`logical_axes_for_cache`'s replicate-by-default, which for a new
+    KV entry is a memory-scaling bug, not a default (JAX's
+    ``cache_leaf_covered``)."""
+    if name in PLANTED_CACHE_ENTRIES:
+        return True
+    axes = CACHE_AXES.get(name)
+    return axes is not None and len(axes) == ndim
+
+
 def logical_axes_for_cache(name: str, ndim: int) -> Tuple[Optional[str], ...]:
     """Logical axes of cache entry ``name`` of ``ndim`` dims (replicated,
     all None, for an entry the table does not hold or of another rank)."""

@@ -7,6 +7,17 @@ file name carries a hash of the source, every header under ``csrc`` and
 the flags, so an edited source or header is never served from a stale
 library.  :func:`build_all` starts one ``nvcc`` per source at once and
 waits for all of them.
+
+Every wrapper also has an abstract rule, the counterpart of
+``pallas_call``'s abstract evaluation: given a fake tensor
+(``FakeTensorMode``) or a ``meta`` tensor (:func:`is_abstract`), it runs
+its argument checks (:func:`expect`, the head_dim / group / bits limits,
+:func:`expect_rows` but for the addresses, which a fake tensor does not
+have) and returns empty outputs of the kernel's shapes, dtypes and device,
+before any library is loaded, any SM count is read or any address taken;
+it counts neither a launch nor a plain call.  The shared-memory check
+(:func:`check_smem`) needs the built library, so the abstract rule skips
+it.
 """
 from __future__ import annotations
 
@@ -134,7 +145,7 @@ def expect_rows(Dp: int, what: str, **tensors):
     if Dp % 32:
         raise ValueError(f"{what}: rank-key width {Dp} is not a multiple of 32")
     for name, t in tensors.items():
-        if t is not None and t.data_ptr() % 16:
+        if t is not None and not is_abstract(t) and t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} is not 16-byte aligned")
 
 
@@ -148,3 +159,12 @@ def expect(t, dtype, shape, device, name: str):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def is_abstract(*tensors) -> bool:
+    """True when any of ``tensors`` (None skipped) is a fake tensor or lies
+    on ``meta``: the wrapper then takes its abstract rule."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return any(t is not None and (t.device.type == "meta" or is_fake(t))
+               for t in tensors)

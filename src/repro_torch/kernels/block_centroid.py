@@ -59,22 +59,26 @@ def pool_plan(n_rows: int, seq_len: int, head_dim: int, block_size: int) -> dict
 def pool_rank_keys(keys: torch.Tensor, block_size: int, method: str) -> torch.Tensor:
     """keys ``[B, Hg, S, D]`` (f32 or bf16) -> lane-padded f32 rank keys
     ``[B, Hg, S / block_size, Dp]``: mean, quest [max, min] or arkvale
-    [center, radius], zeros in the pad lanes."""
+    [center, radius], zeros in the pad lanes.  On a fake or meta tensor:
+    the abstract rule (``_build``)."""
     if method not in METHODS:
         raise ValueError(f"unknown centroid method {method!r}")
     B, Hg, S, D = keys.shape
     if S % block_size:
         raise ValueError(f"pool_rank_keys: sequence length {S} is not a "
                          f"multiple of the block size {block_size}")
-    if keys.device.type == "cpu":
+    abstract = _build.is_abstract(keys)
+    if keys.device.type == "cpu" and not abstract:
         return pool_rank_keys_plain(keys, block_size, method)
     global launches
     if keys.dtype not in _DTYPES:
         raise TypeError(f"pool_rank_keys kernel takes f32 or bf16 keys, got {keys.dtype}")
-    if not keys.is_contiguous() or keys.data_ptr() % 16:
+    if not keys.is_contiguous() or (not abstract and keys.data_ptr() % 16):
         raise ValueError("keys must be contiguous and 16-byte aligned")
     plan = pool_plan(B * Hg, S, D, block_size)
     Dp = padded_rank_key_width(D, method)
+    if abstract:
+        return keys.new_empty((B, Hg, S // block_size, Dp), dtype=torch.float32)
     out = torch.empty((B, Hg, S // block_size, Dp), dtype=torch.float32,
                       device=keys.device)
     fn = _launcher(_build.load("pool_rank_keys"))

@@ -66,7 +66,8 @@ def centroid_scores_f32(
 
 def _scores(name, rq, codes, scale, zero, tile_head, tile_rows, bits,
             symmetric, n_kv=None):
-    if rq.device.type == "cpu":
+    abstract = _build.is_abstract(rq, codes, scale, zero, tile_head)
+    if rq.device.type == "cpu" and not abstract:
         return centroid_scores_plain(rq, codes, scale, zero, tile_head,
                                      tile_rows, bits=bits, symmetric=symmetric,
                                      n_kv=n_kv)
@@ -90,6 +91,8 @@ def _scores(name, rq, codes, scale, zero, tile_head, tile_rows, bits,
             f"n_q={n_q}, n_kv={n_kv}, rows={rows}, tile_rows={tile_rows})"
         )
     _build.expect_rows(Dp, name, codes=codes, scale=scale, zero=zero)
+    if abstract:
+        return rq.new_empty((B, rows), dtype=torch.float32)
     out = torch.empty((B, rows), dtype=torch.float32, device=dev)
     lib = _build.load("centroid_score")
     fn = _launcher(lib)

@@ -40,8 +40,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, Hkv, Sk, D]`` -> ``[B, Hq, Sq, D]`` in q's dtype (bf16 on the
     card).  Key j is attended when ``j < k_len`` and, if ``causal``,
     ``j <= q_offset + i``.  ``k_len``: None (all Sk keys), an int, or an
-    int32 tensor ``[B]``; each in ``[1, Sk]``."""
-    if q.device.type == "cpu":
+    int32 tensor ``[B]``; each in ``[1, Sk]``.  On fake or meta tensors: the
+    abstract rule (``_build``)."""
+    abstract = _build.is_abstract(
+        q, k, v, k_len if isinstance(k_len, torch.Tensor) else None)
+    if q.device.type == "cpu" and not abstract:
         return flash_attention_plain(q, k, v, causal, q_offset, k_len)
     global launches
     B, Hq, Sq, D = q.shape
@@ -57,14 +60,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
-    k_ptr, k_all = None, Sk
+    k_all = Sk
     if isinstance(k_len, torch.Tensor):
         expect(k_len, torch.int32, (B,), dev, "k_len")
-        k_ptr, k_all = k_len.data_ptr(), 0
+        k_all = 0
     elif k_len is not None:
         k_all = int(k_len)
         if not 1 <= k_all <= Sk:
             raise ValueError(f"flash_attention: k_len {k_all} not in [1, {Sk}]")
+    if abstract:
+        return q.new_empty(q.shape)
+    k_ptr = k_len.data_ptr() if isinstance(k_len, torch.Tensor) else None
     out = torch.empty_like(q)
     fn = _launcher(_build.load("flash_attention"))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), k_ptr,

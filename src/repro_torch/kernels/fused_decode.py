@@ -66,8 +66,11 @@ def fused_decode(
     """-> (out [B, n_q, D], page_table [B, n_kv, P_sel] int32,
     page_valid [B, n_kv, P_sel] bool); slots hold the selected blocks in
     ascending block order.  ``n_split`` forces the kernel's number of slot
-    runs (default :func:`split_plan`); the plain version ignores it."""
-    if q.device.type == "cpu":
+    runs (default :func:`split_plan`); the plain version ignores it.  On
+    fake or meta tensors: the abstract rule (``_build``)."""
+    abstract = _build.is_abstract(q, rq, k_pages, v_pages, codes, scale, zero,
+                                  seq_len)
+    if q.device.type == "cpu" and not abstract:
         return fused_decode_plain(
             q, rq, k_pages, v_pages, codes, scale, zero, la, seq_len,
             bits=bits, symmetric=symmetric, sink_pages=sink_pages,
@@ -103,10 +106,13 @@ def fused_decode(
         raise ValueError("fused_decode: inconsistent head / page / row shapes")
     _build.expect_rows(Dp, "fused_decode", codes=codes, scale=scale, zero=zero)
     P = la.selected_pages
-    if n_split is None:
+    if n_split is None and not abstract:
         n_split = split_plan(B, n_kv, P, _sm_count(dev))
-    if not 1 <= n_split <= P:
+    if n_split is not None and not 1 <= n_split <= P:
         raise ValueError(f"fused_decode: n_split {n_split} not in [1, {P}]")
+    if abstract:
+        return (q.new_empty(q.shape), q.new_empty((B, n_kv, P), dtype=torch.int32),
+                q.new_empty((B, n_kv, P), dtype=torch.bool))
     out = torch.empty_like(q)
     table = torch.empty((B, n_kv, P), dtype=torch.int32, device=dev)
     valid = torch.empty((B, n_kv, P), dtype=torch.bool, device=dev)

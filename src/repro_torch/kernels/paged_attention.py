@@ -69,8 +69,10 @@ def paged_attention(
     """-> ``[B, n_q, D]`` in q's dtype: softmax over the tokens of the valid
     pages at positions ``< seq_len``.  ``n_split`` forces the kernel's
     number of slot runs (default :func:`split_plan`); the plain version
-    ignores it."""
-    if q.device.type == "cpu":
+    ignores it.  On fake or meta tensors: the abstract rule (``_build``)."""
+    abstract = _build.is_abstract(q, k_pages, v_pages, page_table, page_valid,
+                                  seq_len)
+    if q.device.type == "cpu" and not abstract:
         return paged_attention_plain(q, k_pages, v_pages, page_table,
                                      page_valid, seq_len, page_size)
     global launches
@@ -92,10 +94,12 @@ def paged_attention(
         )
     if ps != page_size:
         raise ValueError(f"paged_attention: pages of {ps} tokens, page_size {page_size}")
-    if n_split is None:
+    if n_split is None and not abstract:
         n_split = split_plan(B, n_kv, P, _sm_count(dev))
-    if not 1 <= n_split <= max(1, P):
+    if n_split is not None and not 1 <= n_split <= max(1, P):
         raise ValueError(f"paged_attention: n_split {n_split} not in [1, {max(1, P)}]")
+    if abstract:
+        return q.new_empty(q.shape)
     out = torch.empty_like(q)
     rows = B * n_kv * n_split * g if n_split > 1 else 0
     part_ml = torch.empty((rows, 2), dtype=torch.float32, device=dev)

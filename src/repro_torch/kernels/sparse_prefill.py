@@ -154,8 +154,10 @@ def sparse_prefill(
     ``return_selected`` the selected blocks ``[B, n_kv, nQB, max_blocks]``
     bool as a third element.  ``n_split`` forces the number of key-tile
     runs per cell (default :func:`prefill_split_plan`); the plain version
-    ignores it."""
-    if q.device.type == "cpu":
+    ignores it.  On fake or meta tensors: the abstract rule (``_build``)."""
+    abstract = _build.is_abstract(q, rq, k_pages, v_pages, codes, scale, zero,
+                                  k_sel, n_valid)
+    if q.device.type == "cpu" and not abstract:
         return sparse_prefill_plain(
             q, rq, k_pages, v_pages, codes, scale, zero, la, k_sel, n_valid,
             qb0, bits=bits, symmetric=symmetric, block_q=block_q,
@@ -191,11 +193,17 @@ def sparse_prefill(
     if ps != la.page_size or rows != la.total_rows:
         raise ValueError("sparse_prefill: inconsistent page / row shapes")
     _build.expect_rows(Dp, "sparse_prefill")
-    if n_split is None:
+    if n_split is None and not abstract:
         n_split = prefill_split_plan(B * n_kv * nQB, g * BQ, _sm_count(dev), D)
-    if n_split < 1:
+    if n_split is not None and n_split < 1:
         raise ValueError(f"sparse_prefill: n_split {n_split} < 1")
     M = la.max_blocks
+    if abstract:
+        n_att = q.new_empty((B, n_kv, nQB), dtype=torch.int32)
+        if return_selected:
+            return (q.new_empty(q.shape), n_att,
+                    q.new_empty((B, n_kv, nQB, M), dtype=torch.bool))
+        return q.new_empty(q.shape), n_att
     jb = candidate_rows_bound(la, int(qb0), nQB, BQ, local_pages)
     out = torch.empty_like(q)
     n_att = torch.empty((B, n_kv, nQB), dtype=torch.int32, device=dev)

@@ -36,19 +36,26 @@ def reset_counts():
 def topk_threshold(scores: torch.Tensor, k_per_head):
     """scores ``[B, H, M]`` f32 (pads at -inf or -1e30), ``k_per_head``
     ``[H]`` with ``1 <= K_h <= M`` (checked when given on the host) ->
-    (threshold ``[B, H]`` f32, count_gt ``[B, H]`` int32)."""
+    (threshold ``[B, H]`` f32, count_gt ``[B, H]`` int32).  On a fake or
+    meta tensor: the abstract rule (``_build``)."""
     B, H, M = scores.shape
     if not torch.is_tensor(k_per_head):
         ks = np.asarray(k_per_head)
         if ks.shape != (H,) or not ((ks >= 1) & (ks <= M)).all():
             raise ValueError(f"k_per_head {ks} must hold {H} values in [1, {M}]")
-    k = torch.as_tensor(k_per_head, dtype=torch.int32, device=scores.device)
-    if scores.device.type == "cpu":
+    abstract = _build.is_abstract(scores)
+    if scores.device.type == "cpu" and not abstract:
+        k = torch.as_tensor(k_per_head, dtype=torch.int32, device=scores.device)
         return topk_threshold_plain(scores, k)
     global launches
     dev = scores.device
     expect(scores, torch.float32, (B, H, M), dev, "scores")
-    k = k.reshape(H).contiguous()
+    if torch.is_tensor(k_per_head) and k_per_head.numel() != H:
+        raise ValueError(f"k_per_head has {k_per_head.numel()} values, not {H}")
+    if abstract:
+        return (scores.new_empty((B, H)),
+                scores.new_empty((B, H), dtype=torch.int32))
+    k = torch.as_tensor(k_per_head, dtype=torch.int32, device=dev).reshape(H).contiguous()
     lib = _build.load("topk_threshold")
     fn = _launcher(lib)
     _build.check_smem(lib.topk_threshold_smem_bytes(M), "topk_threshold")

@@ -130,9 +130,12 @@ def _save_dots():
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; CUDA must be present when asked for."""
+    """``device`` as a torch.device; CUDA must be present when asked for,
+    unless a ``FakeTensorMode`` is active (the contract verifier's fake
+    CUDA tensors, which allocate nothing)."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if (dev.type == "cuda" and not torch.cuda.is_available()
+            and torch._guards.detect_fake_mode() is None):
         raise RuntimeError(
             "CUDA is not available: pass device='cpu' to run the plain "
             "versions of the kernels on the CPU"

@@ -200,7 +200,7 @@ class AsyncFrontend:
                     # clock (async-vs-sync token identity is asserted on
                     # tick-exact interleavings).  Off-loop execution via
                     # to_thread would unorder submits relative to ticks.
-                    self.engine.step()  # noqa: RPR004
+                    self.engine.step()  # noqa: RPR004, RPT004
                     self.ticks += 1
                     self._pump()
                     if self.on_tick is not None:

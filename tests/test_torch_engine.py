@@ -136,7 +136,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
               "configs.recurrentgemma_9b", "configs.rwkv6_3b", "training.data",
               "training.optimizer", "training.checkpoint", "training.train_loop",
               "launch.train", "launch.mesh", "distributed.mesh",
-              "distributed.kernel_partition", "distributed.params"):
+              "distributed.kernel_partition", "distributed.params",
+              "core.estimation", "analysis.pragmas", "analysis.rules",
+              "analysis.lint", "analysis.contracts"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"
